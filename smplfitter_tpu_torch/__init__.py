@@ -1,0 +1,20 @@
+"""smplfitter_tpu_torch: the SMPL forward pass and closed-form fit in PyTorch.
+
+A port of ``smplfitter_tpu`` (JAX/Pallas on a TPU) to PyTorch with
+hand-written CUDA kernels for NVIDIA Hopper (``csrc/``). It imports no JAX.
+On CPU tensors every kernel runs as its plain PyTorch twin; on CUDA tensors
+the kernels are compiled with ``nvcc`` on first use.
+"""
+
+from __future__ import annotations
+
+__version__ = '0.1.0'
+
+from .ops.precision import use_true_f32
+
+use_true_f32()
+
+from .models.bodymodel import BodyModel  # noqa: E402
+from .models.bodyfitter import BodyFitter  # noqa: E402
+
+__all__ = ['BodyModel', 'BodyFitter', '__version__']

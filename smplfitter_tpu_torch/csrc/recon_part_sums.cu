@@ -1,0 +1,190 @@
+// K4: reconstruction from the cached posed template, fused into per-part sums.
+//
+// Replaces the TPU kernel smplfitter_tpu/ops/lbs_kernels.py:_recon_cached_kernel
+// (launcher _recon_cached_impl, API recon_part_sums_cached_lm). Per vertex v
+// and batch column: hfull_c = homog_c + SD_v[c, :] . x, pos = blended [R|t] .
+// hfull, and with p(v) the vertex's body part (one-hot membership pm),
+//     raw[c*3+d, p, :] += t_c pos_d,  s_t[c, p, :] += t_c,  s_a[d, p, :] += pos_d.
+//
+// What bounds it on an H100: f32 arithmetic of the blend (12J FMAs per vertex
+// and column; ~19 GFLOP at SMPL b4096), fed from shared memory; the cached
+// template and the targets are read once (~0.2 GB).
+//
+// Design: pm is one-hot over vertices, so instead of a (J x V) membership
+// product every vertex adds into exactly one part. The host lists each part's
+// vertices and cuts the lists into segments of at most 512; a block owns
+// (segment, 32 batch columns), keeps the batch tile's [R|t] entries in shared
+// memory, and each of its 8 warps walks every 8th group of 4 vertices with the
+// 15 per-part sums in registers (one batch column per lane). Vertices outside
+// every part cost nothing. The warps' sums are combined in warp order, each
+// segment writes one partial, and a second kernel sums a part's segments in
+// order, so runs repeat bit for bit (no float atomics). The batch edge is
+// masked, so any B works.
+#include <cuda_runtime.h>
+
+#define SMPL_API extern "C" __attribute__((visibility("default")))
+
+namespace {
+
+constexpr int NT = 256;
+constexpr int TB4 = 32;          // batch columns per block (one per lane)
+constexpr int NW = NT / TB4;     // warps per block
+constexpr int VQ = 4;            // vertices per warp step
+constexpr int MAXE = 16;         // E <= 16
+constexpr int NS = 15;           // sums per part: raw (9), s_t (3), s_a (3)
+
+__global__ void __launch_bounds__(NT)
+recon_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
+                      const float* __restrict__ x, const float* __restrict__ sd,
+                      const float* __restrict__ homog, const float* __restrict__ w,
+                      const int* __restrict__ verts, const int* __restrict__ seg_offset,
+                      float* __restrict__ part, int J, int E, int B, int Vt, int Vp) {
+  extern __shared__ float smem[];
+  float* pj_s = smem;                 // [12][J][TB4]
+  float* red_s = pj_s + 12 * J * TB4; // [NW][NS][TB4]
+  const int lane = threadIdx.x % TB4, wid = threadIdx.x / TB4;
+  const int b0 = blockIdx.x * TB4;
+  const int b = b0 + lane;
+  const bool live = b < B;
+  const int seg = blockIdx.y;
+  const int beg = seg_offset[seg];
+  const int n = seg_offset[seg + 1] - beg;
+
+  for (int idx = threadIdx.x; idx < 12 * J * TB4; idx += NT) {
+    const int c = idx % TB4, xj = idx / TB4;
+    pj_s[idx] = (b0 + c < B) ? pj[(size_t)xj * B + b0 + c] : 0.f;
+  }
+  float xr[MAXE];
+#pragma unroll
+  for (int e = 0; e < MAXE; ++e) xr[e] = (e < E && live) ? x[(size_t)e * B + b] : 0.f;
+  __syncthreads();
+
+  float acc[NS];
+#pragma unroll
+  for (int r = 0; r < NS; ++r) acc[r] = 0.f;
+
+  for (int i0 = wid * VQ; i0 < n; i0 += NW * VQ) {
+    int vq[VQ];
+    bool okq[VQ];
+#pragma unroll
+    for (int q = 0; q < VQ; ++q) {
+      okq[q] = i0 + q < n;
+      vq[q] = okq[q] ? verts[beg + i0 + q] : 0;
+    }
+    float hf[3][VQ], tq[3][VQ];
+#pragma unroll
+    for (int q = 0; q < VQ; ++q) {
+      const int v = vq[q];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float hv = live ? homog[((size_t)c * Vp + v) * B + b] : 0.f;
+        const float* sdv = sd + ((size_t)c * Vp + v) * E;
+#pragma unroll
+        for (int e = 0; e < MAXE; ++e)
+          if (e < E) hv = fmaf(__ldg(&sdv[e]), xr[e], hv);
+        hf[c][q] = hv;
+        tq[c][q] = (live && okq[q] && v < Vt) ? tgt[((size_t)c * Vt + v) * B + b] : 0.f;
+      }
+    }
+    float pos[3][VQ];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int q = 0; q < VQ; ++q) pos[a][q] = 0.f;
+    for (int j = 0; j < J; ++j) {
+      float wq[VQ];
+#pragma unroll
+      for (int q = 0; q < VQ; ++q) wq[q] = __ldg(&w[(size_t)vq[q] * J + j]);
+      float p[12];
+#pragma unroll
+      for (int xx = 0; xx < 12; ++xx) p[xx] = pj_s[(xx * J + j) * TB4 + lane];
+#pragma unroll
+      for (int q = 0; q < VQ; ++q)
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float t = fmaf(p[a * 4 + 0], hf[0][q],
+                          fmaf(p[a * 4 + 1], hf[1][q],
+                          fmaf(p[a * 4 + 2], hf[2][q], p[a * 4 + 3])));
+          pos[a][q] = fmaf(wq[q], t, pos[a][q]);
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < VQ; ++q) {
+      if (!okq[q]) continue;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+#pragma unroll
+        for (int d = 0; d < 3; ++d) acc[c * 3 + d] = fmaf(tq[c][q], pos[d][q], acc[c * 3 + d]);
+        acc[9 + c] += tq[c][q];
+        acc[12 + c] += pos[c][q];
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < NS; ++r) red_s[(wid * NS + r) * TB4 + lane] = acc[r];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < NS * TB4; idx += NT) {
+    const int r = idx / TB4, c = idx % TB4;
+    float s = 0.f;
+    for (int g = 0; g < NW; ++g) s += red_s[(g * NS + r) * TB4 + c];
+    if (b0 + c < B) part[((size_t)seg * NS + r) * B + b0 + c] = s;
+  }
+}
+
+// Sums each part's segment partials in segment order into raw / s_t / s_a.
+__global__ void recon_part_sum_kernel(const float* __restrict__ part,
+                                      const int* __restrict__ part_seg, float* __restrict__ raw,
+                                      float* __restrict__ st, float* __restrict__ sa, int J,
+                                      int B) {
+  const size_t n = (size_t)J * B;
+  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
+       idx += (size_t)gridDim.x * blockDim.x) {
+    const int j = (int)(idx / B);
+    const int b = (int)(idx % B);
+    const int s0 = part_seg[j], s1 = part_seg[j + 1];
+#pragma unroll
+    for (int r = 0; r < NS; ++r) {
+      float s = 0.f;
+      for (int sg = s0; sg < s1; ++sg) s += part[((size_t)sg * NS + r) * B + b];
+      if (r < 9) raw[((size_t)r * J + j) * B + b] = s;
+      else if (r < 12) st[((size_t)(r - 9) * J + j) * B + b] = s;
+      else sa[((size_t)(r - 12) * J + j) * B + b] = s;
+    }
+  }
+}
+
+}  // namespace
+
+SMPL_API size_t recon_part_sums_smem_bytes(int J) {
+  return sizeof(float) * (12 * J * TB4 + NW * NS * TB4);
+}
+
+// tgt (3, Vt, B), pj (12, J, B), x (E, B), sd (3, Vp, E), homog (3, Vp, B),
+// w (Vp, J); verts: the used vertices grouped by part; seg_offset (n_seg + 1):
+// segment bounds in verts; part_seg (J + 1): each part's segment range ->
+// raw (9, J, B), st (3, J, B), sa (3, J, B); part is scratch of n_seg * 15 * B floats.
+SMPL_API int recon_part_sums_launch(const float* tgt, const float* pj, const float* x,
+                                    const float* sd, const float* homog, const float* w,
+                                    const int* verts, const int* seg_offset,
+                                    const int* part_seg, float* raw, float* st, float* sa,
+                                    float* part, int J, int E, int B, int Vt, int Vp,
+                                    int n_seg, cudaStream_t stream) {
+  if (E > MAXE) return (int)cudaErrorInvalidValue;
+  if (n_seg > 0) {
+    const size_t smem = recon_part_sums_smem_bytes(J);
+    cudaError_t err = cudaFuncSetAttribute(
+        recon_segments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((B + TB4 - 1) / TB4, n_seg);
+    recon_segments_kernel<<<grid, NT, smem, stream>>>(tgt, pj, x, sd, homog, w, verts,
+                                                      seg_offset, part, J, E, B, Vt, Vp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const size_t n = (size_t)J * B;
+  const int threads = 256;
+  recon_part_sum_kernel<<<(int)((n + threads - 1) / threads), threads, 0, stream>>>(
+      part, part_seg, raw, st, sa, J, B);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,218 @@
+"""SMPL-family body model forward pass in PyTorch, ported from
+``smplfitter_tpu.models.bodymodel``.
+
+Forward kinematics runs level-batched over the kinematic tree (one gather,
+3x3 product and scatter per tree level), and the pose-blend plus skinning runs
+as one extended-LBS kernel (:func:`~smplfitter_tpu_torch.ops.lbs_kernels.lbs_points`)
+over component-major operands precomputed on the host at construction.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import lbs_kernels
+from ..ops import rotation as rot_ops
+from ..utils import modeldata as _modeldata
+
+
+@functools.lru_cache(maxsize=None)
+def tree_levels(kintree_parents: tuple) -> tuple:
+    """Partition joints 1..J-1 into kinematic-tree levels (root excluded).
+
+    All joints in a level have parents in strictly earlier levels, so each level
+    can be updated with one batched gather/matmul/scatter.
+    """
+    J = len(kintree_parents)
+    depth = [0] * J
+    for i in range(1, J):
+        depth[i] = depth[kintree_parents[i]] + 1
+    max_depth = max(depth) if J > 1 else 0
+    return tuple(
+        tuple(i for i in range(J) if depth[i] == d) for d in range(1, max_depth + 1)
+    )
+
+
+def index_tensor(values, device) -> torch.Tensor:
+    """A static index list as a cached int64 tensor on ``device`` (so gathers by
+    a constant index copy nothing from the host per call)."""
+    return _cached_index(tuple(int(v) for v in values), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_index(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+def fk_rotations(parents: tuple, rel_rotmats: torch.Tensor) -> torch.Tensor:
+    """Compose parent-relative rotations into global ones, level by level.
+
+    rel_rotmats: (B, J, 3, 3) -> glob_rotmats: (B, J, 3, 3).
+    """
+    dev = rel_rotmats.device
+    glob = rel_rotmats.clone()
+    for level in tree_levels(parents):
+        js = index_tensor(level, dev)
+        ps = index_tensor([parents[i] for i in level], dev)
+        glob[:, js] = rot_ops.matmul3x3(glob[:, ps], rel_rotmats[:, js])
+    return glob
+
+
+def fk_positions(parents: tuple, glob_rotmats: torch.Tensor, bones: torch.Tensor) -> torch.Tensor:
+    """Accumulate joint positions down the tree, level by level.
+
+    ``bones``: (B, J, 3) parent-to-joint offsets in the shaped T-pose (the root
+    entry is the root position itself). Returns (B, J, 3) global positions.
+    """
+    dev = bones.device
+    pos = bones.clone()
+    for level in tree_levels(parents):
+        js = index_tensor(level, dev)
+        ps = index_tensor([parents[i] for i in level], dev)
+        pos[:, js] = pos[:, ps] + rot_ops.matvec3(glob_rotmats[:, ps], bones[:, js])
+    return pos
+
+
+class BodyModel(nn.Module):
+    """SMPL-family body model. Constants are float32 buffers on ``device``.
+
+    ``BodyModel(model_name, gender, model_root, num_betas, device=...)`` loads
+    the model files like the JAX package; :meth:`from_model_data` builds it
+    from an already loaded :class:`~smplfitter_tpu_torch.utils.modeldata.ModelData`.
+    """
+
+    def __init__(self, model_name: str = 'smpl', gender: str = 'neutral',
+                 model_root: Optional[str] = None, num_betas: Optional[int] = None,
+                 *, device='cpu'):
+        super().__init__()
+        data = _modeldata.initialize(model_name, gender, model_root, num_betas)
+        self._init_from_data(data, model_name, gender, device)
+
+    @classmethod
+    def from_model_data(cls, data: _modeldata.ModelData, model_name: str = 'smpl',
+                        gender: str = 'neutral', *, device='cpu') -> 'BodyModel':
+        """Build the model from a :class:`ModelData` of numpy arrays (the
+        weights carried over from the JAX package's ``BodyModel.model_data``)."""
+        obj = cls.__new__(cls)
+        nn.Module.__init__(obj)
+        obj._init_from_data(data, model_name, gender, device)
+        return obj
+
+    def _init_from_data(self, data: _modeldata.ModelData, model_name, gender, device) -> None:
+        self.model_name = model_name
+        self.gender = gender
+        # Host copy for the fitter's numpy precompute.
+        self.model_data = data
+        self.kintree_parents = tuple(int(p) for p in data.kintree_parents)
+        self.num_joints = data.num_joints
+        self.num_vertices = data.num_vertices
+        self.num_betas = int(data.shapedirs.shape[2])
+        self.faces = data.faces
+        self.joint_names = data.joint_names
+
+        def buf(name, x):
+            self.register_buffer(
+                name, torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device))
+
+        for name in ('v_template', 'shapedirs', 'posedirs', 'J_regressor_post_lbs',
+                     'J_template', 'J_shapedirs', 'kid_shapedir', 'kid_J_shapedir', 'weights'):
+            buf(name, getattr(data, name))
+
+        # Extended-LBS kernel operands: zero-row-padded skinning weights
+        # (V_pad, J) and the component-major homogeneous template projector
+        # (4, V_pad, P + 1 + S + 1) ordered [posedirs | v_template | shapedirs |
+        # kid_shapedir], with a homogeneous row that is 0 except v_template's 1.
+        V = data.v_template.shape[0]
+        v_pad = -(-V // lbs_kernels.VC) * lbs_kernels.VC
+
+        def pad_rows(x):
+            return np.concatenate([x, np.zeros((v_pad - V,) + x.shape[1:], x.dtype)], axis=0)
+
+        v_template4 = np.concatenate([np.asarray(data.v_template), np.ones((V, 1))], axis=1)
+        posedirs4 = np.concatenate(
+            [np.asarray(data.posedirs), np.zeros((V, 1, data.posedirs.shape[2]))], axis=1)
+        sd4 = np.concatenate(
+            [np.asarray(data.shapedirs), np.zeros((V, 1, data.shapedirs.shape[2]))], axis=1)
+        kid4 = np.concatenate([np.asarray(data.kid_shapedir), np.zeros((V, 1))], axis=1)
+        consts = np.concatenate(
+            [posedirs4, v_template4[:, :, None], sd4, kid4[:, :, None]], axis=2)
+        buf('lbs_weights_pad', pad_rows(np.asarray(data.weights)))
+        buf('lbs_consts', pad_rows(consts).transpose(1, 0, 2))
+
+    @property
+    def device(self) -> torch.device:
+        return self.v_template.device
+
+    def as_f32(self, x) -> torch.Tensor:
+        """An input as a float32 tensor on the model's device (numpy inputs are
+        copied, so read-only arrays are fine)."""
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.float32)
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=self.device)
+
+    def forward(self, pose_rotvecs=None, shape_betas=None, trans=None,
+                kid_factor=None) -> dict:
+        """Vertices (B, V, 3), joints (B, J, 3) and global orientations
+        (B, J, 3, 3) for a batch of pose rotation vectors (B, 3J), betas
+        (B, <= S), translations (B, 3) and kid factors (B,)."""
+        batch_sizes = [x.shape[0] for x in (pose_rotvecs, shape_betas, trans)
+                       if x is not None]
+        if not batch_sizes:
+            raise ValueError('At least one argument must be given to determine the batch size.')
+        if any(b != batch_sizes[0] for b in batch_sizes[1:]):
+            raise ValueError('The batch sizes must be equal.')
+        B = batch_sizes[0]
+        J = self.num_joints
+        parents = self.kintree_parents
+        dev = self.device
+
+        if pose_rotvecs is None:
+            rel = torch.eye(3, device=dev).expand(B, J, 3, 3)
+        else:
+            rel = rot_ops.rotvec2mat(self.as_f32(pose_rotvecs).reshape(B, J, 3))
+        glob = fk_rotations(parents, rel)
+
+        betas = (torch.zeros((B, 0), device=dev) if shape_betas is None
+                 else self.as_f32(shape_betas))
+        nb = min(betas.shape[1], self.num_betas)
+        betas = betas[:, :nb]
+        kid = (torch.zeros((1,), device=dev) if kid_factor is None
+               else self.as_f32(kid_factor).reshape(-1))
+        trans = (torch.zeros((1, 3), device=dev) if trans is None
+                 else self.as_f32(trans))
+
+        j = (self.J_template
+             + torch.einsum('jcs,bs->bjc', self.J_shapedirs[:, :, :nb], betas)
+             + torch.einsum('jc,b->bjc', self.kid_J_shapedir, kid))
+        parent1 = index_tensor(parents[1:], dev)
+        j_parent = torch.cat([torch.zeros_like(j[:, :1]), j[:, parent1]], dim=1)
+        glob_pos = fk_positions(parents, glob, j - j_parent)
+
+        # Kernel operands: per-joint [R|t] (12, J, B) and the homogeneous
+        # feature (F, B) = [pose feature; 1; betas; kid], with the projector
+        # narrowed to the betas in use.
+        S = self.num_betas
+        base = self.posedirs.shape[2] + 1
+        consts = self.lbs_consts
+        if nb < S:
+            consts = torch.cat([consts[:, :, :base + nb], consts[:, :, base + S:]], dim=2)
+        translations = glob_pos - rot_ops.matvec3(glob, j) + trans[:, None]
+        pj_cm = torch.cat([glob, translations[..., None]], dim=3).permute(2, 3, 1, 0)
+        pj_cm = pj_cm.reshape(12, J, B).contiguous()
+        feat = torch.cat([
+            rel[:, 1:].reshape(B, (J - 1) * 9),
+            torch.ones((B, 1), device=dev),
+            betas,
+            kid.reshape(-1, 1).expand(B, 1),
+        ], dim=1).T.contiguous()
+        verts_vm = lbs_kernels.lbs_points(pj_cm, feat, self.lbs_weights_pad, consts)
+        return dict(
+            vertices=lbs_kernels.from_vertex_major(verts_vm, self.num_vertices),
+            joints=glob_pos + trans[:, None],
+            orientations=glob,
+        )

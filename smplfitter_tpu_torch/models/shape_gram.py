@@ -1,0 +1,212 @@
+"""Moment-tensor shape solve, ported from ``smplfitter_tpu.models.shape_gram``.
+
+The beta-Jacobian of every vertex has low-rank structure in the joints,
+
+    jac_v = Rbar_v . SD_v + Tbar_v,   Rbar_v = sum_j w_vj R_j,   Tbar_v = sum_j w_vj T_j,
+
+so every vertex sum of the normal equations factors through joint-pair
+moments of the static skinning weights and shape directions (``Ksd``,
+``Lz_e``, ``q``, ...), precomputed once per model in f64 on the host. Per
+call, one kernel (K2) reduces the residual over the vertices and another (K3)
+assembles each instance's Gramian from joint-space operands; the translation
+is eliminated jointly in a small augmented SPD system.
+
+Ported here: the unweighted, unscaled, non-shared solve with target joints.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import lbs_kernels
+from ..ops import rotation as rot_ops
+from ..ops.lstsq import solve_spd_unrolled
+from .bodymodel import index_tensor
+
+
+@dataclass
+class GramData:
+    """Per-model operands of the shape solve (float32 tensors on one device)."""
+
+    weights_pad: torch.Tensor  # (V_pad, J)
+    consts_pose: torch.Tensor  # (4, V_pad, P + 1): [posedirs4 | v_template4]
+    consts_full: torch.Tensor  # (4, V_pad, P + 1 + E): [... | sd4]
+    sd_cm: torch.Tensor  # (3, V_pad, E) shape directions, component-major
+    Ksd: torch.Tensor  # (9J^2, E^2)  sum_v w_vj w_vk SD_v (x) SD_v, rows ((j,c),(k,d))
+    Lz_e: torch.Tensor  # (3J, E*J)  sum_v w_vj w_vk SD_v with rows (j,c), cols (e,k)
+    sd1_2d: torch.Tensor  # (3J, E)  sum_v w_vj SD_v, rows (j,c)
+    q: torch.Tensor  # (J, J)  sum_v w_vj w_vk
+    W1_col: torch.Tensor  # (J, 1)  sum_v w_vj
+    n_ext: int  # E = number of betas
+
+
+def build_gram_data(weights: np.ndarray, shapedirs: np.ndarray, n_betas: int,
+                    v_template: np.ndarray, posedirs: np.ndarray, device='cpu') -> GramData:
+    """Host-side (f64) moment precompute; ``weights`` (V, J), ``shapedirs``
+    (V, 3, S), ``v_template`` (V, 3), ``posedirs`` (V, 3, P). Vertex order is
+    canonical; per-vertex operands are zero-row-padded to a multiple of 256."""
+    w = np.asarray(weights, np.float64)
+    SD = np.asarray(shapedirs, np.float64)[:, :, :n_betas]
+    V, J = w.shape
+    E = SD.shape[2]
+
+    v_template4 = np.concatenate([np.asarray(v_template), np.ones((V, 1))], axis=1)
+    posedirs4 = np.concatenate(
+        [np.asarray(posedirs), np.zeros((V, 1, posedirs.shape[2]))], axis=1)
+    sd4 = np.concatenate([SD, np.zeros((V, 1, E))], axis=1)
+
+    v_pad = -(-V // lbs_kernels.VC) * lbs_kernels.VC
+
+    def pad_rows(x):
+        return np.concatenate([x, np.zeros((v_pad - V,) + x.shape[1:])], axis=0)
+
+    consts_pose = pad_rows(
+        np.concatenate([posedirs4, v_template4[:, :, None]], axis=2)).transpose(1, 0, 2)
+    consts_full = pad_rows(
+        np.concatenate([posedirs4, v_template4[:, :, None], sd4], axis=2)).transpose(1, 0, 2)
+
+    # Msd[v, (j,c,e)] = w_vj SD_v[c,e]; Ksd regrouped to rows ((j,c),(k,d)) to
+    # match X = sum_a R_a R_a^T with R rows (j,c).
+    Msd = (w[:, :, None, None] * SD[:, None, :, :]).reshape(V, J * 3 * E)
+    K = (Msd.T @ Msd).reshape(J, 3, E, J, 3, E)
+    Ksd = K.transpose(0, 1, 3, 4, 2, 5).reshape(J * 3 * J * 3, E * E)
+    Lsd = (Msd.T @ w).reshape(J, 3, E, J).transpose(0, 3, 1, 2)  # (j, k, c, e)
+    sd1 = np.einsum('vj,vce->jce', w, SD)
+
+    def f32(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device)
+
+    return GramData(
+        weights_pad=f32(pad_rows(w)),
+        consts_pose=f32(consts_pose),
+        consts_full=f32(consts_full),
+        sd_cm=f32(pad_rows(SD).transpose(1, 0, 2)),
+        Ksd=f32(Ksd),
+        Lz_e=f32(np.transpose(Lsd, (0, 2, 3, 1)).reshape(J * 3, E * J)),
+        sd1_2d=f32(sd1.reshape(J * 3, E)),
+        q=f32(w.T @ w),
+        W1_col=f32(w.sum(axis=0).reshape(J, 1)),
+        n_ext=E,
+    )
+
+
+def _fk_ext_prelude(bm, plan, glob_lm) -> dict:
+    """Lane-major FK-extended quantities of a shape solve for global rotations
+    glob_lm (9, J, B). Keys: rel9 (9, J, B), rot_params_cols ((J-1)*9, B),
+    p_j (3, J, B), P4 (3, E, J, B), t_lm (3, J, B), T4 (3, E, J, B),
+    pj_cm (12, J, B), feat_cols (F, B)."""
+    from .bodyfitter import fk_positions_ext_lm  # bodyfitter imports this module
+
+    batch = glob_lm.shape[2]
+    J = bm.num_joints
+    dev = glob_lm.device
+
+    eye_col = torch.eye(3, device=dev).reshape(9, 1, 1).expand(9, 1, batch)
+    parent9 = torch.cat([eye_col, glob_lm[:, index_tensor(bm.kintree_parents[1:], dev)]], dim=1)
+    rel9 = rot_ops.matmul3x3_lm(parent9, glob_lm, transpose_a=True)
+    # Pose feature rows (j-major, entry-minor), matching rel.reshape(B, (J-1)*9).
+    rot_params_cols = rel9[:, 1:].permute(1, 0, 2).reshape((J - 1) * 9, batch)
+
+    pos4 = fk_positions_ext_lm(bm, plan, glob_lm)  # (3, 1+E, J, B)
+    p_j = pos4[:, 0]
+    P4 = pos4[:, 1:]
+    jte_lm = plan.J_template_ext[..., 0].T[:, :, None]  # (3, J, 1)
+    t_lm = torch.stack([
+        p_j[a] - sum(glob_lm[a * 3 + c] * jte_lm[c] for c in range(3)) for a in range(3)
+    ])
+    JTE_lm = plan.J_template_ext[..., 1:].permute(1, 2, 0)[..., None]  # (3, E, J, 1)
+    T4 = torch.stack([
+        P4[a] - sum(glob_lm[a * 3 + c][None] * JTE_lm[c] for c in range(3)) for a in range(3)
+    ])
+    pj_cm = torch.stack(
+        [glob_lm[a * 3 + c] if c < 3 else t_lm[a] for a in range(3) for c in range(4)])
+    feat_cols = torch.cat([rot_params_cols, torch.ones((1, batch), device=dev)], dim=0)
+    return dict(glob_lm=glob_lm, rel9=rel9, p_j=p_j, P4=P4, t_lm=t_lm, T4=T4,
+                pj_cm=pj_cm, feat_cols=feat_cols)
+
+
+def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
+                      beta_regularizer: float, beta_regularizer2: float,
+                      requested_keys=()) -> dict:
+    """Lane-major shape solve with target joints: rotations glob_lm (9, J, B),
+    targets tgt_vm (3, V, B) and tj_lm (3, J, B). Returns shape_betas (B, E),
+    trans (B, 3), trans_lm (3, B), relative_orientations_lm (9, J, B), and on
+    request joints_lm (3, J, B) and recon_spec (the K4 operands of the fitted
+    mesh: pj_cm, homog_vm, x_cols, sd_cm, weights_pad)."""
+    batch = glob_lm.shape[2]
+    J = bm.num_joints
+    E = gram.n_ext
+
+    pre = _fk_ext_prelude(bm, plan, glob_lm)
+    p_j, P4, T4 = pre['p_j'], pre['P4'], pre['T4']
+    rk, yk, homog_vm = lbs_kernels.rhs_moments_h(
+        tgt_vm, pre['pj_cm'], pre['feat_cols'], gram.weights_pad, gram.consts_pose,
+        gram.sd_cm)
+
+    R_cm = torch.stack([
+        torch.stack([glob_lm[a * 3 + c] for c in range(3)], dim=1).reshape(J * 3, batch)
+        for a in range(3)
+    ])  # (3, 3J, B), rows (j, c)
+    Gk, SAk, rbk, Sbk = lbs_kernels.gram_assembly(
+        R_cm, T4.reshape(3, E * J, batch), yk, P4.reshape(3, E * J, batch).contiguous(),
+        (tj_lm - p_j).contiguous(), gram.Ksd, gram.Lz_e, gram.sd1_2d, gram.q, gram.W1_col,
+        has_joints=True)
+    G = Gk.T.reshape(batch, E, E)
+    SA = SAk.T.reshape(batch, 3, E)
+    r = rk.T + rbk.T
+    Sb = Sbk.T
+    W = torch.full((batch,), float(bm.num_vertices + J), device=G.device)
+    return _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer,
+                       beta_regularizer2, requested_keys, homog_vm)
+
+
+def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regularizer2,
+                requested_keys, homog_vm) -> dict:
+    """Regularize and solve the augmented [betas, trans] system (B, E+3) and
+    build the lane-major result dict."""
+    glob_lm, p_j, P4, t_lm, T4 = (pre[k] for k in ('glob_lm', 'p_j', 'P4', 't_lm', 'T4'))
+    batch = glob_lm.shape[2]
+    E = gram.n_ext
+    n_betas = plan.n_betas
+    dev = G.device
+
+    l2 = torch.cat([
+        torch.full((2,), beta_regularizer2, device=dev),
+        torch.full((n_betas - 2,), beta_regularizer, device=dev),
+    ])
+    eyeW = W[:, None, None] * torch.eye(3, device=dev)
+    G_aug = torch.cat([
+        torch.cat([G, SA.transpose(1, 2)], dim=2),
+        torch.cat([SA, eyeW], dim=2),
+    ], dim=1)
+    G_aug = G_aug + torch.diag(torch.cat([l2, torch.zeros(3, device=dev)]))
+    # The regularizers pull towards zero betas, so the right side gets no pull term.
+    r_aug = torch.cat([r, Sb], dim=1)
+    sol = solve_spd_unrolled(G_aug, r_aug)
+
+    new_shape = sol[:, :n_betas]
+    new_trans = sol[:, E:]
+    result = dict(
+        shape_betas=new_shape,
+        trans=new_trans,
+        trans_lm=new_trans.T,
+        relative_orientations_lm=pre['rel9'],
+    )
+    x_T = new_shape.T.contiguous()  # (E, B)
+    if 'joints_lm' in requested_keys:
+        result['joints_lm'] = (
+            p_j + sum(P4[:, e] * x_T[e][None, None] for e in range(E))
+            + new_trans.T[:, None, :]
+        )
+    if 'recon_spec' in requested_keys:
+        t2 = t_lm + sum(T4[:, e] * x_T[e][None, None] for e in range(E)) + new_trans.T[:, None, :]
+        pj2_cm = torch.stack(
+            [glob_lm[a * 3 + c] if c < 3 else t2[a] for a in range(3) for c in range(4)])
+        result['recon_spec'] = dict(
+            pj_cm=pj2_cm, homog_vm=homog_vm, x_cols=x_T, sd_cm=gram.sd_cm,
+            weights_pad=gram.weights_pad,
+        )
+    return result

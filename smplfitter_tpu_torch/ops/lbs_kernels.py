@@ -1,0 +1,401 @@
+"""The fit's four kernels: launch wrappers, plain PyTorch twins, launch counts.
+
+Layouts follow ``smplfitter_tpu.ops.lbs_kernels``: per-vertex arrays are
+component-major ``(C, V, B)`` with the batch last (contiguous), per-joint
+``[R|t]`` entries are ``(12, J, B)`` with leading index ``a * 4 + c``.
+
+Every wrapper dispatches on the device of its inputs. CPU tensors go to the
+kernel's plain twin (``*_ref``, written in PyTorch ops in this module): that
+is how the CPU tests hold the port to the JAX package. CUDA tensors go to the
+hand-written kernel in ``csrc/`` (built on first use, see ``_build.py``), or
+the wrapper raises; there is no fallback from one to the other. Each kernel
+launch adds one to ``LAUNCHES[<name>]``.
+
+| wrapper                     | CUDA source                 | replaces (JAX package)        |
+|-----------------------------|-----------------------------|-------------------------------|
+| lbs_points                  | csrc/lbs_points.cu          | _lbs_points_kernel (K1)       |
+| rhs_moments_h               | csrc/rhs_moments.cu         | _rhs_kernel, emit_homog (K2)  |
+| gram_assembly               | csrc/gram_assembly.cu       | _gram_kernel (K3)             |
+| recon_part_sums_cached_lm   | csrc/recon_part_sums.cu     | _recon_cached_kernel (K4)     |
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import _build
+
+LAUNCHES = {
+    'lbs_points': 0,
+    'rhs_moments_h': 0,
+    'gram_assembly': 0,
+    'recon_part_sums_cached': 0,
+}
+
+# Row padding of the per-vertex constant operands (weights_pad, consts, sd_cm).
+# The kernels mask by row index and need none; it is kept equal to the JAX
+# package's vertex chunk so the precomputed fields compare directly.
+VC = 256
+
+_TV = 64  # vertex tile of the LBS kernels (csrc/lbs_tile.cuh)
+_TB = 64  # batch tile of the LBS kernels
+_SEG = 512  # max vertices per part segment of the recon kernel
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def to_vertex_major(x: torch.Tensor) -> torch.Tensor:
+    """(B, V, 3) -> (3, V, B), contiguous, canonical vertex order."""
+    return x.permute(2, 1, 0).contiguous()
+
+
+def from_vertex_major(x_vm: torch.Tensor, num_vertices: int) -> torch.Tensor:
+    """(3, V_pad, B) -> (B, V, 3) view of the first ``num_vertices`` rows."""
+    return x_vm[:, :num_vertices].permute(2, 1, 0)
+
+
+# ---------------------------------------------------------------------------
+# Argument checks and launch plumbing
+# ---------------------------------------------------------------------------
+
+
+def _on_cuda(name: str, **tensors) -> bool:
+    """Validate dtype/contiguity/device of a kernel's operands; True for CUDA."""
+    devices = set()
+    for arg, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f'{name}: {arg} must be a torch.Tensor')
+        if t.dtype != torch.float32:
+            raise TypeError(f'{name}: {arg} must be float32, got {t.dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: {arg} must be contiguous')
+        devices.add(t.device)
+    if len(devices) != 1:
+        raise ValueError(f'{name}: operands on several devices: {sorted(map(str, devices))}')
+    device = devices.pop()
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {device}')
+    return device.type == 'cuda'
+
+
+def _expect(name: str, arg: str, t: torch.Tensor, shape) -> None:
+    if t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f'{name}: {arg} has shape {tuple(t.shape)}, expected {shape}')
+
+
+def _ptr(t: torch.Tensor) -> int:
+    return t.data_ptr()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _vertex_splits(Vp: int, B: int, device) -> tuple[int, int]:
+    """(vertex tiles per block, number of vertex splits) of the rhs kernel:
+    enough splits of the vertex axis that the grid holds about four blocks
+    per SM."""
+    n_vtiles = -(-Vp // _TV)
+    grid_x = -(-B // _TB)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(n_vtiles, math.ceil(4 * sms / grid_x)))
+    tiles_per_block = -(-n_vtiles // want)
+    return tiles_per_block, -(-n_vtiles // tiles_per_block)
+
+
+def _apply_blend(blend: torch.Tensor, homog: torch.Tensor) -> torch.Tensor:
+    """pos_a = sum_c blend[a*4+c] homog_c + blend[a*4+3] -> (3, V, B)."""
+    return torch.stack([
+        blend[a * 4] * homog[0] + blend[a * 4 + 1] * homog[1]
+        + blend[a * 4 + 2] * homog[2] + blend[a * 4 + 3]
+        for a in range(3)
+    ])
+
+
+# ---------------------------------------------------------------------------
+# K1: extended LBS -> points
+# ---------------------------------------------------------------------------
+
+
+def lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad):
+    """Plain twin of :func:`lbs_points`."""
+    homog = torch.einsum('cvf,fb->cvb', consts_pad[:3], feat_cols)
+    blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
+    return _apply_blend(blend, homog).contiguous()
+
+
+def lbs_points(pj_cm, feat_cols, weights_pad, consts_pad):
+    """Extended LBS: the per-joint ``[R|t]`` (12, J, B) blended by the skinning
+    weights (V_pad, J) and applied to the homogeneous template
+    ``consts_pad[c] @ feat_cols`` (c = 0..2; channel 3 is 1) -> (3, V_pad, B)."""
+    name = 'lbs_points'
+    cuda = _on_cuda(name, pj_cm=pj_cm, feat_cols=feat_cols, weights_pad=weights_pad,
+                    consts_pad=consts_pad)
+    _, J, B = pj_cm.shape
+    F = feat_cols.shape[0]
+    Vp = weights_pad.shape[0]
+    _expect(name, 'pj_cm', pj_cm, (12, J, B))
+    _expect(name, 'feat_cols', feat_cols, (F, B))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    if consts_pad.shape[0] < 3:
+        raise ValueError(f'{name}: consts_pad needs at least 3 channels')
+    if not cuda:
+        return lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad)
+    lib = _build.library()
+    out = torch.empty((3, Vp, B), dtype=torch.float32, device=pj_cm.device)
+    err = lib.lbs_points_launch(
+        _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad), _ptr(out),
+        J, B, F, Vp, 4, _stream(out))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: residual moments of the shape solve, emitting the posed template
+# ---------------------------------------------------------------------------
+
+
+def rhs_moments_h_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
+    """Plain twin of :func:`rhs_moments_h`."""
+    v_t = tgt_vm.shape[1]
+    homog = torch.einsum('cvf,fb->cvb', consts_pad[:3], feat_cols)
+    blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
+    pos = _apply_blend(blend, homog)
+    b = torch.zeros_like(pos)
+    b[:, :v_t] = tgt_vm - pos[:, :v_t]
+    y = torch.einsum('vj,avb->ajb', weights_pad, b)
+    g = torch.stack([sum(blend[a * 4 + c] * b[a] for a in range(3)) for c in range(3)])
+    r = torch.einsum('cve,cvb->eb', sd_cm, g)
+    return r.contiguous(), y.contiguous(), homog.contiguous()
+
+
+def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
+    """Residual projection of the shape solve.
+
+    With pos = the extended LBS of :func:`lbs_points` and b = tgt - pos (zero
+    past the target's V rows): r (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T b_v)_c,
+    y (3, J, B) = sum_v w_vj b_v, and the posed template homog (3, V_pad, B)."""
+    name = 'rhs_moments_h'
+    cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
+                    weights_pad=weights_pad, consts_pad=consts_pad, sd_cm=sd_cm)
+    _, J, B = pj_cm.shape
+    F = feat_cols.shape[0]
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    E = sd_cm.shape[2]
+    _expect(name, 'tgt_vm', tgt_vm, (3, v_t, B))
+    _expect(name, 'pj_cm', pj_cm, (12, J, B))
+    _expect(name, 'feat_cols', feat_cols, (F, B))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    _expect(name, 'sd_cm', sd_cm, (3, Vp, E))
+    if v_t > Vp:
+        raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
+    if consts_pad.shape[0] < 3:
+        raise ValueError(f'{name}: consts_pad needs at least 3 channels')
+    if not cuda:
+        return rhs_moments_h_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm)
+    lib = _build.library()
+    dev = tgt_vm.device
+    tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
+    r = torch.empty((E, B), dtype=torch.float32, device=dev)
+    y = torch.empty((3, J, B), dtype=torch.float32, device=dev)
+    homog = torch.empty((3, Vp, B), dtype=torch.float32, device=dev)
+    part = torch.empty((n_splits, 3 * J + E, B), dtype=torch.float32, device=dev)
+    err = lib.rhs_moments_launch(
+        _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
+        _ptr(sd_cm), _ptr(r), _ptr(y), _ptr(homog), _ptr(part),
+        J, B, F, E, v_t, Vp, tiles_per_block, _stream(r))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return r, y, homog
+
+
+# ---------------------------------------------------------------------------
+# K3: per-instance Gramian assembly
+# ---------------------------------------------------------------------------
+
+
+def gram_assembly_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
+                      has_joints: bool = False):
+    """Plain twin of :func:`gram_assembly` (``gram_assembly_ref`` of the JAX package)."""
+    _, J3, B = R_cm.shape
+    E = sd1_2d.shape[1]
+    X = torch.einsum('ajb,akb->jkb', R_cm, R_cm).reshape(J3 * J3, B)
+    G = ksd.T @ X  # (E*E, B)
+    T3 = T_cm.reshape(3, E, -1, B)
+    Z3 = torch.einsum('jx,ajb->axb', lz, R_cm).reshape(3, E, -1, B)
+    M1 = torch.einsum('aejb,afjb->efb', Z3, T3)
+    Q3 = torch.einsum('jk,aekb->aejb', q, T3)
+    M2 = torch.einsum('aejb,afjb->efb', Q3, T3)
+    G = G + (M1 + M1.transpose(0, 1) + M2).reshape(E * E, B)
+    SA = torch.einsum('je,ajb->aeb', sd1_2d, R_cm) + torch.einsum('j,aejb->aeb', w1[:, 0], T3)
+    rb = torch.einsum('aejb,ajb->eb', T3, y_cm)
+    Sb = y_cm.sum(dim=1)
+    if has_joints:
+        P3 = P_cm.reshape(3, E, -1, B)
+        G = G + torch.einsum('aejb,afjb->efb', P3, P3).reshape(E * E, B)
+        SA = SA + P3.sum(dim=2)
+        rb = rb + torch.einsum('aejb,ajb->eb', P3, bJ_cm)
+        Sb = Sb + bJ_cm.sum(dim=1)
+    return G.contiguous(), SA.reshape(3 * E, B).contiguous(), rb.contiguous(), Sb.contiguous()
+
+
+def gram_assembly(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
+                  has_joints: bool = False):
+    """Per-instance Gramian of the shape solve (see :func:`gram_assembly_ref`).
+
+    R_cm (3, 3J, B) rotations, rows (j, c); T_cm (3, E*J, B) joint translation
+    Jacobian columns, rows (e, j); y_cm (3, J, B) from :func:`rhs_moments_h`;
+    P_cm (3, E*J, B), bJ_cm (3, J, B) the joints block (any (3, 1, B) dummies
+    when ``has_joints`` is False); ksd (9J^2, E^2), lz (3J, E*J),
+    sd1_2d (3J, E), q (J, J), w1 (J, 1) static moments.
+    Returns G (E^2, B), SA (3E, B), rb (E, B), Sb (3, B)."""
+    name = 'gram_assembly'
+    cuda = _on_cuda(name, R_cm=R_cm, T_cm=T_cm, y_cm=y_cm, P_cm=P_cm, bJ_cm=bJ_cm, ksd=ksd,
+                    lz=lz, sd1_2d=sd1_2d, q=q, w1=w1)
+    _, J3, B = R_cm.shape
+    J = J3 // 3
+    E = sd1_2d.shape[1]
+    _expect(name, 'R_cm', R_cm, (3, 3 * J, B))
+    _expect(name, 'T_cm', T_cm, (3, E * J, B))
+    _expect(name, 'y_cm', y_cm, (3, J, B))
+    if has_joints:
+        _expect(name, 'P_cm', P_cm, (3, E * J, B))
+        _expect(name, 'bJ_cm', bJ_cm, (3, J, B))
+    _expect(name, 'ksd', ksd, (J3 * J3, E * E))
+    _expect(name, 'lz', lz, (J3, E * J))
+    _expect(name, 'sd1_2d', sd1_2d, (J3, E))
+    _expect(name, 'q', q, (J, J))
+    _expect(name, 'w1', w1, (J, 1))
+    if not cuda:
+        return gram_assembly_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
+                                 has_joints)
+    if E > 16:
+        raise ValueError(f'{name}: the kernel takes E <= 16, got {E}')
+    lib = _build.library()
+    dev = R_cm.device
+    G = torch.empty((E * E, B), dtype=torch.float32, device=dev)
+    SA = torch.empty((3 * E, B), dtype=torch.float32, device=dev)
+    rb = torch.empty((E, B), dtype=torch.float32, device=dev)
+    Sb = torch.empty((3, B), dtype=torch.float32, device=dev)
+    err = lib.gram_assembly_launch(
+        _ptr(R_cm), _ptr(T_cm), _ptr(y_cm), _ptr(P_cm), _ptr(bJ_cm), _ptr(ksd), _ptr(lz),
+        _ptr(sd1_2d), _ptr(q), _ptr(w1), _ptr(G), _ptr(SA), _ptr(rb), _ptr(Sb),
+        J, E, B, int(has_joints), _stream(G))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return G, SA, rb, Sb
+
+
+# ---------------------------------------------------------------------------
+# K4: cached reconstruction fused into per-part sums
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PartIndex:
+    """One-hot body-part membership of the vertices, in two forms built from
+    the same matrix: ``pm`` (J, V_pad) for the plain twin, and the per-part
+    vertex lists cut into segments of at most 512 for the kernel
+    (``verts``: used vertices grouped by part; ``seg_offset`` (n_seg + 1):
+    segment bounds in ``verts``; ``part_seg`` (J + 1): each part's segments)."""
+
+    pm: torch.Tensor
+    verts: torch.Tensor
+    seg_offset: torch.Tensor
+    part_seg: torch.Tensor
+
+    @property
+    def n_seg(self) -> int:
+        return self.seg_offset.shape[0] - 1
+
+    @classmethod
+    def from_membership(cls, pm: np.ndarray, device) -> 'PartIndex':
+        pm = np.asarray(pm, np.float32)
+        if not np.all((pm == 0) | (pm == 1)) or np.any(pm.sum(axis=0) > 1):
+            raise ValueError('part membership must be one-hot 0/1 over vertices')
+        verts, seg_offset, part_seg = [], [0], [0]
+        for j in range(pm.shape[0]):
+            vs = np.nonzero(pm[j])[0]
+            for s in range(0, len(vs), _SEG):
+                verts.extend(vs[s:s + _SEG])
+                seg_offset.append(len(verts))
+            part_seg.append(len(seg_offset) - 1)
+
+        def i32(x):
+            return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+        return cls(pm=torch.as_tensor(pm, device=device), verts=i32(verts),
+                   seg_offset=i32(seg_offset), part_seg=i32(part_seg))
+
+
+def recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, pm, weights_pad):
+    """Plain twin of :func:`recon_part_sums_cached_lm` (``pm``: (J, V_pad))."""
+    v_t = tgt_vm.shape[1]
+    hfull = homog_vm + torch.einsum('cve,eb->cvb', sd_cm, x_cols)
+    blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
+    pos = _apply_blend(blend, hfull)
+    pm_t, pos_t = pm[:, :v_t], pos[:, :v_t]
+    raw = torch.stack([pm_t @ (tgt_vm[c] * pos_t[d]) for c in range(3) for d in range(3)])
+    s_t = torch.stack([pm_t @ tgt_vm[c] for c in range(3)])
+    s_a = torch.stack([pm @ pos[d] for d in range(3)])
+    return raw, s_t, s_a
+
+
+def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: PartIndex,
+                              weights_pad):
+    """Per-part sums against the shape solve's reconstruction, rebuilt from
+    the cached posed template: hfull = homog + SD x, pos = blended [R|t] hfull;
+    raw (9, J, B) = sum_v pm_jv t_c pos_d (rows c*3+d), s_t (3, J, B) =
+    sum_v pm_jv t, s_a (3, J, B) = sum_v pm_jv pos."""
+    name = 'recon_part_sums_cached'
+    cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, x_cols=x_cols, sd_cm=sd_cm,
+                    homog_vm=homog_vm, pm=parts.pm, weights_pad=weights_pad)
+    _, J, B = pj_cm.shape
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    E = x_cols.shape[0]
+    _expect(name, 'tgt_vm', tgt_vm, (3, v_t, B))
+    _expect(name, 'pj_cm', pj_cm, (12, J, B))
+    _expect(name, 'x_cols', x_cols, (E, B))
+    _expect(name, 'sd_cm', sd_cm, (3, Vp, E))
+    _expect(name, 'homog_vm', homog_vm, (3, Vp, B))
+    _expect(name, 'pm', parts.pm, (J, Vp))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    if v_t > Vp:
+        raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
+    if not cuda:
+        return recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts.pm,
+                                          weights_pad)
+    if E > 16:
+        raise ValueError(f'{name}: the kernel takes E <= 16, got {E}')
+    for arg in ('verts', 'seg_offset', 'part_seg'):
+        t = getattr(parts, arg)
+        if t.dtype != torch.int32 or t.device != pj_cm.device or not t.is_contiguous():
+            raise ValueError(f'{name}: parts.{arg} must be contiguous int32 on {pj_cm.device}')
+    if parts.part_seg.shape[0] != J + 1:
+        raise ValueError(f'{name}: parts.part_seg must have J + 1 = {J + 1} entries')
+    lib = _build.library()
+    dev = tgt_vm.device
+    raw = torch.empty((9, J, B), dtype=torch.float32, device=dev)
+    s_t = torch.empty((3, J, B), dtype=torch.float32, device=dev)
+    s_a = torch.empty((3, J, B), dtype=torch.float32, device=dev)
+    part = torch.empty((max(parts.n_seg, 1), 15, B), dtype=torch.float32, device=dev)
+    err = lib.recon_part_sums_launch(
+        _ptr(tgt_vm), _ptr(pj_cm), _ptr(x_cols), _ptr(sd_cm), _ptr(homog_vm),
+        _ptr(weights_pad), _ptr(parts.verts), _ptr(parts.seg_offset), _ptr(parts.part_seg),
+        _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, E, B, v_t, Vp, parts.n_seg,
+        _stream(raw))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return raw, s_t, s_a

@@ -1,0 +1,191 @@
+"""Synthetic SMPL model files for license-free testing and benchmarking.
+
+The official model files are not redistributable, so the tests and
+``chip_smoke.py`` run on synthetic models with the exact file format, skeleton
+topology and tensor shapes of the real ones (configurable vertex count). This
+is the SMPL part of ``smplfitter_tpu.utils.synthetic``, copied so that the
+PyTorch package imports without JAX; the tests hold both writers to identical
+files.
+
+The geometry is a plausible stick-figure body: joints at anthropometric
+positions, vertices scattered along the bones, skinning weights dominated by
+the nearest joint.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+import pickle
+
+import numpy as np
+
+# Parent indices of the SMPL kinematic tree (public convention).
+SMPL_PARENTS = [
+    -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21,
+]
+
+_BODY_JOINT_POS = np.array(
+    [
+        [0.00, 0.00, 0.00],   # pelvis
+        [0.09, -0.07, 0.00],  # left_hip
+        [-0.09, -0.07, 0.00], # right_hip
+        [0.00, 0.11, 0.00],   # spine1
+        [0.10, -0.45, 0.00],  # left_knee
+        [-0.10, -0.45, 0.00], # right_knee
+        [0.00, 0.25, 0.00],   # spine2
+        [0.09, -0.84, -0.03], # left_ankle
+        [-0.09, -0.84, -0.03],# right_ankle
+        [0.00, 0.30, 0.00],   # spine3
+        [0.11, -0.90, 0.10],  # left_foot
+        [-0.11, -0.90, 0.10], # right_foot
+        [0.00, 0.45, 0.00],   # neck
+        [0.07, 0.40, 0.00],   # left_collar
+        [-0.07, 0.40, 0.00],  # right_collar
+        [0.00, 0.55, 0.02],   # head
+        [0.17, 0.42, 0.00],   # left_shoulder
+        [-0.17, 0.42, 0.00],  # right_shoulder
+        [0.43, 0.41, 0.00],   # left_elbow
+        [-0.43, 0.41, 0.00],  # right_elbow
+        [0.68, 0.40, 0.00],   # left_wrist
+        [-0.68, 0.40, 0.00],  # right_wrist
+        [0.76, 0.40, 0.00],   # left_hand
+        [-0.76, 0.40, 0.00],  # right_hand
+    ]
+)
+
+
+def skeleton(model_name: str):
+    """Return (parents, joint_positions) for a synthetic model variant."""
+    if model_name == 'smpl':
+        return list(SMPL_PARENTS), _BODY_JOINT_POS.copy()
+    raise NotImplementedError(
+        f'synthetic {model_name!r} models are not ported yet (ROADMAP Queue 1, item 6)'
+    )
+
+
+def make_raw_model(
+    model_name: str = 'smpl',
+    num_vertices: int = 768,
+    num_betas: int = 10,
+    seed: int = 0,
+):
+    """Build a raw model dict in the official file layout (pre-normalization)."""
+    parents, jpos = skeleton(model_name)
+    J = len(parents)
+    V = num_vertices
+    rng = np.random.default_rng(seed + 1000 * J + V)
+
+    # Round-robin part assignment guarantees every part has vertices.
+    assign = np.arange(V) % J
+    parent_arr = np.array([p if p >= 0 else 0 for p in parents])
+    spread = np.where(np.arange(J) < 22, 0.05, 0.012) if J > 24 else np.full(J, 0.05)
+
+    u = rng.uniform(0.15, 1.0, size=V)[:, None]
+    base = jpos[parent_arr[assign]] * (1 - u) + jpos[assign] * u
+    v_template = base + rng.normal(0, 1, size=(V, 3)) * spread[assign][:, None]
+
+    # Skinning weights dominated by the assigned joint (argmax == assign).
+    weights = np.zeros((V, J))
+    weights[np.arange(V), assign] = 0.75
+    weights[np.arange(V), parent_arr[assign]] += 0.20
+    grandparent = parent_arr[parent_arr[assign]]
+    weights[np.arange(V), grandparent] += 0.05
+    weights /= weights.sum(axis=1, keepdims=True)
+
+    # Pre-LBS joint regressor: convex weights over the nearest vertices.
+    J_regressor = np.zeros((J, V))
+    for j in range(J):
+        d2 = np.sum((v_template - jpos[j]) ** 2, axis=1)
+        nearest = np.argsort(d2)[:16]
+        w = np.exp(-d2[nearest] / (2 * 0.03**2) )
+        w = np.maximum(w, 1e-6)
+        J_regressor[j, nearest] = w / w.sum()
+
+    # Shape blendshapes: smooth low-frequency fields (mix of global modes).
+    n_modes = 6
+    freqs = rng.normal(0, 2.0, size=(n_modes, 3))
+    phases = rng.uniform(0, 2 * np.pi, size=n_modes)
+    basis = np.sin(v_template @ freqs.T + phases)  # (V, n_modes)
+    mode_mix = rng.normal(0, 1, size=(n_modes, 3, num_betas))
+    shapedirs = np.einsum('vm,mcs->vcs', basis, mode_mix) * 0.02
+    # beta0 ~ height stretch (y only — deliberately NOT uniform scale, so the
+    # scale_target/scale_fit estimation stays identifiable in tests).
+    shapedirs[:, 1, 0] += v_template[:, 1] * 0.05
+
+    # Pose correctives: small, random but smooth.
+    P = (J - 1) * 9
+    pose_mix = rng.normal(0, 1, size=(n_modes, 3, P))
+    posedirs = np.einsum('vm,mcp->vcp', basis, pose_mix) * 0.002
+
+    faces = rng.integers(0, V, size=(2 * V, 3)).astype(np.int32)
+
+    kintree_table = np.stack(
+        [np.array(parents, dtype=np.int64), np.arange(J, dtype=np.int64)]
+    )
+
+    raw = dict(
+        v_template=v_template,
+        shapedirs=shapedirs,
+        posedirs=posedirs,
+        J_regressor=J_regressor,
+        weights=weights,
+        f=faces,
+        kintree_table=kintree_table,
+    )
+
+    # Kid template: scaled-down body with smooth perturbation (SMIL-like).
+    kid_template = v_template * 0.67 + basis[:, :3] @ rng.normal(0, 0.01, size=(3, 3))
+    return raw, kid_template
+
+
+def write_model_files(
+    body_models_dir: str,
+    model_name: str = 'smpl',
+    num_vertices: int = 768,
+    num_betas: int = 10,
+    seed: int = 0,
+    genders: tuple = ('neutral',),
+) -> str:
+    """Write synthetic model files in the official on-disk format.
+
+    Returns the model_root directory.
+    """
+    from .modeldata import model_filename
+
+    model_root = osp.join(body_models_dir, model_name)
+    os.makedirs(model_root, exist_ok=True)
+    raw, kid_template = make_raw_model(model_name, num_vertices, num_betas, seed)
+
+    for gender in genders:
+        filename = model_filename(model_name, gender)
+        filepath = osp.join(model_root, filename)
+        os.makedirs(osp.dirname(filepath), exist_ok=True)
+        if filename.endswith('.npz'):
+            np.savez(filepath, **raw)
+        else:
+            with open(filepath, 'wb') as f:
+                pickle.dump(raw, f)
+
+    if model_name.lower().startswith('smpl'):
+        np.save(osp.join(model_root, 'kid_template.npy'), kid_template)
+    return model_root
+
+
+def ensure_cached_models(
+    cache_dir: str | None = None,
+    num_vertices_smpl: int = 6890,
+) -> str:
+    """Write (once) and return a cached synthetic body_models directory holding
+    an SMPL model at real tensor shapes (V=6890 by default)."""
+    if cache_dir is None:
+        cache_dir = os.path.join(
+            os.path.expanduser('~'), '.cache', 'smplfitter_tpu_torch',
+            f'synthetic_v{num_vertices_smpl}',
+        )
+    marker = osp.join(cache_dir, '.complete')
+    if not osp.exists(marker):
+        write_model_files(cache_dir, 'smpl', num_vertices_smpl)
+        with open(marker, 'w') as f:
+            f.write('ok')
+    return cache_dir
