@@ -4,19 +4,27 @@
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one CUDA device, nvcc and PyTorch built for CUDA. It builds the kernels from
 ``smplfitter_tpu_torch/csrc``, then, on a synthetic SMPL model at full width
-(V=6890, J=24, 10 betas; weights random from a seed):
+(V=6890, J=24, 10 betas, kid shapedir; weights random from a seed):
 
  1. prints the toolchain (torch, CUDA, device, power limit, nvcc);
  2. builds the kernels and prints the build time;
- 3. runs every kernel against its plain PyTorch twin on the operands the main
-    path gives it (captured during a forward pass and a fit) at B=4096 and at a
-    ragged B=1000, and times both;
+ 3. runs every kernel against its plain PyTorch twin on the operands the
+    fitting paths give it (captured during forward passes, the benchmark fit
+    and paths a-e below) at B=4096 and at a ragged B=1000, and times both;
  4. makes 8 distinct target sets with ``BodyModel`` at B=4096;
  5. fits them with ``BodyFitter.fit`` (the benchmark configuration: num_iter=3,
     beta_regularizer=1, final rotation adjustment), checks that every kernel of
     the path was launched (K2 = K3 = K4 = 3 per fit) and reports fits/s;
  6. fits one B=32 target set on the card and on the CPU (the twins) and holds
-    the two to max|d betas| <= 1e-3 and mean reconstruction error within 0.01 mm.
+    the two to max|d betas| <= 1e-3 and mean reconstruction error within 0.01 mm;
+ 7. drives the other fitting paths on the same 8 target sets, each with its
+    launches per fit asserted and its fits/s: (a) ``fit`` without target
+    joints, with the 'vertices' output; (b) the flipper's configuration:
+    ``enable_kid``, no joints, warm start, one iteration; (c)
+    ``fit_with_known_shape`` with joints; (d) ``fit_with_known_pose`` without
+    joints; (e) ``fit(scale_fit=True)`` with joints;
+ 8. runs each of paths a-e at B=32 on the card and on the CPU under the gate
+    of phase 6.
 
 It prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -44,18 +52,58 @@ KERNEL_REL_TOL = 1e-5  # max |kernel - twin| / max |twin|, per output
 PARITY_DBETA = 1e-3
 PARITY_V2V_MM = 0.01
 
-# wrapper -> (LAUNCHES key, CUDA source, TPU kernel replaced, output names)
+# LAUNCHES key -> (wrapper, CUDA source, TPU kernel replaced, output names). The
+# two K2 forms without the posed template share the wrapper rhs_moments (its
+# ``scale`` argument picks the form).
 KERNELS = {
     'lbs_points': ('lbs_points', 'smplfitter_tpu_torch/csrc/lbs_points.cu',
                    'smplfitter_tpu/ops/lbs_kernels.py:771', ('points',)),
     'rhs_moments_h': ('rhs_moments_h', 'smplfitter_tpu_torch/csrc/rhs_moments.cu',
                       'smplfitter_tpu/ops/lbs_kernels.py:525', ('r', 'y', 'homog')),
+    'rhs_moments': ('rhs_moments', 'smplfitter_tpu_torch/csrc/rhs_moments.cu',
+                    'smplfitter_tpu/ops/lbs_kernels.py:525', ('r', 'y')),
+    'rhs_moments_scale': ('rhs_moments', 'smplfitter_tpu_torch/csrc/rhs_moments.cu',
+                          'smplfitter_tpu/ops/lbs_kernels.py:525',
+                          ('r', 'y', 'rt', 'yt', 'sc')),
     'gram_assembly': ('gram_assembly', 'smplfitter_tpu_torch/csrc/gram_assembly.cu',
                       'smplfitter_tpu/ops/lbs_kernels.py:1819', ('G', 'SA', 'rb', 'Sb')),
-    'recon_part_sums_cached_lm': ('recon_part_sums_cached',
-                                  'smplfitter_tpu_torch/csrc/recon_part_sums.cu',
-                                  'smplfitter_tpu/ops/lbs_kernels.py:2808',
-                                  ('raw', 's_t', 's_a')),
+    'recon_part_sums_cached': ('recon_part_sums_cached_lm',
+                               'smplfitter_tpu_torch/csrc/recon_part_sums.cu',
+                               'smplfitter_tpu/ops/lbs_kernels.py:2808',
+                               ('raw', 's_t', 's_a')),
+    'part_sums': ('part_sums_vm_lm', 'smplfitter_tpu_torch/csrc/part_sums.cu',
+                  'smplfitter_tpu/ops/lbs_kernels.py:832', ('raw', 's_t', 's_a')),
+    'recon_part_sums': ('recon_part_sums_lm', 'smplfitter_tpu_torch/csrc/recon_lbs_part_sums.cu',
+                        'smplfitter_tpu/ops/lbs_kernels.py:1365', ('raw', 's_t', 's_a')),
+}
+WRAPPERS = sorted({spec[0] for spec in KERNELS.values()})
+
+# The other fitting paths (phases 7 and 8): the call on (fitter, fitter_kid,
+# targets, params) and the kernel launches of one call, from the code.
+FLIP_KW = dict(num_iter=1, beta_regularizer=1e-2, beta_regularizer2=1e-2, kid_regularizer=1e9,
+               final_adjust_rots=True, requested_keys=('pose_rotvecs',))
+PATHS = {
+    'a_fit_no_joints': dict(
+        run=lambda f, fk, tv, tj, p: f.fit(tv, num_iter=3, final_adjust_rots=True,
+                                           requested_keys=('pose_rotvecs', 'vertices')),
+        launches=dict(rhs_moments=3, gram_assembly=3, part_sums=3, lbs_points=4)),
+    'b_flipper': dict(
+        run=lambda f, fk, tv, tj, p: fk.fit(tv, initial_pose_rotvecs=p[0] + 0.05,
+                                            initial_shape_betas=p[1] + 0.1,
+                                            initial_kid_factor=p[3] + 0.1, **FLIP_KW),
+        launches=dict(rhs_moments=1, gram_assembly=1, part_sums=2, lbs_points=2)),
+    'c_known_shape': dict(
+        run=lambda f, fk, tv, tj, p: f.fit_with_known_shape(p[1], tv, tj, num_iter=3,
+                                                            final_adjust_rots=True),
+        launches=dict(recon_part_sums=4)),
+    'd_known_pose': dict(
+        run=lambda f, fk, tv, tj, p: f.fit_with_known_pose(p[0], tv),
+        launches=dict(rhs_moments=1, gram_assembly=1)),
+    'e_scale_fit': dict(
+        run=lambda f, fk, tv, tj, p: f.fit(tv, tj, num_iter=3, scale_fit=True,
+                                           final_adjust_rots=True),
+        launches=dict(rhs_moments_h=2, rhs_moments_scale=1, gram_assembly=3,
+                      recon_part_sums_cached=2, recon_part_sums=1)),
 }
 
 
@@ -77,14 +125,22 @@ def random_params(rng, batch):
     return pose, betas, trans
 
 
+def kid_factors(rng, batch):
+    return rng.normal(0, 0.5, (batch,)).astype(np.float32)
+
+
 def capture_kernel_calls(lbs_kernels, run) -> dict:
-    """Run ``run()`` with every kernel wrapper recording its arguments."""
-    calls = {name: [] for name in KERNELS}
-    originals = {name: getattr(lbs_kernels, name) for name in KERNELS}
+    """Run ``run()`` with every kernel wrapper recording its arguments, by
+    LAUNCHES key."""
+    calls = {key: [] for key in KERNELS}
+    originals = {name: getattr(lbs_kernels, name) for name in WRAPPERS}
+
+    key_of = {spec[0]: key for key, spec in KERNELS.items() if key != 'rhs_moments_scale'}
 
     def recorder(name, fn):
         def wrapped(*args, **kwargs):
-            calls[name].append((args, kwargs))
+            key = 'rhs_moments_scale' if kwargs.get('scale') else key_of[name]
+            calls[key].append((args, kwargs))
             return fn(*args, **kwargs)
         return wrapped
 
@@ -98,20 +154,22 @@ def capture_kernel_calls(lbs_kernels, run) -> dict:
     return calls
 
 
-def twin_call(lbs_kernels, name, args, kwargs):
-    if name == 'lbs_points':
-        return (lbs_kernels.lbs_points_ref(*args, **kwargs),)
-    if name == 'rhs_moments_h':
-        return lbs_kernels.rhs_moments_h_ref(*args, **kwargs)
-    if name == 'gram_assembly':
-        return lbs_kernels.gram_assembly_ref(*args, **kwargs)
-    tgt, pj, x, sd, homog, parts, weights = args
-    return lbs_kernels.recon_part_sums_cached_ref(tgt, pj, x, sd, homog, parts.pm, weights)
-
-
-def kernel_call(lbs_kernels, name, args, kwargs):
-    out = getattr(lbs_kernels, name)(*args, **kwargs)
+def kernel_call(lbs_kernels, key, args, kwargs):
+    out = getattr(lbs_kernels, KERNELS[key][0])(*args, **kwargs)
     return out if isinstance(out, tuple) else (out,)
+
+
+def twin_call(lbs_kernels, key, args, kwargs):
+    return lbs_kernels.twin_call(KERNELS[key][0], args, kwargs)
+
+
+def check_launches(launches: dict, expected_per_fit: dict, n_fits: int, what: str) -> None:
+    """Every kernel's launch count must be its expected count per fit times n_fits."""
+    for key, n in launches.items():
+        want = expected_per_fit.get(key, 0) * n_fits
+        if n != want:
+            raise AssertionError(f'{what}: {key} launched {n} times in {n_fits} fits, '
+                                 f'expected {want}')
 
 
 def time_ms(torch, fn, arg_sets) -> float:
@@ -129,6 +187,15 @@ def time_ms(torch, fn, arg_sets) -> float:
     return statistics.median(times)
 
 
+def recon_v2v_mm(bm, res, tv) -> float:
+    """Mean distance (mm) of a fit result's reconstruction to the targets tv."""
+    dev = tv.device
+    re = bm(glob_rotmats=res['orientations'].to(dev), shape_betas=res['shape_betas'].to(dev),
+            trans=res['trans'].to(dev),
+            kid_factor=None if 'kid_factor' not in res else res['kid_factor'].to(dev))
+    return (re['vertices'] - tv).norm(dim=-1).mean().item() * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -142,6 +209,7 @@ def main() -> int:
 
     dev = torch.device('cuda', 0)
     rng = np.random.default_rng(SEED)
+    kid_rng = np.random.default_rng(SEED + 1)
 
     # 1. Toolchain.
     log('== phase 1: toolchain')
@@ -164,50 +232,62 @@ def main() -> int:
         if any(key in line for key in ('Compiling entry', 'Used', 'spill stores')):
             log('  ' + line.strip())
 
-    # 3. Kernels against their twins on main-path operands.
+    # 3. Kernels against their twins on the fitting paths' operands.
     log('== phase 3: kernels vs plain twins (synthetic SMPL, V=6890)')
     models_dir = synthetic.ensure_cached_models()
     bm = port.BodyModel('smpl', 'neutral', model_root=models_dir + '/smpl', device=dev)
     fitter = port.BodyFitter(bm)
-    results = {name: dict(max_abs_err=0.0, rel_err={out: 0.0 for out in spec[3]})
-               for name, spec in KERNELS.items()}
+    fitter_kid = port.BodyFitter(bm, enable_kid=True)
+    results = {key: dict(max_abs_err=0.0, rel_err={out: 0.0 for out in spec[3]})
+               for key, spec in KERNELS.items()}
     for batch in (BATCH, RAGGED_BATCH):
         params = [random_params(rng, batch) for _ in range(3)]
+        kid = torch.as_tensor(kid_factors(kid_rng, batch), device=dev)
 
         def run():
             for p in params:
                 out = bm(*p)
-            fitter.fit(out['vertices'], out['joints'], **FIT_KW)
+            tv, tj = out['vertices'], out['joints']
+            fitter.fit(tv, tj, **FIT_KW)
+            p = tuple(torch.as_tensor(x, device=dev) for x in params[-1]) + (kid,)
+            for path in PATHS.values():
+                path['run'](fitter, fitter_kid, tv, tj, p)
 
         calls = capture_kernel_calls(lbs_kernels, run)
-        for name, arg_sets in calls.items():
-            outputs = KERNELS[name][3]
+        for key, arg_sets in calls.items():
+            if not arg_sets:
+                raise AssertionError(f'{key}: no call captured at B={batch}')
+            outputs = KERNELS[key][3]
             for args, kwargs in arg_sets:
-                got = kernel_call(lbs_kernels, name, args, kwargs)
-                want = twin_call(lbs_kernels, name, args, kwargs)
+                got = kernel_call(lbs_kernels, key, args, kwargs)
+                want = twin_call(lbs_kernels, key, args, kwargs)
                 torch.cuda.synchronize()
-                for out_name, g, w in zip(outputs, got, want):
+                for out_name, g, w in zip(outputs, got, want, strict=True):
                     abs_err = (g - w).abs().max().item()
                     scale = w.abs().max().item()
                     rel = abs_err / scale if scale > 0 else abs_err
                     if not (rel <= KERNEL_REL_TOL and torch.isfinite(g).all().item()):
                         raise AssertionError(
-                            f'{name}.{out_name} at B={batch}: max|kernel - twin| = {abs_err:.3e}'
+                            f'{key}.{out_name} at B={batch}: max|kernel - twin| = {abs_err:.3e}'
                             f' = {rel:.3e} x max|twin| > {KERNEL_REL_TOL}')
-                    res = results[name]
+                    res = results[key]
                     res['max_abs_err'] = max(res['max_abs_err'], abs_err)
                     res['rel_err'][out_name] = max(res['rel_err'][out_name], rel)
-            sets = [args for args, _ in arg_sets]
-            kw = arg_sets[0][1]
-            errs = ' '.join(f'{k} {v:.2e}' for k, v in results[name]['rel_err'].items())
-            line = f'{name:26s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
+            # Timed over the calls of the first call's configuration (same
+            # keyword arguments and operand shapes).
+            args0, kw = arg_sets[0]
+            shapes0 = [getattr(a, 'shape', None) for a in args0]
+            sets = [args for args, kwargs in arg_sets
+                    if kwargs == kw and [getattr(a, 'shape', None) for a in args] == shapes0]
+            errs = ' '.join(f'{k} {v:.2e}' for k, v in results[key]['rel_err'].items())
+            line = f'{key:24s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
             if batch == BATCH:
-                results[name]['ms'] = time_ms(
-                    torch, lambda *a: kernel_call(lbs_kernels, name, a, kw), sets)
-                results[name]['plain_ms'] = time_ms(
-                    torch, lambda *a: twin_call(lbs_kernels, name, a, kw), sets)
-                line += (f'  kernel {results[name]["ms"]:.3f} ms  '
-                         f'twin {results[name]["plain_ms"]:.3f} ms')
+                results[key]['ms'] = time_ms(
+                    torch, lambda *a: kernel_call(lbs_kernels, key, a, kw), sets)
+                results[key]['plain_ms'] = time_ms(
+                    torch, lambda *a: twin_call(lbs_kernels, key, a, kw), sets)
+                line += (f'  kernel {results[key]["ms"]:.3f} ms  '
+                         f'twin {results[key]["plain_ms"]:.3f} ms')
             log(line)
         del calls
     torch.cuda.empty_cache()
@@ -246,10 +326,9 @@ def main() -> int:
     fit_ms = start.elapsed_time(end)
     launches = dict(lbs_kernels.LAUNCHES)
     n_fits = N_TARGETS + 1
-    for key in ('rhs_moments_h', 'gram_assembly', 'recon_part_sums_cached'):
-        if launches[key] != 3 * n_fits:
-            raise AssertionError(f'{key}: {launches[key]} launches for {n_fits} fits, '
-                                 f'expected {3 * n_fits}')
+    check_launches(dict(launches, lbs_points=launches['lbs_points'] - fwd_launches),
+                   dict(rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=3),
+                   n_fits, 'phase 5')
     shapes = dict(pose_rotvecs=(BATCH, 72), shape_betas=(BATCH, 10), trans=(BATCH, 3))
     for res in fits:
         for key, shape in shapes.items():
@@ -266,8 +345,9 @@ def main() -> int:
     if not np.isfinite(v2v_mm):
         raise AssertionError('round-trip reconstruction is not finite')
     log(f'round-trip mean v2v: {v2v_mm:.4f} mm')
-    del targets, fits, refit, inputs
+    del fits, refit
     torch.cuda.empty_cache()
+    total_launches = dict(launches)
 
     # 6. Card against the CPU twins at B=32.
     log(f'== phase 6: parity, B={PARITY_BATCH}, card vs CPU')
@@ -277,25 +357,76 @@ def main() -> int:
     tv, tj = out['vertices'].contiguous(), out['joints']
     gpu = fitter.fit(tv, tj, **FIT_KW)
     cpu_bm = port.BodyModel.from_model_data(bm.model_data, device='cpu')
-    cpu = port.BodyFitter(cpu_bm).fit(tv.cpu(), tj.cpu(), **FIT_KW)
+    cpu_fitter = port.BodyFitter(cpu_bm)
+    cpu = cpu_fitter.fit(tv.cpu(), tj.cpu(), **FIT_KW)
     max_dbeta = (gpu['shape_betas'].cpu() - cpu['shape_betas']).abs().max().item()
-
-    def recon_v2v_mm(res):
-        re = bm(*(res[k].to(dev) for k in ('pose_rotvecs', 'shape_betas', 'trans')))
-        return (re['vertices'] - tv).norm(dim=-1).mean().item() * 1e3
-
-    v2v_gpu, v2v_cpu = recon_v2v_mm(gpu), recon_v2v_mm(cpu)
+    v2v_gpu, v2v_cpu = recon_v2v_mm(bm, gpu, tv), recon_v2v_mm(bm, cpu, tv)
     ok = max_dbeta <= PARITY_DBETA and abs(v2v_gpu - v2v_cpu) <= PARITY_V2V_MM
     log(f'parity: ok={ok} max|dbeta|={max_dbeta:.3e} v2v card={v2v_gpu:.4f} mm '
         f'cpu={v2v_cpu:.4f} mm')
     if not ok:
         raise AssertionError('card fit disagrees with the CPU fit')
 
+    # 7. The other fitting paths on the same target sets.
+    kids = [torch.as_tensor(kid_factors(kid_rng, BATCH), device=dev) for _ in range(N_TARGETS)]
+    for name, path in PATHS.items():
+        log(f'== phase 7{name[0]}: {name}, B={BATCH}, {N_TARGETS} distinct target sets')
+        lbs_kernels.reset_launch_counts()
+        path['run'](fitter, fitter_kid, *targets[0], inputs[0] + (kids[0],))  # warm-up
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        fits = [path['run'](fitter, fitter_kid, tv, tj, p + (k,))
+                for (tv, tj), p, k in zip(targets, inputs, kids)]
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        path_ms = start.elapsed_time(end)
+        launches = dict(lbs_kernels.LAUNCHES)
+        check_launches(launches, path['launches'], n_fits, name)
+        for key in total_launches:
+            total_launches[key] += launches[key]
+        for res in fits:
+            for key, value in res.items():
+                if value.shape[0] != BATCH or not torch.isfinite(value).all():
+                    raise AssertionError(f'{name} output {key}: shape {tuple(value.shape)} '
+                                         'or not finite')
+        log(f'{name}: {N_TARGETS * BATCH / (path_ms / 1e3):.1f} fits/s '
+            f'({path_ms / N_TARGETS:.2f} ms/fit on CUDA events, '
+            f'{host_s / N_TARGETS * 1e3:.2f} ms/fit host), launches per fit '
+            f'{json.dumps(path["launches"])} on {smi}')
+        del fits
+    del targets, inputs, kids
+    torch.cuda.empty_cache()
+    unlaunched = [key for key, n in total_launches.items() if n == 0]
+    if unlaunched:
+        raise AssertionError(f'kernels never launched on the fitting paths: {unlaunched}')
+
+    # 8. Each other path on the card against the CPU twins at B=32.
+    log(f'== phase 8: parity of paths a-e, B={PARITY_BATCH}, card vs CPU')
+    cpu_fitter_kid = port.BodyFitter(cpu_bm, enable_kid=True)
+    params = tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, PARITY_BATCH))
+    params += (torch.as_tensor(kid_factors(kid_rng, PARITY_BATCH), device=dev),)
+    out = bm(*params)
+    tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+    for name, path in PATHS.items():
+        gpu = path['run'](fitter, fitter_kid, tv, tj, params)
+        cpu = path['run'](cpu_fitter, cpu_fitter_kid, tv.cpu(), tj.cpu(),
+                          tuple(x.cpu() for x in params))
+        max_d = max((gpu[k].cpu() - cpu[k]).abs().max().item()
+                    for k in ('shape_betas', 'kid_factor', 'scale_corr') if k in gpu)
+        v2v_gpu, v2v_cpu = recon_v2v_mm(bm, gpu, tv), recon_v2v_mm(bm, cpu, tv)
+        ok = max_d <= PARITY_DBETA and abs(v2v_gpu - v2v_cpu) <= PARITY_V2V_MM
+        log(f'{name}: ok={ok} max|d betas, kid, scale|={max_d:.3e} v2v card={v2v_gpu:.4f} mm '
+            f'cpu={v2v_cpu:.4f} mm')
+        if not ok:
+            raise AssertionError(f'{name}: card disagrees with the CPU')
+
     kernels = []
-    for name, (key, source, replaces, _) in KERNELS.items():
-        r = results[name]
+    for key, (_, source, replaces, _) in KERNELS.items():
+        r = results[key]
         kernels.append(dict(name=key, route='cuda', source=source, replaces=replaces,
-                            launches=launches[key], max_abs_err=r['max_abs_err'],
+                            launches=total_launches[key], max_abs_err=r['max_abs_err'],
                             ms=r['ms'], plain_ms=r['plain_ms']))
     print(json.dumps(dict(kernels=kernels)), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -40,9 +40,10 @@ lbs_points_kernel(const float* __restrict__ pj, const float* __restrict__ feat,
     const int v0 = (blockIdx.y * tiles_per_block + t) * TV;
     if (v0 >= Vp) break;  // uniform across the block
     __syncthreads();      // the previous tile is done reading w_s
-    load_w_tile(w_s, w, J, Vp, v0);
+    const TileRows rows{v0, Vp};
+    load_w_tile(w_s, w, J, rows);
     float h[3][4][4];
-    homog_tile(h, feat, consts, F, B, Vp, v0, b0, stage);
+    homog_tile(h, feat, consts, F, B, Vp, rows, b0, stage);
     float pos[3][4][4];
     pos_tile(pos, h, pj_s, w_s, J);
 #pragma unroll

@@ -1,8 +1,11 @@
-// Shared tile routines of the extended-LBS kernels (lbs_points.cu, rhs_moments.cu).
+// Shared tile routines of the extended-LBS kernels (lbs_points.cu,
+// rhs_moments.cu, recon_lbs_part_sums.cu).
 //
 // A block of 256 threads owns a tile of TV vertices x TB batch columns; each
-// thread owns a 4 x 4 micro-tile: vertices v0 + ty + 16 i and batch columns
-// b0 + tx + 16 k (ty = tid / 16, tx = tid % 16), so a warp's 16 tx lanes read
+// thread owns a 4 x 4 micro-tile: tile rows ty + 16 i and batch columns
+// b0 + tx + 16 k (ty = tid / 16, tx = tid % 16). A tile's rows are TV
+// consecutive vertices (TileRows) or a list of vertices (ListRows; the
+// per-part kernel walks each body part's vertex list). A warp's 16 tx lanes read
 // and write 16 consecutive batch columns (batch is the contiguous axis of every
 // (C, V, B) operand). All arithmetic is f32 on the CUDA cores: the homog dot
 // (K = F) and the blend (K = J) are shared-memory-tiled register-blocked loops,
@@ -36,24 +39,39 @@ __device__ inline void load_pj_tile(float* pj_s, const float* __restrict__ pj,
   }
 }
 
-// w_s[j * TVP + vv] = w[v0 + vv, j] (zero past the vertex edge).
-__device__ inline void load_w_tile(float* w_s, const float* __restrict__ w,
-                                   int J, int Vp, int v0) {
+// The vertex of tile row vv, or -1 for none: TV consecutive vertices from v0,
+// masked at the vertex edge Vp.
+struct TileRows {
+  int v0, Vp;
+  __device__ int operator()(int vv) const { return v0 + vv < Vp ? v0 + vv : -1; }
+};
+
+// The vertex of tile row vv from a list of TV entries in shared memory (-1 for none).
+struct ListRows {
+  const int* rows;
+  __device__ int operator()(int vv) const { return rows[vv]; }
+};
+
+// w_s[j * TVP + vv] = w[rows(vv), j] (zero for a row with no vertex).
+template <class Rows>
+__device__ inline void load_w_tile(float* w_s, const float* __restrict__ w, int J, Rows rows) {
   const int n = TV * J;
   for (int idx = threadIdx.x; idx < n; idx += NT) {
     const int j = idx % J;
     const int vv = idx / J;
-    const int v = v0 + vv;
-    w_s[j * TVP + vv] = (v < Vp) ? w[(size_t)v * J + j] : 0.f;
+    const int v = rows(vv);
+    w_s[j * TVP + vv] = (v >= 0) ? w[(size_t)v * J + j] : 0.f;
   }
 }
 
 // h[c][i][k] = sum_f consts[c, v, f] * feat[f, b], c = 0..2 (the posed
-// homogeneous template; its 4th channel is identically 1 and never formed).
-// Starts and ends with a block barrier; `stage` holds staging_floats().
+// homogeneous template; its 4th channel is identically 1 and never formed),
+// zero for a row with no vertex. Vp is the row stride of consts. Starts and
+// ends with a block barrier; `stage` holds staging_floats().
+template <class Rows>
 __device__ inline void homog_tile(float h[3][4][4], const float* __restrict__ feat,
                                   const float* __restrict__ consts, int F, int B,
-                                  int Vp, int v0, int b0, float* stage) {
+                                  int Vp, Rows rows, int b0, float* stage) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float* feat_s = stage;             // [KF][TB]
   float* consts_s = stage + KF * TB; // [3][KF][TVP]
@@ -75,9 +93,9 @@ __device__ inline void homog_tile(float h[3][4][4], const float* __restrict__ fe
       const int kk = idx % KF;
       const int rest = idx / KF;
       const int vv = rest % TV, c = rest / TV;
-      const int f = f0 + kk, v = v0 + vv;
+      const int f = f0 + kk, v = rows(vv);
       consts_s[(c * KF + kk) * TVP + vv] =
-          (f < F && v < Vp) ? consts[((size_t)c * Vp + v) * F + f] : 0.f;
+          (f < F && v >= 0) ? consts[((size_t)c * Vp + v) * F + f] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4

@@ -11,27 +11,18 @@
 // template and the targets are read once (~0.2 GB).
 //
 // Design: pm is one-hot over vertices, so instead of a (J x V) membership
-// product every vertex adds into exactly one part. The host lists each part's
-// vertices and cuts the lists into segments of at most 512; a block owns
-// (segment, 32 batch columns), keeps the batch tile's [R|t] entries in shared
-// memory, and each of its 8 warps walks every 8th group of 4 vertices with the
-// 15 per-part sums in registers (one batch column per lane). Vertices outside
-// every part cost nothing. The warps' sums are combined in warp order, each
-// segment writes one partial, and a second kernel sums a part's segments in
-// order, so runs repeat bit for bit (no float atomics). The batch edge is
-// masked, so any B works.
-#include <cuda_runtime.h>
+// product every vertex adds into exactly one part (part_segments.cuh): a block
+// owns (segment, 32 batch columns), keeps the batch tile's [R|t] entries in
+// shared memory, and each of its 8 warps walks every 8th group of 4 vertices
+// with the 15 per-part sums in registers (one batch column per lane). Vertices
+// outside every part cost nothing. The batch edge is masked, so any B works.
+#include "part_segments.cuh"
 
-#define SMPL_API extern "C" __attribute__((visibility("default")))
+using namespace seg;
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int TB4 = 32;          // batch columns per block (one per lane)
-constexpr int NW = NT / TB4;     // warps per block
-constexpr int VQ = 4;            // vertices per warp step
-constexpr int MAXE = 16;         // E <= 16
-constexpr int NS = 15;           // sums per part: raw (9), s_t (3), s_a (3)
+constexpr int MAXE = 16;  // E <= 16
 
 __global__ void __launch_bounds__(NT)
 recon_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
@@ -46,9 +37,9 @@ recon_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ p
   const int b0 = blockIdx.x * TB4;
   const int b = b0 + lane;
   const bool live = b < B;
-  const int seg = blockIdx.y;
-  const int beg = seg_offset[seg];
-  const int n = seg_offset[seg + 1] - beg;
+  const int seg_id = blockIdx.y;
+  const int beg = seg_offset[seg_id];
+  const int n = seg_offset[seg_id + 1] - beg;
 
   for (int idx = threadIdx.x; idx < 12 * J * TB4; idx += NT) {
     const int c = idx % TB4, xj = idx / TB4;
@@ -94,7 +85,7 @@ recon_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ p
     for (int j = 0; j < J; ++j) {
       float wq[VQ];
 #pragma unroll
-      for (int q = 0; q < VQ; ++q) wq[q] = __ldg(&w[(size_t)vq[q] * J + j]);
+      for (int q = 0; q < VQ; ++q) wq[q] = okq[q] ? __ldg(&w[(size_t)vq[q] * J + j]) : 0.f;
       float p[12];
 #pragma unroll
       for (int xx = 0; xx < 12; ++xx) p[xx] = pj_s[(xx * J + j) * TB4 + lane];
@@ -108,50 +99,9 @@ recon_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ p
           pos[a][q] = fmaf(wq[q], t, pos[a][q]);
         }
     }
-#pragma unroll
-    for (int q = 0; q < VQ; ++q) {
-      if (!okq[q]) continue;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-#pragma unroll
-        for (int d = 0; d < 3; ++d) acc[c * 3 + d] = fmaf(tq[c][q], pos[d][q], acc[c * 3 + d]);
-        acc[9 + c] += tq[c][q];
-        acc[12 + c] += pos[c][q];
-      }
-    }
+    add_part_sums(acc, tq, pos);
   }
-
-#pragma unroll
-  for (int r = 0; r < NS; ++r) red_s[(wid * NS + r) * TB4 + lane] = acc[r];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < NS * TB4; idx += NT) {
-    const int r = idx / TB4, c = idx % TB4;
-    float s = 0.f;
-    for (int g = 0; g < NW; ++g) s += red_s[(g * NS + r) * TB4 + c];
-    if (b0 + c < B) part[((size_t)seg * NS + r) * B + b0 + c] = s;
-  }
-}
-
-// Sums each part's segment partials in segment order into raw / s_t / s_a.
-__global__ void recon_part_sum_kernel(const float* __restrict__ part,
-                                      const int* __restrict__ part_seg, float* __restrict__ raw,
-                                      float* __restrict__ st, float* __restrict__ sa, int J,
-                                      int B) {
-  const size_t n = (size_t)J * B;
-  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    const int j = (int)(idx / B);
-    const int b = (int)(idx % B);
-    const int s0 = part_seg[j], s1 = part_seg[j + 1];
-#pragma unroll
-    for (int r = 0; r < NS; ++r) {
-      float s = 0.f;
-      for (int sg = s0; sg < s1; ++sg) s += part[((size_t)sg * NS + r) * B + b];
-      if (r < 9) raw[((size_t)r * J + j) * B + b] = s;
-      else if (r < 12) st[((size_t)(r - 9) * J + j) * B + b] = s;
-      else sa[((size_t)(r - 12) * J + j) * B + b] = s;
-    }
-  }
+  store_warp_partials(acc, red_s, part, seg_id, b0, B);
 }
 
 }  // namespace
@@ -182,9 +132,5 @@ SMPL_API int recon_part_sums_launch(const float* tgt, const float* pj, const flo
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t n = (size_t)J * B;
-  const int threads = 256;
-  recon_part_sum_kernel<<<(int)((n + threads - 1) / threads), threads, 0, stream>>>(
-      part, part_seg, raw, st, sa, J, B);
-  return (int)cudaGetLastError();
+  return (int)launch_part_sum(part, part_seg, raw, st, sa, J, B, stream);
 }

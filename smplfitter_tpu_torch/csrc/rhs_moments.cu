@@ -1,35 +1,128 @@
-// K2: fused residual projection of the shape solve, emit-homog form.
+// K2: fused residual projection of the shape solve, in three forms.
 //
 // Replaces the TPU kernel smplfitter_tpu/ops/lbs_kernels.py:_rhs_kernel
-// (launcher _rhs_moments_impl, API rhs_moments_h). Per vertex and batch
-// column: the posed template homog_c = consts_c . feat (written out for this
-// iteration's recon kernel), the LBS position pos = blended [R|t] . homog, the
+// (launcher _rhs_moments_impl; APIs rhs_moments_h, rhs_moments and
+// rhs_moments(scale=True)). Per vertex and batch column: the posed template
+// homog_c = consts_c . feat, the LBS position pos = blended [R|t] . homog, the
 // residual b = tgt - pos, and its two vertex reductions
 //     y[a, j, :] = sum_v w[v, j] b_a(v)                        (3, J, B)
 //     r[e, :]    = sum_v sum_c SD[c, v, e] (Rbar_v^T b_v)_c     (E, B)
-// where Rbar_v is the rotation part of the blended transform.
+// where Rbar_v is the rotation part of the blended transform. The forms are
+// compile-time variants of one kernel:
+//   - emit-homog (EMIT): also writes homog (3, V_pad, B) for this iteration's
+//     cached recon kernel (K4);
+//   - plain: y and r only; no homog store (it would be ~340 MB of writes per
+//     call at B=4096 that nobody reads);
+//   - scale (SCALE): also the target-side moments of the scale column,
+//     yt[a, j] = sum_v w[v, j] t_a(v), rt[e] = sum_v sum_c SD[c, v, e]
+//     (Rbar_v^T t_v)_c and sc = [sum |t|^2, sum t.pos, sum |pos|^2] (3, B).
 //
 // What bounds it on an H100: f32 arithmetic. Per (vertex, batch column): 3F
 // FMAs of homog dot, 12J of position, 12J of the Rbar^T b projection and 3J + 3E
-// of reductions; at SMPL b4096 (F = 208, J = 24, E = 10) about 7168 * 4096 *
-// 1300 * 2 = 76 GFLOP against ~0.7 GB of traffic (targets in, homog out).
+// of reductions (twice the last two in the scale form); at SMPL b4096 (F = 208,
+// J = 24, E = 10) about 7168 * 4096 * 1300 * 2 = 76 GFLOP against ~0.35 GB of
+// traffic (targets in; plus 0.34 GB of homog out in the emit form).
 //
 // Design: the TPU grid swept the vertex chunks of a batch tile in order and
 // accumulated into the output block. Here blocks run in parallel with no
 // order, so a block owns (batch tile, vertex split): it walks its split's
-// 64-vertex tiles, accumulating y and r per batch column in shared memory,
-// and writes one partial per split. A second kernel sums the partials over
-// splits in a fixed order, so runs repeat bit for bit (no float atomics). The
-// homog dot and the position reuse the shared tile routines of K1; the
+// 64-vertex tiles, accumulating the output rows per batch column in shared
+// memory, and writes one partial per split. A second kernel sums the partials
+// over splits in a fixed order, so runs repeat bit for bit (no float atomics).
+// The homog dot and the position reuse the shared tile routines of K1; the
 // residual never leaves registers except as a shared-memory tile for the
-// reductions. The target's vertex edge (V_t <= V_pad rows) and the batch edge
-// are masked by global index.
+// reductions. The scale form runs the same two reductions a second time on
+// the targets and adds three per-column sums, all into the same partials. The
+// target's vertex edge (V_t <= V_pad rows) and the batch edge are masked by
+// global index.
 #include "lbs_tile.cuh"
 
 using namespace lbs;
 
 namespace {
 
+// Output rows of the partials: y (3J), r (E) [, yt (3J), rt (E), sc (3)].
+__host__ __device__ inline int rhs_rows(int J, int E, bool scale) {
+  return scale ? 6 * J + 2 * E + 3 : 3 * J + E;
+}
+
+// g_c = (Rbar^T field)_c = sum_j w[v, j] sum_a pj[a*4+c, j, b] field_a.
+__device__ inline void project_rbar(float g[3][4][4], const float field[3][4][4],
+                                    const float* pj_s, const float* w_s, int J) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g[c][i][k] = 0.f;
+  for (int j = 0; j < J; ++j) {
+    float wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = w_s[j * TVP + ty + 16 * i];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float p[9];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) p[a * 3 + c] = pj_s[((a * 4 + c) * J + j) * TB + tx + 16 * k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float s = fmaf(p[c], field[0][i][k],
+                               fmaf(p[3 + c], field[1][i][k], p[6 + c] * field[2][i][k]));
+          g[c][i][k] = fmaf(wv[i], s, g[c][i][k]);
+        }
+    }
+  }
+}
+
+// work[(a * TV + row) * TB + col] = field[a] of this thread's micro-tile, then a barrier.
+__device__ inline void stage_field(float* work, const float field[3][4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) work[(a * TV + ty + 16 * i) * TB + tx + 16 * k] = field[a][i][k];
+  __syncthreads();
+}
+
+// acc[row0 + a*J + j] += sum_vv w[v, j] field_a(v). Ends with a barrier.
+__device__ inline void reduce_joint_rows(float* acc_s, int row0, const float field[3][4][4],
+                                         const float* w_s, float* work, int J) {
+  const int col = threadIdx.x % TB, grp = threadIdx.x / TB;
+  stage_field(work, field);
+  for (int r = grp; r < 3 * J; r += NT / TB) {
+    const int a = r / J, j = r % J;
+    float s = 0.f;
+#pragma unroll 8
+    for (int vv = 0; vv < TV; ++vv) s = fmaf(w_s[j * TVP + vv], work[(a * TV + vv) * TB + col], s);
+    acc_s[(row0 + r) * TB + col] += s;
+  }
+  __syncthreads();
+}
+
+// acc[row0 + e] += sum_vv sum_c SD[c, v, e] g_c(v). Ends with a barrier.
+__device__ inline void reduce_sd_rows(float* acc_s, int row0, const float g[3][4][4],
+                                      const float* sd_s, float* work, int E) {
+  const int col = threadIdx.x % TB, grp = threadIdx.x / TB;
+  stage_field(work, g);
+  for (int e = grp; e < E; e += NT / TB) {
+    float s = 0.f;
+    for (int c = 0; c < 3; ++c) {
+#pragma unroll 8
+      for (int vv = 0; vv < TV; ++vv) s = fmaf(sd_s[(c * E + e) * TVP + vv], work[(c * TV + vv) * TB + col], s);
+    }
+    acc_s[(row0 + e) * TB + col] += s;
+  }
+  __syncthreads();
+}
+
+template <bool EMIT, bool SCALE>
 __global__ void __launch_bounds__(NT, 1)
 rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
                    const float* __restrict__ feat, const float* __restrict__ w,
@@ -37,14 +130,14 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
                    float* __restrict__ homog, float* __restrict__ part, int J, int B,
                    int F, int E, int Vt, int Vp, int tiles_per_block) {
   extern __shared__ float smem[];
-  const int R = 3 * J + E;
+  const int R = rhs_rows(J, E, SCALE);
   float* pj_s = smem;                   // [12][J][TB]
   float* w_s = pj_s + 12 * J * TB;      // [J][TVP]
   float* sd_s = w_s + J * TVP;          // [3][E][TVP]
   float* acc_s = sd_s + 3 * E * TVP;    // [R][TB]
   float* work = acc_s + R * TB;         // staging, or a [3][TV][TB] reduction tile
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int col = threadIdx.x % TB, grp = threadIdx.x / TB;  // reduction roles
+  const int col = threadIdx.x % TB, grp = threadIdx.x / TB;
   const int b0 = blockIdx.x * TB;
 
   load_pj_tile(pj_s, pj, J, B, b0);
@@ -54,7 +147,8 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
     const int v0 = (blockIdx.y * tiles_per_block + t) * TV;
     if (v0 >= Vp) break;  // uniform across the block
     __syncthreads();      // the previous tile is done with w_s, sd_s and work
-    load_w_tile(w_s, w, J, Vp, v0);
+    const TileRows rows{v0, Vp};
+    load_w_tile(w_s, w, J, rows);
     for (int idx = threadIdx.x; idx < TV * 3 * E; idx += NT) {
       const int ce = idx % (3 * E), vv = idx / (3 * E);
       const int v = v0 + vv;
@@ -62,23 +156,28 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
     }
 
     float h[3][4][4];
-    homog_tile(h, feat, consts, F, B, Vp, v0, b0, work);
+    homog_tile(h, feat, consts, F, B, Vp, rows, b0, work);
+    if (EMIT) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int v = v0 + ty + 16 * i;
+      for (int i = 0; i < 4; ++i) {
+        const int v = v0 + ty + 16 * i;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int b = b0 + tx + 16 * k;
-        if (v < Vp && b < B) {
+        for (int k = 0; k < 4; ++k) {
+          const int b = b0 + tx + 16 * k;
+          if (v < Vp && b < B) {
 #pragma unroll
-          for (int c = 0; c < 3; ++c) homog[((size_t)c * Vp + v) * B + b] = h[c][i][k];
+            for (int c = 0; c < 3; ++c) homog[((size_t)c * Vp + v) * B + b] = h[c][i][k];
+          }
         }
       }
     }
 
-    // Residual b = tgt - pos (zero outside the target's rows and the batch).
-    float res[3][4][4];
+    // Residual b = tgt - pos (zero outside the target's rows and the batch);
+    // the scale form keeps the masked targets and its three per-column sums.
+    float res[3][4][4], tv[3][4][4], sc[3][4];
     pos_tile(res, h, pj_s, w_s, J);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sc[0][k] = sc[1][k] = sc[2][k] = 0.f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int v = v0 + ty + 16 * i;
@@ -87,75 +186,41 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
         const int b = b0 + tx + 16 * k;
         const bool ok = v < Vt && b < B;
 #pragma unroll
-        for (int a = 0; a < 3; ++a)
-          res[a][i][k] = ok ? tgt[((size_t)a * Vt + v) * B + b] - res[a][i][k] : 0.f;
-      }
-    }
-
-    // g_c = (Rbar^T b)_c = sum_j w[v, j] sum_a pj[a*4+c, j, b] b_a.
-    float g[3][4][4];
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) g[c][i][k] = 0.f;
-    for (int j = 0; j < J; ++j) {
-      float wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wv[i] = w_s[j * TVP + ty + 16 * i];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float p[9];
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-          for (int c = 0; c < 3; ++c) p[a * 3 + c] = pj_s[((a * 4 + c) * J + j) * TB + tx + 16 * k];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const float s =
-                fmaf(p[c], res[0][i][k], fmaf(p[3 + c], res[1][i][k], p[6 + c] * res[2][i][k]));
-            g[c][i][k] = fmaf(wv[i], s, g[c][i][k]);
+        for (int a = 0; a < 3; ++a) {
+          const float tval = ok ? tgt[((size_t)a * Vt + v) * B + b] : 0.f;
+          const float pval = ok ? res[a][i][k] : 0.f;
+          if (SCALE) {
+            tv[a][i][k] = tval;
+            sc[0][k] = fmaf(tval, tval, sc[0][k]);
+            sc[1][k] = fmaf(tval, pval, sc[1][k]);
+            sc[2][k] = fmaf(pval, pval, sc[2][k]);
           }
+          res[a][i][k] = tval - pval;
+        }
       }
     }
 
-    // y rows: acc[a*J + j] += sum_vv w[v, j] b_a(v).
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) work[(a * TV + ty + 16 * i) * TB + tx + 16 * k] = res[a][i][k];
-    __syncthreads();
-    for (int r = grp; r < 3 * J; r += NT / TB) {
-      const int a = r / J, j = r % J;
-      float s = 0.f;
-#pragma unroll 8
-      for (int vv = 0; vv < TV; ++vv)
-        s = fmaf(w_s[j * TVP + vv], work[(a * TV + vv) * TB + col], s);
-      acc_s[r * TB + col] += s;
-    }
-    __syncthreads();
+    float g[3][4][4];
+    project_rbar(g, res, pj_s, w_s, J);
+    reduce_joint_rows(acc_s, 0, res, w_s, work, J);
+    reduce_sd_rows(acc_s, 3 * J, g, sd_s, work, E);
 
-    // r rows: acc[3J + e] += sum_vv sum_c SD[c, v, e] g_c(v).
+    if (SCALE) {
+      // sc rows: per-column sums over the tile's rows, summed over ty in order.
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
+      for (int s = 0; s < 3; ++s)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) work[(c * TV + ty + 16 * i) * TB + tx + 16 * k] = g[c][i][k];
-    __syncthreads();
-    for (int e = grp; e < E; e += NT / TB) {
-      float s = 0.f;
-      for (int c = 0; c < 3; ++c) {
-#pragma unroll 8
-        for (int vv = 0; vv < TV; ++vv)
-          s = fmaf(sd_s[(c * E + e) * TVP + vv], work[(c * TV + vv) * TB + col], s);
+        for (int k = 0; k < 4; ++k) work[(s * 16 + ty) * TB + tx + 16 * k] = sc[s][k];
+      __syncthreads();
+      for (int s = grp; s < 3; s += NT / TB) {
+        float sum = 0.f;
+        for (int y = 0; y < 16; ++y) sum += work[(s * 16 + y) * TB + col];
+        acc_s[(6 * J + 2 * E + s) * TB + col] += sum;
       }
-      acc_s[(3 * J + e) * TB + col] += s;
+      __syncthreads();
+      project_rbar(g, tv, pj_s, w_s, J);
+      reduce_joint_rows(acc_s, 3 * J + E, tv, w_s, work, J);
+      reduce_sd_rows(acc_s, 6 * J + E, g, sd_s, work, E);
     }
   }
   __syncthreads();
@@ -166,51 +231,81 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
   }
 }
 
-// Sums the per-split partials in split order: rows [0, 3J) -> y, [3J, 3J+E) -> r.
+// Sums the per-split partials in split order into the outputs: rows [0, 3J)
+// -> y, then E rows -> r, and in the scale form 3J rows -> yt, E -> rt, 3 -> sc.
 __global__ void rhs_split_sum_kernel(const float* __restrict__ part, float* __restrict__ y,
-                                     float* __restrict__ r_out, int n_splits, int J, int E,
-                                     int B) {
-  const int R = 3 * J + E;
+                                     float* __restrict__ r_out, float* __restrict__ yt,
+                                     float* __restrict__ rt, float* __restrict__ sc,
+                                     int n_splits, int J, int E, int R, int B) {
   const size_t n = (size_t)R * B;
   for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
        idx += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int sp = 0; sp < n_splits; ++sp) s += part[(size_t)sp * n + idx];
-    const size_t r = idx / B;
-    if (r < (size_t)(3 * J)) y[idx] = s;
-    else r_out[idx - (size_t)3 * J * B] = s;
+    const int row = (int)(idx / B);
+    const size_t b = idx % B;
+    if (row < 3 * J) y[idx] = s;
+    else if (row < 3 * J + E) r_out[(size_t)(row - 3 * J) * B + b] = s;
+    else if (row < 6 * J + E) yt[(size_t)(row - 3 * J - E) * B + b] = s;
+    else if (row < 6 * J + 2 * E) rt[(size_t)(row - 6 * J - E) * B + b] = s;
+    else sc[(size_t)(row - 6 * J - 2 * E) * B + b] = s;
   }
+}
+
+template <bool EMIT, bool SCALE>
+cudaError_t launch_form(const float* tgt, const float* pj, const float* feat, const float* w,
+                        const float* consts, const float* sd, float* homog, float* part,
+                        int J, int B, int F, int E, int Vt, int Vp, int tiles_per_block,
+                        size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(rhs_moments_kernel<EMIT, SCALE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_vtiles = (Vp + TV - 1) / TV;
+  const int n_splits = (n_vtiles + tiles_per_block - 1) / tiles_per_block;
+  dim3 grid((B + TB - 1) / TB, n_splits);
+  rhs_moments_kernel<EMIT, SCALE><<<grid, NT, smem, stream>>>(
+      tgt, pj, feat, w, consts, sd, homog, part, J, B, F, E, Vt, Vp, tiles_per_block);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-SMPL_API size_t rhs_moments_smem_bytes(int J, int E) {
+SMPL_API size_t rhs_moments_smem_bytes(int J, int E, int scale) {
   const int work = staging_floats() > 3 * TV * TB ? staging_floats() : 3 * TV * TB;
-  return sizeof(float) * (12 * J * TB + J * TVP + 3 * E * TVP + (3 * J + E) * TB + work);
+  return sizeof(float) * (12 * J * TB + J * TVP + 3 * E * TVP + rhs_rows(J, E, scale) * TB + work);
 }
 
 // tgt (3, Vt, B), pj (12, J, B), feat (F, B), w (Vp, J), consts (>= 3, Vp, F),
-// sd (3, Vp, E) -> r (E, B), y (3, J, B), homog (3, Vp, B); part is scratch of
-// n_splits * (3J + E) * B floats with n_splits = ceil(ceil(Vp / 64) / tiles_per_block).
+// sd (3, Vp, E) -> r (E, B), y (3, J, B); homog (3, Vp, B) when emit_homog;
+// rt (E, B), yt (3, J, B), sc (3, B) when scale (the two flags exclude each
+// other; unused outputs may be null). part is scratch of n_splits * R * B
+// floats, R = rhs_rows(J, E, scale), n_splits = ceil(ceil(Vp / 64) / tiles_per_block).
 SMPL_API int rhs_moments_launch(const float* tgt, const float* pj, const float* feat,
                                 const float* w, const float* consts, const float* sd,
-                                float* r_out, float* y, float* homog, float* part, int J,
-                                int B, int F, int E, int Vt, int Vp, int tiles_per_block,
+                                float* r_out, float* y, float* homog, float* rt, float* yt,
+                                float* sc, float* part, int J, int B, int F, int E, int Vt,
+                                int Vp, int tiles_per_block, int emit_homog, int scale,
                                 cudaStream_t stream) {
-  const size_t smem = rhs_moments_smem_bytes(J, E);
-  cudaError_t err = cudaFuncSetAttribute(
-      rhs_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (emit_homog && scale) return (int)cudaErrorInvalidValue;
+  const size_t smem = rhs_moments_smem_bytes(J, E, scale);
+  cudaError_t err;
+  if (emit_homog)
+    err = launch_form<true, false>(tgt, pj, feat, w, consts, sd, homog, part, J, B, F, E, Vt,
+                                   Vp, tiles_per_block, smem, stream);
+  else if (scale)
+    err = launch_form<false, true>(tgt, pj, feat, w, consts, sd, nullptr, part, J, B, F, E,
+                                   Vt, Vp, tiles_per_block, smem, stream);
+  else
+    err = launch_form<false, false>(tgt, pj, feat, w, consts, sd, nullptr, part, J, B, F, E,
+                                    Vt, Vp, tiles_per_block, smem, stream);
   if (err != cudaSuccess) return (int)err;
   const int n_vtiles = (Vp + TV - 1) / TV;
   const int n_splits = (n_vtiles + tiles_per_block - 1) / tiles_per_block;
-  dim3 grid((B + TB - 1) / TB, n_splits);
-  rhs_moments_kernel<<<grid, NT, smem, stream>>>(tgt, pj, feat, w, consts, sd, homog, part,
-                                                 J, B, F, E, Vt, Vp, tiles_per_block);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)(3 * J + E) * B;
+  const int R = rhs_rows(J, E, scale);
+  const size_t n = (size_t)R * B;
   const int threads = 256;
   const int blocks = (int)((n + threads - 1) / threads);
-  rhs_split_sum_kernel<<<blocks, threads, 0, stream>>>(part, y, r_out, n_splits, J, E, B);
+  rhs_split_sum_kernel<<<blocks, threads, 0, stream>>>(part, y, r_out, yt, rt, sc, n_splits, J,
+                                                       E, R, B);
   return (int)cudaGetLastError();
 }

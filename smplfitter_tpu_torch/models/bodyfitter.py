@@ -7,10 +7,14 @@ all from per-part sufficient statistics) and the moment-tensor shape and
 translation solve (``shape_gram``). Rotations flow as ``(9, J, B)`` entry
 arrays and 3-vectors as ``(3, J, B)``, the layouts the kernels use.
 
-Ported here: the configuration of the repository's headline benchmark. Target
-vertices and joints, any number of iterations, optional final rotation
-adjustment, no weights, no scale, no shared betas, no warm start, no kid
-factor. Any other option raises ``NotImplementedError`` naming its ROADMAP item.
+Ported here: :meth:`BodyFitter.fit` with or without target joints, any number
+of iterations, optional final rotation adjustment, warm starts, the kid
+factor, ``scale_target`` / ``scale_fit`` and the ``'vertices'`` / ``'joints'``
+outputs; :meth:`~BodyFitter.fit_with_known_pose`,
+:meth:`~BodyFitter.fit_with_known_shape` and
+:meth:`~BodyFitter.fit_scale_and_translation`. Fit weights (static or per
+call), ``share_beta`` and models with large template features (SMPL-X,
+SMPL+H) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,8 +29,13 @@ from torch import nn
 
 from ..ops import lbs_kernels
 from ..ops import rotation as rot_ops
-from .bodymodel import BodyModel, index_tensor, tree_levels
-from .shape_gram import GramData, build_gram_data, fit_shape_gram_lm
+from .bodymodel import BodyModel, fk_rotations, index_tensor, tree_levels
+from .shape_gram import GramData, build_gram_data, fit_shape_gram_lm, lbs_recon_spec_lm
+
+# Models whose pose template has more features than this (SMPL-X, SMPL+H) take
+# the JAX package's large-F pipeline (posed template as its own kernel), which
+# is not ported yet; the same bound as lbs_kernels.HOMOG_GEMM_MIN_F there.
+HOMOG_GEMM_MIN_F = 320
 
 
 # ---------------------------------------------------------------------------
@@ -58,6 +67,7 @@ class FitterPlan:
     children_and_self: tuple
     is_smpl_family: bool
     n_betas: int
+    enable_kid: bool
     # Final-adjustment schedule: entry 0 is the root, entry k+1 the k-th tree
     # level; each entry groups its adjustable parts into buckets of equal
     # joint count, so every bucket refines as one batched step.
@@ -69,9 +79,11 @@ class FitterPlan:
                                      seg_offset=self.part_seg_offset, part_seg=self.part_seg)
 
 
-def build_plan(bm: BodyModel, num_betas: Optional[int] = None, device='cpu') -> FitterPlan:
+def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int] = None,
+               device='cpu') -> FitterPlan:
     """Host-side (numpy) construction of the static fit plan, in canonical
-    vertex order."""
+    vertex order; ``enable_kid`` appends the kid column to the extended joint
+    template."""
     data = bm.model_data
     weights = np.asarray(data.weights)
     parents = bm.kintree_parents
@@ -142,10 +154,13 @@ def build_plan(bm: BodyModel, num_betas: Optional[int] = None, device='cpu') -> 
         inverse_perm[10] = inverse_perm[7]
         inverse_perm[11] = inverse_perm[8]
 
-    # Extended joint template: position column + per-beta columns.
+    # Extended joint template: position column + per-beta columns (+ kid column).
     J_template = np.asarray(data.J_template, np.float64)
     J_shapedirs = np.asarray(data.J_shapedirs, np.float64)[:, :, :n_betas]
-    J_template_ext = np.concatenate([J_template.reshape(J, 3, 1), J_shapedirs], axis=2)
+    cols = [J_template.reshape(J, 3, 1), J_shapedirs]
+    if enable_kid:
+        cols.append(np.asarray(data.kid_J_shapedir, np.float64).reshape(J, 3, 1))
+    J_template_ext = np.concatenate(cols, axis=2)
     bone_ext = J_template_ext - J_template_ext[[0] + list(parents[1:])]
 
     # T-pose mesh: with identity rotations the pose feature exactly cancels
@@ -192,6 +207,7 @@ def build_plan(bm: BodyModel, num_betas: Optional[int] = None, device='cpu') -> 
         children_and_self=tuple(tuple(c) for c in children_and_self),
         is_smpl_family=is_smpl_family,
         n_betas=n_betas,
+        enable_kid=enable_kid,
         adj_level_buckets=adj_level_buckets,
     )
 
@@ -201,12 +217,48 @@ def build_plan(bm: BodyModel, num_betas: Optional[int] = None, device='cpu') -> 
 # ---------------------------------------------------------------------------
 
 
-def _center_targets(target_vertices, target_joints):
-    """Shift targets to the joints' mean (f32 conditioning of the raw part
-    moments); the fit adds the mean back to the translation."""
-    target_mean = target_joints.mean(dim=1)
+def _center_targets(target_vertices, target_joints, full_mean: bool = False):
+    """Shift targets to a body-centred origin (f32 conditioning of the raw part
+    moments); the fit adds the mean back to the translation. The joints' mean
+    when joints are given, else the vertices'; ``full_mean`` takes the mean of
+    vertices and joints together, which the scale fits need (their
+    translation does not shift with slope 1 in the centre)."""
+    if target_joints is None:
+        target_mean = target_vertices.mean(dim=1)
+        return target_vertices - target_mean[:, None], None, target_mean
+    if full_mean:
+        target_mean = ((target_vertices.sum(dim=1) + target_joints.sum(dim=1))
+                       / (target_vertices.shape[1] + target_joints.shape[1]))
+    else:
+        target_mean = target_joints.mean(dim=1)
     return (target_vertices - target_mean[:, None],
             target_joints - target_mean[:, None], target_mean)
+
+
+def _regress_joints_lm(bm, vertices_vm):
+    """Joints (3, J, B) regressed from a component-major mesh (3, >= V, B)."""
+    return torch.einsum('jv,cvb->cjb', bm.J_regressor_post_lbs,
+                        vertices_vm[:, :bm.num_vertices])
+
+
+def fit_scale_and_translation(target_vertices, reference_vertices, target_joints=None,
+                              reference_joints=None, scale: bool = False):
+    """Procrustes scale and translation (no rotation) that align the reference
+    points (B, V, 3) [+ joints (B, J, 3)] onto the targets: (scale or None,
+    trans (B, 3)). Joints count only when both kinds are given."""
+    if target_joints is None or reference_joints is None:
+        target_both, reference_both = target_vertices, reference_vertices
+    else:
+        target_both = torch.cat([target_vertices, target_joints], dim=1)
+        reference_both = torch.cat([reference_vertices, reference_joints], dim=1)
+    mean_t = target_both.mean(dim=1)
+    mean_r = reference_both.mean(dim=1)
+    if not scale:
+        return None, mean_t - mean_r
+    ssq_t = ((target_both - mean_t[:, None]) ** 2).sum(dim=(1, 2))
+    ssq_r = ((reference_both - mean_r[:, None]) ** 2).sum(dim=(1, 2))
+    scale_factor = torch.sqrt(ssq_t / ssq_r)
+    return scale_factor, mean_t - scale_factor[:, None] * mean_r
 
 
 def _lm_rotation_formats(bm, result, glob9, requested_keys) -> None:
@@ -250,24 +302,53 @@ def _part_sums_static_ref_lm(plan: FitterPlan, target_vm, reference_vm):
 
 
 def part_sums_lm(plan: FitterPlan, target_vm, reference_vm=None, reference_spec=None):
-    """Per-part sums raw (9, J, B), s_t (3, J, B), s_a (3, J, B|1), s_w (J, 1),
-    against either the batch-constant T-pose (``reference_vm`` (3, V_pad, 1))
-    or the shape solve's reconstruction (``reference_spec``, kernel K4)."""
+    """Per-part sums raw (9, J, B), s_t (3, J, B), s_a (3, J, B|1), s_w (J, 1)
+    of the targets against one of: the operands of a fitted mesh
+    (``reference_spec``: K4 from the posed-template cache when the shape solve
+    made one, else K6), a batch-constant mesh (``reference_vm`` (3, V_pad, 1):
+    one GEMM) or a per-instance mesh (``reference_vm`` (3, V_pad, B): K5)."""
     if reference_spec is not None:
-        raw, s_t, s_a = lbs_kernels.recon_part_sums_cached_lm(
-            target_vm, reference_spec['pj_cm'], reference_spec['x_cols'],
-            reference_spec['sd_cm'], reference_spec['homog_vm'], plan.parts,
-            reference_spec['weights_pad'])
-    else:
+        if reference_spec['homog_vm'] is not None:
+            raw, s_t, s_a = lbs_kernels.recon_part_sums_cached_lm(
+                target_vm, reference_spec['pj_cm'], reference_spec['x_cols'],
+                reference_spec['sd_cm'], reference_spec['homog_vm'], plan.parts,
+                reference_spec['weights_pad'])
+        else:
+            raw, s_t, s_a = lbs_kernels.recon_part_sums_lm(
+                target_vm, reference_spec['pj_cm'], reference_spec['feat_cols'],
+                reference_spec['weights_pad'], reference_spec['consts_pad'], plan.parts)
+    elif reference_vm.shape[2] == 1:
         raw, s_t, s_a = _part_sums_static_ref_lm(plan, target_vm, reference_vm)
+    else:
+        raw, s_t, s_a = lbs_kernels.part_sums_vm_lm(target_vm, reference_vm, plan.parts)
     return raw, s_t, s_a, plan.part_counts[0]
 
 
 def fit_global_rotations_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, reference_vm, rj_lm,
                             reference_spec=None):
-    """Per-part orientation fit; tj_lm/rj_lm (3, J, B|1)."""
+    """Per-part orientation fit; tj_lm/rj_lm (3, J, B|1), or None to regress
+    both from the meshes."""
+    if tj_lm is None or rj_lm is None:
+        tj_lm = _regress_joints_lm(bm, tgt_vm)
+        rj_lm = _regress_joints_lm(bm, reference_vm)
     raw, s_t, s_a, s_w = part_sums_lm(plan, tgt_vm, reference_vm, reference_spec)
     return _fit_rotations_core_lm(plan, raw, s_t, s_a, s_w, tj_lm, rj_lm)
+
+
+def _spec_points(spec):
+    """The mesh (3, V_pad, B) of a reconstruction spec, by K1."""
+    return lbs_kernels.lbs_points(spec['pj_cm'], spec['feat_cols'], spec['weights_pad'],
+                                  spec['consts_pad'])
+
+
+def fit_rotations_to_spec_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, spec, rj_lm):
+    """Orientation fit against a known shape's reconstruction spec (see
+    ``shape_gram.lbs_recon_spec_lm``) with model joints rj_lm: through K6 with
+    target joints; without, the mesh is made (K1) to regress joints from."""
+    if tj_lm is not None:
+        return fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, None, rj_lm,
+                                       reference_spec=spec)
+    return fit_global_rotations_lm(bm, plan, tgt_vm, None, _spec_points(spec), None)
 
 
 def _fit_rotations_core_lm(plan: FitterPlan, raw, s_t, s_a, s_w, tj_lm, rj_lm):
@@ -336,16 +417,28 @@ def fk_positions_ext_lm(bm, plan: FitterPlan, glob_lm):
     return pos
 
 
-def fit_global_rotations_dependent_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, rj_lm, glob9_prev,
-                                      shape_betas, trans_lm, reference_spec):
-    """Final rotation adjustment against the shape solve's reconstruction."""
-    raw, s_t, s_a, s_w = part_sums_lm(plan, tgt_vm, reference_spec=reference_spec)
+def fit_global_rotations_dependent_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, reference_vm, rj_lm,
+                                      glob9_prev, shape_betas, trans_lm, kid_factor=None,
+                                      reference_spec=None, scale_corr=None):
+    """Final rotation adjustment against the shape solve's reconstruction.
+    The parts are re-anchored at the solved model joints ``rj_lm`` even where
+    the working joints are regressed from the meshes (no target joints);
+    ``scale_corr`` (B,) scales the model joints of the tree walk."""
+    true_rj_lm = rj_lm
+    if tj_lm is None or rj_lm is None:
+        tj_lm = _regress_joints_lm(bm, tgt_vm)
+        rj_lm = _regress_joints_lm(bm, reference_vm)
+    if true_rj_lm is None:
+        true_rj_lm = rj_lm
+    raw, s_t, s_a, s_w = part_sums_lm(plan, tgt_vm, reference_vm, reference_spec)
     return _fit_rotations_dependent_core_lm(bm, plan, raw, s_t, s_a, s_w, tj_lm, rj_lm,
-                                            glob9_prev, shape_betas, trans_lm)
+                                            true_rj_lm, glob9_prev, shape_betas, trans_lm,
+                                            kid_factor, scale_corr)
 
 
 def _fit_rotations_dependent_core_lm(bm, plan: FitterPlan, raw, s_t, s_a, s_w, tj_lm, rj_lm,
-                                     glob9_prev, shape_betas, trans_lm):
+                                     true_rj_lm, glob9_prev, shape_betas, trans_lm,
+                                     kid_factor=None, scale_corr=None):
     """Bucket-batched tree walk of the final rotation adjustment: FK one tree
     level at a time from the solved shape's bones, then refine that level's
     adjustable parts in equal-joint-count buckets, each re-anchored at its
@@ -356,6 +449,10 @@ def _fit_rotations_dependent_core_lm(bm, plan: FitterPlan, raw, s_t, s_a, s_w, t
     parents = bm.kintree_parents
     j_lm = (torch.einsum('jcs,bs->cjb', bm.J_shapedirs[:, :, :n_betas], shape_betas[:, :n_betas])
             + bm.J_template.T[:, :, None])
+    if kid_factor is not None:
+        j_lm = j_lm + torch.einsum('jc,b->cjb', bm.kid_J_shapedir, kid_factor)
+    if scale_corr is not None:
+        j_lm = j_lm * scale_corr[None, None, :]
     j_parent = torch.cat(
         [torch.zeros_like(j_lm[:, :1]), j_lm[:, index_tensor(parents[1:], dev)]], dim=1)
     bones = j_lm - j_parent  # (3, J, B)
@@ -367,7 +464,7 @@ def _fit_rotations_dependent_core_lm(bm, plan: FitterPlan, raw, s_t, s_a, s_w, t
     def refine_parts(adj):
         adj_i = index_tensor(adj, dev)
         c_t = positions[:, adj_i]
-        c_a = rj_lm[:, adj_i]
+        c_a = true_rj_lm[:, adj_i]
         A_vert = _centered_cov_lm(raw[:, adj_i], s_t[:, adj_i], s_a[:, adj_i], s_w[adj_i],
                                   c_t, c_a)
         joint_sel = np.array([plan.children_and_self[i] for i in adj], dtype=np.int64)
@@ -413,7 +510,8 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
 
 
 class BodyFitter(nn.Module):
-    """Fits pose, shape and translation to target vertices and joints.
+    """Fits pose, shape and translation (and optionally kid factor and scale)
+    to target vertices and optionally joints.
 
     The plan and the shape-solve operands are precomputed on the host at
     construction and kept as buffers on the body model's device.
@@ -422,16 +520,19 @@ class BodyFitter(nn.Module):
     def __init__(self, body_model: BodyModel, enable_kid: bool = False,
                  num_betas: Optional[int] = None, vertex_weights=None, joint_weights=None):
         super().__init__()
-        if enable_kid:
-            raise _not_ported('the kid factor', 5)
         if vertex_weights is not None or joint_weights is not None:
             raise _not_ported('static fit weights', 5)
         self.body_model = body_model
+        self.enable_kid = enable_kid
         dev = body_model.device
-        plan = build_plan(body_model, num_betas, device=dev)
+        plan = build_plan(body_model, enable_kid, num_betas, device=dev)
         data = body_model.model_data
-        gram = build_gram_data(data.weights, data.shapedirs, plan.n_betas, data.v_template,
-                               data.posedirs, device=dev)
+        gram = build_gram_data(data.weights, data.shapedirs,
+                               data.kid_shapedir if enable_kid else None, plan.n_betas,
+                               data.v_template, data.posedirs, device=dev)
+        if gram.consts_pose.shape[2] > HOMOG_GEMM_MIN_F:
+            raise _not_ported(f'fitting models with more than {HOMOG_GEMM_MIN_F} template '
+                              'features (SMPL-X, SMPL+H)', 6)
         self._static = {}
         for prefix, obj in (('plan', plan), ('gram', gram)):
             for f in dataclasses.fields(obj):
@@ -457,6 +558,33 @@ class BodyFitter(nn.Module):
     def gram(self) -> GramData:
         return self._view('gram', GramData)
 
+    def _optional(self, x):
+        return None if x is None else self.body_model.as_f32(x)
+
+    def _glob9_from_pose(self, pose_rotvecs, batch: int) -> torch.Tensor:
+        """Global rotations (9, J, B) of pose rotation vectors (B, 3J), or the
+        T-pose for None."""
+        J = self.body_model.num_joints
+        if pose_rotvecs is None:
+            eye = torch.eye(3, device=self.body_model.device).reshape(9, 1, 1)
+            return eye.expand(9, J, batch).contiguous()
+        rel = rot_ops.rotvec2mat(self._optional(pose_rotvecs).reshape(batch, J, 3))
+        glob = fk_rotations(self.body_model.kintree_parents, rel)
+        return glob.reshape(batch, J, 9).permute(2, 1, 0).contiguous()
+
+    def _shape_cols(self, shape_betas, kid_factor, batch: int) -> torch.Tensor:
+        """Shape columns (B, E): betas cut or zero-padded to n_betas, then the
+        kid factor (zero when None) when the plan has the kid column."""
+        x = torch.zeros((batch, self.n_betas), device=self.body_model.device)
+        if shape_betas is not None:
+            given = shape_betas[:, :self.n_betas]
+            x[:, :given.shape[1]] = given
+        if self.enable_kid:
+            kid = (torch.zeros((batch, 1), device=x.device) if kid_factor is None
+                   else kid_factor.reshape(batch, 1))
+            x = torch.cat([x, kid], dim=1)
+        return x
+
     def fit(
         self,
         target_vertices,
@@ -477,66 +605,292 @@ class BodyFitter(nn.Module):
         initial_kid_factor=None,
         requested_keys=('pose_rotvecs',),
     ) -> dict:
-        """Alternating closed-form fit of (B, V, 3) target vertices and (B, J, 3)
-        target joints. Returns shape_betas (B, E), trans (B, 3), orientations
-        and relative_orientations (B, J, 3, 3), plus pose_rotvecs (B, 3J) when
-        requested."""
+        """Alternating closed-form fit of (B, V, 3) target vertices and
+        optionally (B, J, 3) target joints, warm-started from
+        ``initial_*`` when given. Returns shape_betas (B, n_betas), trans
+        (B, 3), orientations and relative_orientations (B, J, 3, 3), kid_factor
+        (B,) with the kid column, scale_corr (B,) under ``scale_target`` /
+        ``scale_fit``, and on request pose_rotvecs (B, 3J), vertices (B, V, 3)
+        and joints (B, J, 3)."""
         requested_keys = tuple(requested_keys)
-        if target_joints is None:
-            raise _not_ported('fitting without target joints', 5)
         if vertex_weights is not None or joint_weights is not None:
             raise _not_ported('per-call fit weights', 7)
         if share_beta:
             raise _not_ported('share_beta', 5)
-        if scale_target or scale_fit:
-            raise _not_ported('scale_target / scale_fit', 5)
-        if any(x is not None for x in (initial_pose_rotvecs, initial_shape_betas,
-                                       initial_kid_factor)):
-            raise _not_ported('warm starts (initial_*)', 5)
-        if 'vertices' in requested_keys or 'joints' in requested_keys:
-            raise _not_ported("'vertices' / 'joints' outputs of the fit", 5)
         if num_iter < 1:
             raise ValueError('num_iter must be at least 1')
-        tv = self.body_model.as_f32(target_vertices)
-        tj = self.body_model.as_f32(target_joints)
-        return self._fit_lm(tv, tj, num_iter, beta_regularizer, beta_regularizer2,
-                            final_adjust_rots, requested_keys)
+        opt = self._optional
+        return self._fit_lm(
+            self.body_model.as_f32(target_vertices), opt(target_joints), num_iter,
+            beta_regularizer, beta_regularizer2, scale_regularizer, kid_regularizer,
+            final_adjust_rots, scale_target, scale_fit, opt(initial_pose_rotvecs),
+            opt(initial_shape_betas), opt(initial_kid_factor), requested_keys)
 
     def _fit_lm(self, target_vertices, target_joints, num_iter, beta_regularizer,
-                beta_regularizer2, final_adjust_rots, requested_keys) -> dict:
+                beta_regularizer2, scale_regularizer, kid_regularizer, final_adjust_rots,
+                scale_target, scale_fit, initial_pose_rotvecs, initial_shape_betas,
+                initial_kid_factor, requested_keys) -> dict:
         bm = self.body_model
         plan = self.plan
         gram = self.gram
+        scale_any = scale_target or scale_fit
         target_vertices, target_joints, target_mean = _center_targets(
-            target_vertices, target_joints)
+            target_vertices, target_joints, full_mean=scale_any)
         tgt_vm = lbs_kernels.to_vertex_major(target_vertices)
-        tj_lm = target_joints.permute(2, 1, 0)
+        tj_lm = None if target_joints is None else target_joints.permute(2, 1, 0)
+        has_joints = tj_lm is not None
+        batch = tgt_vm.shape[2]
 
-        rj0 = bm.J_template.T[:, :, None]
-        glob9 = fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, plan.default_mesh_vm, rj0)
+        if initial_pose_rotvecs is None and initial_shape_betas is None:
+            rj0 = bm.J_template.T[:, :, None] if has_joints else None
+            glob9 = fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, plan.default_mesh_vm, rj0)
+        else:
+            # Warm start: the first rotation fit runs against the initial
+            # parameters' reconstruction and composes onto their rotations.
+            glob9_0 = self._glob9_from_pose(initial_pose_rotvecs, batch)
+            x0 = self._shape_cols(initial_shape_betas, initial_kid_factor, batch)
+            spec0, rj0, _ = lbs_recon_spec_lm(bm, plan, gram, glob9_0, x0.T.contiguous())
+            glob9 = rot_ops.matmul3x3_lm(
+                fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec0, rj0), glob9_0)
 
-        def solve(g9):
-            return fit_shape_gram_lm(bm, plan, gram, g9, tgt_vm, tj_lm, beta_regularizer,
-                                     beta_regularizer2, ('recon_spec', 'joints_lm'))
+        # With target joints the fitted mesh reaches the rotation fits as
+        # kernel operands; without, it is made (K1) to regress joints from.
+        recon_key = 'recon_spec' if has_joints else 'vertices_vm'
+
+        def solve(g9, keys, scale=False):
+            return fit_shape_gram_lm(
+                bm, plan, gram, g9, tgt_vm, tj_lm, beta_regularizer, beta_regularizer2,
+                kid_regularizer=kid_regularizer,
+                beta_regularizer_reference=initial_shape_betas,
+                kid_regularizer_reference=initial_kid_factor, requested_keys=keys,
+                scale_target=scale and scale_target, scale_fit=scale and scale_fit,
+                scale_regularizer=scale_regularizer)
 
         for _ in range(num_iter - 1):
-            res = solve(glob9)
+            res = solve(glob9, (recon_key, 'joints_lm') if has_joints else (recon_key,))
             glob9 = rot_ops.matmul3x3_lm(
-                fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, None, res['joints_lm'],
-                                        reference_spec=res['recon_spec']),
+                fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, res.get('vertices_vm'),
+                                        res.get('joints_lm'),
+                                        reference_spec=res.get('recon_spec')),
                 glob9)
-        res = solve(glob9)
-        if final_adjust_rots:
-            glob9 = fit_global_rotations_dependent_lm(
-                bm, plan, tgt_vm, tj_lm, res['joints_lm'], glob9, res['shape_betas'],
-                res['trans_lm'], res['recon_spec'])
+        res = solve(glob9, (recon_key, 'joints_lm') if (has_joints or final_adjust_rots)
+                    else (recon_key,), scale=scale_any)
 
+        if final_adjust_rots:
+            # scale_target scales the targets by the fitted factor; scale_fit
+            # scales the reconstruction about its translation,
+            # pos' = s pos + (1 - s) t, applied to the spec by scaling its
+            # [R|t] entries (exact: LBS is linear in them and skinning rows
+            # sum to 1), and the tree walk by the scaled model joints.
+            adj_tgt_vm, adj_tj = tgt_vm, tj_lm
+            ref_vm, ref_spec = res.get('vertices_vm'), res.get('recon_spec')
+            ref_j = res['joints_lm']
+            adj_scale_corr = None
+            factor = res['scale_corr']
+            if scale_target:
+                adj_tgt_vm = tgt_vm * factor
+                adj_tj = None if tj_lm is None else tj_lm * factor
+            elif scale_fit:
+                shift = (1.0 - factor)[None, :] * res['trans_lm']  # (3, B)
+                if ref_vm is not None:
+                    ref_vm = ref_vm * factor + shift[:, None, :]
+                ref_j = ref_j * factor + shift[:, None, :]
+                if ref_spec is not None:
+                    pj = ref_spec['pj_cm'] * factor
+                    pj[3::4] += shift[:, None, :]
+                    ref_spec = dict(ref_spec, pj_cm=pj)
+                adj_scale_corr = factor
+            glob9 = fit_global_rotations_dependent_lm(
+                bm, plan, adj_tgt_vm, adj_tj, ref_vm, ref_j, glob9, res['shape_betas'],
+                res['trans_lm'], res['kid_factor'], reference_spec=ref_spec,
+                scale_corr=adj_scale_corr)
+
+        if scale_target:
+            trans_out = res['trans'] + target_mean * res['scale_corr'][:, None]
+        elif scale_fit:
+            trans_out = res['trans'] + target_mean / res['scale_corr'][:, None]
+        else:
+            trans_out = res['trans'] + target_mean
+        J = bm.num_joints
+        orientations = glob9.permute(2, 1, 0).reshape(batch, J, 3, 3)
         result = dict(
             shape_betas=res['shape_betas'],
-            trans=res['trans'] + target_mean,
+            kid_factor=res['kid_factor'],
+            scale_corr=res['scale_corr'],
+            trans=trans_out,
             relative_orientations=res['relative_orientations_lm'].permute(2, 1, 0).reshape(
-                -1, bm.num_joints, 3, 3),
-            orientations=glob9.permute(2, 1, 0).reshape(-1, bm.num_joints, 3, 3),
+                batch, J, 3, 3),
+            orientations=orientations,
         )
+        if 'joints' in requested_keys or 'vertices' in requested_keys:
+            forw = bm(glob_rotmats=orientations, shape_betas=res['shape_betas'],
+                      trans=res['trans'] + target_mean, kid_factor=res['kid_factor'],
+                      return_vertices='vertices' in requested_keys)
+            for key in ('joints', 'vertices'):
+                if key in requested_keys:
+                    result[key] = forw[key]
         _lm_rotation_formats(bm, result, glob9, requested_keys)
+        return {k: v for k, v in result.items() if v is not None}
+
+    def fit_with_known_pose(
+        self,
+        pose_rotvecs,
+        target_vertices,
+        target_joints=None,
+        vertex_weights=None,
+        joint_weights=None,
+        beta_regularizer: float = 1.0,
+        beta_regularizer2: float = 0.0,
+        scale_regularizer: float = 0.0,
+        kid_regularizer: Optional[float] = None,
+        share_beta: bool = False,
+        scale_target: bool = False,
+        scale_fit: bool = False,
+        beta_regularizer_reference=None,
+        kid_regularizer_reference=None,
+        requested_keys=('shape_betas',),
+    ) -> dict:
+        """Shape, translation (and optionally kid factor and scale) for known
+        pose rotation vectors (B, 3J): one shape solve. Returns shape_betas,
+        trans, orientations and relative_orientations (B, J, 3, 3), and
+        kid_factor / scale_corr where they are fitted; the target mean is
+        restored unscaled."""
+        if vertex_weights is not None or joint_weights is not None:
+            raise _not_ported('per-call fit weights', 7)
+        if share_beta:
+            raise _not_ported('share_beta', 5)
+        bm = self.body_model
+        target_vertices, target_joints, target_mean = _center_targets(
+            bm.as_f32(target_vertices), self._optional(target_joints),
+            full_mean=scale_target or scale_fit)
+        batch = target_vertices.shape[0]
+        glob9 = self._glob9_from_pose(pose_rotvecs, batch)
+        res = fit_shape_gram_lm(
+            bm, self.plan, self.gram, glob9, lbs_kernels.to_vertex_major(target_vertices),
+            None if target_joints is None else target_joints.permute(2, 1, 0),
+            beta_regularizer, beta_regularizer2, kid_regularizer=kid_regularizer,
+            beta_regularizer_reference=self._optional(beta_regularizer_reference),
+            kid_regularizer_reference=self._optional(kid_regularizer_reference),
+            scale_target=scale_target, scale_fit=scale_fit, scale_regularizer=scale_regularizer)
+        result = dict(
+            shape_betas=res['shape_betas'],
+            kid_factor=res['kid_factor'],
+            scale_corr=res['scale_corr'],
+            trans=res['trans'] + target_mean,
+            orientations=glob9.permute(2, 1, 0).reshape(batch, bm.num_joints, 3, 3),
+            relative_orientations=res['relative_orientations_lm'].permute(2, 1, 0).reshape(
+                batch, bm.num_joints, 3, 3),
+        )
+        return {k: v for k, v in result.items() if v is not None}
+
+    def fit_with_known_shape(
+        self,
+        shape_betas,
+        target_vertices,
+        target_joints=None,
+        vertex_weights=None,
+        joint_weights=None,
+        kid_factor=None,
+        num_iter: int = 1,
+        final_adjust_rots: bool = True,
+        initial_pose_rotvecs=None,
+        scale_fit: bool = False,
+        requested_keys=('pose_rotvecs',),
+    ) -> dict:
+        """Pose and translation (and with ``scale_fit`` a scale) for known
+        shape betas (B, <= n_betas) and kid factors (B,): ``num_iter``
+        rotation fits against the known shape's reconstruction, from the
+        T-pose or ``initial_pose_rotvecs``, then the translation and the
+        optional final adjustment. Returns shape_betas, trans, orientations,
+        kid_factor when given, scale_corr under ``scale_fit``, and on request
+        pose_rotvecs / relative_orientations."""
+        if vertex_weights is not None or joint_weights is not None:
+            raise _not_ported('per-call fit weights', 7)
+        if kid_factor is not None and not self.enable_kid:
+            raise _not_ported('fit_with_known_shape with a kid factor on a fitter built '
+                              'without enable_kid', 5)
+        bm = self.body_model
+        plan = self.plan
+        gram = self.gram
+        J = bm.num_joints
+        V = bm.num_vertices
+        target_vertices, target_joints, target_mean = _center_targets(
+            bm.as_f32(target_vertices), self._optional(target_joints))
+        tgt_vm = lbs_kernels.to_vertex_major(target_vertices)
+        tj_lm = None if target_joints is None else target_joints.permute(2, 1, 0)
+        has_joints = tj_lm is not None
+        batch = tgt_vm.shape[2]
+        kid_factor = self._optional(kid_factor)
+        if kid_factor is not None:
+            kid_factor = kid_factor.reshape(batch)
+        x = self._shape_cols(self._optional(shape_betas), kid_factor, batch)
+        x_T = x.T.contiguous()
+
+        glob9 = self._glob9_from_pose(initial_pose_rotvecs, batch)
+        for _ in range(num_iter):
+            spec, rj, _ = lbs_recon_spec_lm(bm, plan, gram, glob9, x_T)
+            glob9 = rot_ops.matmul3x3_lm(
+                fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec, rj), glob9)
+
+        spec_f, rj_f, rec_sum = lbs_recon_spec_lm(bm, plan, gram, glob9, x_T)
+        scale_corr = None
+        if scale_fit:
+            # Procrustes scale and translation against the reconstruction itself.
+            rec = _spec_points(spec_f)
+            scale_corr, trans = fit_scale_and_translation(
+                target_vertices, lbs_kernels.from_vertex_major(rec, V), target_joints,
+                rj_f.permute(2, 1, 0), scale=True)
+            trans_lm = trans.T
+            ref_vm = rec * scale_corr + trans_lm[:, None, :]
+            ref_j = rj_f * scale_corr + trans_lm[:, None, :]
+            ref_spec = None
+        else:
+            # Translation: the mean gap of vertices (and joints), with the
+            # reconstruction's sum from the first moments.
+            tgt_sum = tgt_vm[:, :V].sum(dim=1)
+            w_tot = float(V)
+            if has_joints:
+                tgt_sum = tgt_sum + tj_lm.sum(dim=1)
+                rec_sum = rec_sum + rj_f.sum(dim=1)
+                w_tot += J
+            trans_lm = (tgt_sum - rec_sum) / w_tot  # (3, B)
+            ref_j = rj_f + trans_lm[:, None, :]
+            pj = spec_f['pj_cm'].clone()
+            pj[3::4] += trans_lm[:, None, :]
+            ref_spec, ref_vm = dict(spec_f, pj_cm=pj), None
+            if not has_joints:
+                ref_spec, ref_vm = None, _spec_points(ref_spec)
+
+        if final_adjust_rots:
+            glob9 = fit_global_rotations_dependent_lm(
+                bm, plan, tgt_vm, tj_lm, ref_vm, ref_j, glob9, x[:, :self.n_betas], trans_lm,
+                kid_factor, reference_spec=ref_spec, scale_corr=scale_corr)
+
+        result = dict(
+            shape_betas=x[:, :self.n_betas],
+            trans=trans_lm.T + target_mean,
+            orientations=glob9.permute(2, 1, 0).reshape(batch, J, 3, 3),
+        )
+        if kid_factor is not None:
+            result['kid_factor'] = kid_factor
+        if scale_corr is not None:
+            result['scale_corr'] = scale_corr
+        _lm_rotation_formats(bm, result, glob9, tuple(requested_keys))
+        return result
+
+    def fit_scale_and_translation(self, target_vertices, reference_vertices, target_joints=None,
+                                  reference_joints=None, vertex_weights=None, joint_weights=None,
+                                  scale: bool = False) -> dict:
+        """Procrustes scale and translation between fixed point sets (no
+        rotation or shape change), aligning the reference onto the target:
+        ``{'trans': (B, 3)}`` plus ``'scale_corr'`` (B,) when ``scale``."""
+        if vertex_weights is not None or joint_weights is not None:
+            raise _not_ported('per-call fit weights', 7)
+        bm = self.body_model
+        scale_corr, trans = fit_scale_and_translation(
+            bm.as_f32(target_vertices), bm.as_f32(reference_vertices),
+            self._optional(target_joints), self._optional(reference_joints), scale=scale)
+        result = {'trans': trans}
+        if scale_corr is not None:
+            result['scale_corr'] = scale_corr
         return result

@@ -155,13 +155,22 @@ class BodyModel(nn.Module):
             return x.to(device=self.device, dtype=torch.float32)
         return torch.as_tensor(np.array(x, dtype=np.float32), device=self.device)
 
-    def forward(self, pose_rotvecs=None, shape_betas=None, trans=None,
-                kid_factor=None) -> dict:
+    def forward(self, pose_rotvecs=None, shape_betas=None, trans=None, kid_factor=None,
+                rel_rotmats=None, glob_rotmats=None, *, return_vertices: bool = True) -> dict:
         """Vertices (B, V, 3), joints (B, J, 3) and global orientations
-        (B, J, 3, 3) for a batch of pose rotation vectors (B, 3J), betas
-        (B, <= S), translations (B, 3) and kid factors (B,)."""
-        batch_sizes = [x.shape[0] for x in (pose_rotvecs, shape_betas, trans)
-                       if x is not None]
+        (B, J, 3, 3) for a batch of betas (B, <= S), translations (B, 3), kid
+        factors (B,) and one rotation input: pose rotation vectors (B, 3J),
+        parent-relative rotation matrices (B, J, 3, 3) or global ones
+        (B, J, 3, 3); none means the T-pose. ``return_vertices=False`` skips
+        the mesh and returns joints and orientations only."""
+        rot_inputs = [name for name, x in (('pose_rotvecs', pose_rotvecs),
+                                           ('rel_rotmats', rel_rotmats),
+                                           ('glob_rotmats', glob_rotmats)) if x is not None]
+        if len(rot_inputs) > 1:
+            raise ValueError('Only one rotation input may be provided. '
+                             f'Got: {", ".join(rot_inputs)}.')
+        batch_sizes = [x.shape[0] for x in (pose_rotvecs, shape_betas, trans, rel_rotmats,
+                                            glob_rotmats) if x is not None]
         if not batch_sizes:
             raise ValueError('At least one argument must be given to determine the batch size.')
         if any(b != batch_sizes[0] for b in batch_sizes[1:]):
@@ -171,11 +180,19 @@ class BodyModel(nn.Module):
         parents = self.kintree_parents
         dev = self.device
 
-        if pose_rotvecs is None:
-            rel = torch.eye(3, device=dev).expand(B, J, 3, 3)
-        else:
+        if pose_rotvecs is not None:
             rel = rot_ops.rotvec2mat(self.as_f32(pose_rotvecs).reshape(B, J, 3))
-        glob = fk_rotations(parents, rel)
+        elif rel_rotmats is not None:
+            rel = self.as_f32(rel_rotmats)
+        elif glob_rotmats is None:
+            rel = torch.eye(3, device=dev).expand(B, J, 3, 3)
+        if glob_rotmats is None:
+            glob = fk_rotations(parents, rel)
+            rel1 = rel[:, 1:]
+        else:
+            glob = self.as_f32(glob_rotmats)
+            rel1 = rot_ops.matmul3x3(glob[:, index_tensor(parents[1:], dev)], glob[:, 1:],
+                                     transpose_a=True)
 
         betas = (torch.zeros((B, 0), device=dev) if shape_betas is None
                  else self.as_f32(shape_betas))
@@ -192,6 +209,8 @@ class BodyModel(nn.Module):
         parent1 = index_tensor(parents[1:], dev)
         j_parent = torch.cat([torch.zeros_like(j[:, :1]), j[:, parent1]], dim=1)
         glob_pos = fk_positions(parents, glob, j - j_parent)
+        if not return_vertices:
+            return dict(joints=glob_pos + trans[:, None], orientations=glob)
 
         # Kernel operands: per-joint [R|t] (12, J, B) and the homogeneous
         # feature (F, B) = [pose feature; 1; betas; kid], with the projector
@@ -202,10 +221,10 @@ class BodyModel(nn.Module):
         if nb < S:
             consts = torch.cat([consts[:, :, :base + nb], consts[:, :, base + S:]], dim=2)
         translations = glob_pos - rot_ops.matvec3(glob, j) + trans[:, None]
-        pj_cm = torch.cat([glob, translations[..., None]], dim=3).permute(2, 3, 1, 0)
-        pj_cm = pj_cm.reshape(12, J, B).contiguous()
+        pj_cm = torch.cat([glob.expand(B, J, 3, 3), translations[..., None]], dim=3)
+        pj_cm = pj_cm.permute(2, 3, 1, 0).reshape(12, J, B).contiguous()
         feat = torch.cat([
-            rel[:, 1:].reshape(B, (J - 1) * 9),
+            rel1.reshape(B, (J - 1) * 9),
             torch.ones((B, 1), device=dev),
             betas,
             kid.reshape(-1, 1).expand(B, 1),
@@ -216,3 +235,39 @@ class BodyModel(nn.Module):
             joints=glob_pos + trans[:, None],
             orientations=glob,
         )
+
+    def single(self, *args, return_vertices: bool = True, **kwargs) -> dict:
+        """Unbatched :meth:`forward`: inputs and outputs without the batch dim."""
+        args = [self.as_f32(x)[None] for x in args]
+        kwargs = {k: self.as_f32(v)[None] for k, v in kwargs.items()}
+        if not args and not kwargs:
+            kwargs['shape_betas'] = torch.zeros((1, 0), device=self.device)
+        result = self(*args, return_vertices=return_vertices, **kwargs)
+        return {k: v[0] for k, v in result.items()}
+
+    def rototranslate(self, R, t=None, pose_rotvecs=None, shape_betas=None, trans=None,
+                      kid_factor=0.0, post_translate: bool = True):
+        """Rotate (R (3, 3)) and translate (t (3,)) one body in parameter
+        space, accounting for the pelvis offset: the new root rotation vector
+        and translation for unbatched pose_rotvecs (3J,), shape_betas and
+        trans (3,). Returns (new_pose_rotvecs, new_trans)."""
+        if pose_rotvecs is None or shape_betas is None or trans is None:
+            raise ValueError('pose_rotvecs, shape_betas, and trans are required.')
+        R = self.as_f32(R)
+        t = torch.zeros(3, device=self.device) if t is None else self.as_f32(t)
+        pose_rotvecs = self.as_f32(pose_rotvecs)
+        shape_betas = self.as_f32(shape_betas)
+        trans = self.as_f32(trans)
+
+        new_rotmat = R @ rot_ops.rotvec2mat(pose_rotvecs[:3])
+        new_root = rot_ops.mat2rotvec_lm(new_rotmat.reshape(9))
+        new_pose_rotvecs = torch.cat([new_root, pose_rotvecs[3:]])
+        pelvis = (self.J_template[0]
+                  + self.J_shapedirs[0, :, :shape_betas.shape[0]] @ shape_betas
+                  + self.kid_J_shapedir[0] * kid_factor)
+        eye = torch.eye(3, device=self.device)
+        if post_translate:
+            new_trans = pelvis @ (R.T - eye) + trans @ R.T + t
+        else:
+            new_trans = pelvis @ (R.T - eye) + (trans - t) @ R.T
+        return new_pose_rotvecs, new_trans

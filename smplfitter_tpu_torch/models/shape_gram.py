@@ -11,12 +11,16 @@ call, one kernel (K2) reduces the residual over the vertices and another (K3)
 assembles each instance's Gramian from joint-space operands; the translation
 is eliminated jointly in a small augmented SPD system.
 
-Ported here: the unweighted, unscaled, non-shared solve with target joints.
+Ported here: the unweighted, non-shared solve, with or without target joints,
+with the kid column, warm-start regularizer references and the scale column
+of ``scale_target`` / ``scale_fit``; and the deferred reconstruction operands
+of a known shape (:func:`lbs_recon_spec_lm`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,16 +44,23 @@ class GramData:
     sd1_2d: torch.Tensor  # (3J, E)  sum_v w_vj SD_v, rows (j,c)
     q: torch.Tensor  # (J, J)  sum_v w_vj w_vk
     W1_col: torch.Tensor  # (J, 1)  sum_v w_vj
-    n_ext: int  # E = number of betas
+    # First moments of the full template features (columns of consts_full:
+    # [posedirs | v_template | SD]): sum_v rec_v follows from them without the mesh.
+    Kc: torch.Tensor  # (J, 3, P + 1 + E)  sum_v w_vj consts_v
+    n_ext: int  # E = number of betas (+1 with the kid column)
 
 
-def build_gram_data(weights: np.ndarray, shapedirs: np.ndarray, n_betas: int,
+def build_gram_data(weights: np.ndarray, shapedirs: np.ndarray,
+                    kid_shapedir: Optional[np.ndarray], n_betas: int,
                     v_template: np.ndarray, posedirs: np.ndarray, device='cpu') -> GramData:
     """Host-side (f64) moment precompute; ``weights`` (V, J), ``shapedirs``
-    (V, 3, S), ``v_template`` (V, 3), ``posedirs`` (V, 3, P). Vertex order is
+    (V, 3, S), ``kid_shapedir`` (V, 3) appended as the last shape column when
+    given, ``v_template`` (V, 3), ``posedirs`` (V, 3, P). Vertex order is
     canonical; per-vertex operands are zero-row-padded to a multiple of 256."""
     w = np.asarray(weights, np.float64)
     SD = np.asarray(shapedirs, np.float64)[:, :, :n_betas]
+    if kid_shapedir is not None:
+        SD = np.concatenate([SD, np.asarray(kid_shapedir, np.float64)[:, :, None]], axis=2)
     V, J = w.shape
     E = SD.shape[2]
 
@@ -75,6 +86,8 @@ def build_gram_data(weights: np.ndarray, shapedirs: np.ndarray, n_betas: int,
     Ksd = K.transpose(0, 1, 3, 4, 2, 5).reshape(J * 3 * J * 3, E * E)
     Lsd = (Msd.T @ w).reshape(J, 3, E, J).transpose(0, 3, 1, 2)  # (j, k, c, e)
     sd1 = np.einsum('vj,vce->jce', w, SD)
+    consts3 = np.concatenate([np.asarray(posedirs, np.float64),
+                              np.asarray(v_template, np.float64)[:, :, None], SD], axis=2)
 
     def f32(x):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device)
@@ -89,6 +102,7 @@ def build_gram_data(weights: np.ndarray, shapedirs: np.ndarray, n_betas: int,
         sd1_2d=f32(sd1.reshape(J * 3, E)),
         q=f32(w.T @ w),
         W1_col=f32(w.sum(axis=0).reshape(J, 1)),
+        Kc=f32((w.T @ consts3.reshape(V, -1)).reshape(J, 3, consts3.shape[2])),
         n_ext=E,
     )
 
@@ -130,83 +144,187 @@ def _fk_ext_prelude(bm, plan, glob_lm) -> dict:
 
 def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
                       beta_regularizer: float, beta_regularizer2: float,
-                      requested_keys=()) -> dict:
-    """Lane-major shape solve with target joints: rotations glob_lm (9, J, B),
-    targets tgt_vm (3, V, B) and tj_lm (3, J, B). Returns shape_betas (B, E),
-    trans (B, 3), trans_lm (3, B), relative_orientations_lm (9, J, B), and on
-    request joints_lm (3, J, B) and recon_spec (the K4 operands of the fitted
-    mesh: pj_cm, homog_vm, x_cols, sd_cm, weights_pad)."""
+                      kid_regularizer: Optional[float] = None,
+                      beta_regularizer_reference=None, kid_regularizer_reference=None,
+                      requested_keys=(), scale_target: bool = False, scale_fit: bool = False,
+                      scale_regularizer: float = 0.0) -> dict:
+    """Lane-major shape solve: rotations glob_lm (9, J, B), targets tgt_vm
+    (3, V, B) and tj_lm (3, J, B) or None. Returns shape_betas (B, n_betas),
+    kid_factor (B,) or None, scale_corr (B,) or None, trans (B, 3), trans_lm
+    (3, B), relative_orientations_lm (9, J, B), and on request joints_lm
+    (3, J, B), vertices_vm (3, V_pad, B) and recon_spec (the fitted mesh's
+    operands for the per-part sums: pj_cm, feat_cols, consts_pad,
+    weights_pad, and the posed-template cache homog_vm, x_cols, sd_cm, where
+    homog_vm is None unless the solve computed it).
+
+    ``scale_target`` / ``scale_fit`` add the scale column from K2's
+    target-side moments (the model side follows by linearity, pos = tgt - b)."""
     batch = glob_lm.shape[2]
     J = bm.num_joints
     E = gram.n_ext
+    dev = glob_lm.device
+    scale_col = scale_target or scale_fit
+    has_joints = tj_lm is not None
 
     pre = _fk_ext_prelude(bm, plan, glob_lm)
     p_j, P4, T4 = pre['p_j'], pre['P4'], pre['T4']
-    rk, yk, homog_vm = lbs_kernels.rhs_moments_h(
-        tgt_vm, pre['pj_cm'], pre['feat_cols'], gram.weights_pad, gram.consts_pose,
-        gram.sd_cm)
+    rhs_args = (tgt_vm, pre['pj_cm'], pre['feat_cols'], gram.weights_pad, gram.consts_pose,
+                gram.sd_cm)
+    homog_vm = None
+    if scale_col:
+        rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments(*rhs_args, scale=True)
+    elif 'recon_spec' in requested_keys:
+        rk, yk, homog_vm = lbs_kernels.rhs_moments_h(*rhs_args)
+    else:
+        rk, yk = lbs_kernels.rhs_moments(*rhs_args)
 
     R_cm = torch.stack([
         torch.stack([glob_lm[a * 3 + c] for c in range(3)], dim=1).reshape(J * 3, batch)
         for a in range(3)
     ])  # (3, 3J, B), rows (j, c)
+    if has_joints:
+        P_cm = P4.reshape(3, E * J, batch).contiguous()
+        bJ_cm = (tj_lm - p_j).contiguous()
+    else:
+        P_cm = bJ_cm = torch.zeros((3, 1, batch), device=dev)
     Gk, SAk, rbk, Sbk = lbs_kernels.gram_assembly(
-        R_cm, T4.reshape(3, E * J, batch), yk, P4.reshape(3, E * J, batch).contiguous(),
-        (tj_lm - p_j).contiguous(), gram.Ksd, gram.Lz_e, gram.sd1_2d, gram.q, gram.W1_col,
-        has_joints=True)
+        R_cm, T4.reshape(3, E * J, batch), yk, P_cm, bJ_cm, gram.Ksd, gram.Lz_e, gram.sd1_2d,
+        gram.q, gram.W1_col, has_joints=has_joints)
     G = Gk.T.reshape(batch, E, E)
     SA = SAk.T.reshape(batch, 3, E)
     r = rk.T + rbk.T
     Sb = Sbk.T
-    W = torch.full((batch,), float(bm.num_vertices + J), device=G.device)
-    return _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer,
-                       beta_regularizer2, requested_keys, homog_vm)
+    W = torch.full((batch,), float(bm.num_vertices + (J if has_joints else 0)), device=dev)
+
+    if scale_col:
+        rt_full = rtk.T + torch.einsum('aejb,ajb->be', T4, ytk)
+        r_b_vert = rk.T + torch.einsum('aejb,ajb->be', T4, yk)
+        sum_t = ytk.sum(dim=1).T  # (B, 3)
+        sum_b = yk.sum(dim=1).T
+        s_tt, s_tp, s_pp = sck[0], sck[1], sck[2]
+        if scale_target:
+            g_cross, col_sq, col_b, SA_col = -rt_full, s_tt, -(s_tt - s_tp), -sum_t
+        else:
+            g_cross, col_sq, col_b, SA_col = rt_full - r_b_vert, s_pp, s_tp - s_pp, sum_t - sum_b
+        if has_joints:
+            col_joint = -tj_lm if scale_target else p_j
+            g_cross = g_cross + torch.einsum('aejb,ajb->be', P4, col_joint)
+            col_sq = col_sq + torch.einsum('ajb,ajb->b', col_joint, col_joint)
+            col_b = col_b + torch.einsum('ajb,ajb->b', tj_lm - p_j, col_joint)
+            SA_col = SA_col + col_joint.sum(dim=1).T
+        G = torch.cat([torch.cat([G, g_cross[:, :, None]], dim=2),
+                       torch.cat([g_cross[:, None, :], col_sq[:, None, None]], dim=2)], dim=1)
+        SA = torch.cat([SA, SA_col[:, :, None]], dim=2)
+        r = torch.cat([r, col_b[:, None]], dim=1)
+
+    return _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regularizer2,
+                       kid_regularizer, beta_regularizer_reference, kid_regularizer_reference,
+                       requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer)
 
 
 def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regularizer2,
-                requested_keys, homog_vm) -> dict:
-    """Regularize and solve the augmented [betas, trans] system (B, E+3) and
-    build the lane-major result dict."""
+                kid_regularizer, beta_regularizer_reference, kid_regularizer_reference,
+                requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer) -> dict:
+    """Regularize and solve the augmented [betas (, kid) (, scale), trans]
+    system (B, E1 + 3), E1 = E + 1 with a scale column, and build the
+    lane-major result dict."""
     glob_lm, p_j, P4, t_lm, T4 = (pre[k] for k in ('glob_lm', 'p_j', 'P4', 't_lm', 'T4'))
     batch = glob_lm.shape[2]
     E = gram.n_ext
+    scale_col = scale_target or scale_fit
+    E1 = E + (1 if scale_col else 0)
     n_betas = plan.n_betas
     dev = G.device
 
-    l2 = torch.cat([
-        torch.full((2,), beta_regularizer2, device=dev),
-        torch.full((n_betas - 2,), beta_regularizer, device=dev),
-    ])
+    # Regularizers pull towards a reference (zero unless given): sum l2 (x - ref)^2.
+    # Built by fills on the device: a host list copied in would block the host
+    # until the device has caught up.
+    l2 = [(2, beta_regularizer2), (n_betas - 2, beta_regularizer)]
+    ref = torch.zeros((batch, n_betas), device=dev)
+    if beta_regularizer_reference is not None:
+        given = beta_regularizer_reference[:, :n_betas]
+        ref[:, :given.shape[1]] = given
+    refs = [ref]
+    if plan.enable_kid:
+        l2.append((1, beta_regularizer if kid_regularizer is None else kid_regularizer))
+        refs.append(torch.zeros((batch, 1), device=dev) if kid_regularizer_reference is None
+                    else kid_regularizer_reference.reshape(batch, 1))
+    if scale_col:
+        l2.append((1, scale_regularizer))
+        refs.append(torch.zeros((batch, 1), device=dev))
+    l2 = torch.cat([torch.full((n,), value, device=dev) for n, value in l2])
+    l2_rhs = l2 * torch.cat(refs, dim=1)
+
     eyeW = W[:, None, None] * torch.eye(3, device=dev)
     G_aug = torch.cat([
         torch.cat([G, SA.transpose(1, 2)], dim=2),
         torch.cat([SA, eyeW], dim=2),
     ], dim=1)
     G_aug = G_aug + torch.diag(torch.cat([l2, torch.zeros(3, device=dev)]))
-    # The regularizers pull towards zero betas, so the right side gets no pull term.
-    r_aug = torch.cat([r, Sb], dim=1)
+    r_aug = torch.cat([r + l2_rhs, Sb], dim=1)
     sol = solve_spd_unrolled(G_aug, r_aug)
 
     new_shape = sol[:, :n_betas]
-    new_trans = sol[:, E:]
+    new_kid = sol[:, n_betas] if plan.enable_kid else None
+    new_scale = sol[:, E] + 1 if scale_col else None
+    new_trans = sol[:, E1:]
+    if scale_fit:
+        # scale_fit scales the model, so the published shape is divided by the scale.
+        new_shape = new_shape / new_scale[:, None]
+        if new_kid is not None:
+            new_kid = new_kid / new_scale
     result = dict(
         shape_betas=new_shape,
+        kid_factor=new_kid,
+        scale_corr=new_scale,
         trans=new_trans,
         trans_lm=new_trans.T,
         relative_orientations_lm=pre['rel9'],
     )
-    x_T = new_shape.T.contiguous()  # (E, B)
+    x = new_shape if new_kid is None else torch.cat([new_shape, new_kid[:, None]], dim=1)
+    x_T = x.T.contiguous()  # (E, B)
     if 'joints_lm' in requested_keys:
         result['joints_lm'] = (
             p_j + sum(P4[:, e] * x_T[e][None, None] for e in range(E))
             + new_trans.T[:, None, :]
         )
-    if 'recon_spec' in requested_keys:
+    if 'recon_spec' in requested_keys or 'vertices_vm' in requested_keys:
         t2 = t_lm + sum(T4[:, e] * x_T[e][None, None] for e in range(E)) + new_trans.T[:, None, :]
         pj2_cm = torch.stack(
             [glob_lm[a * 3 + c] if c < 3 else t2[a] for a in range(3) for c in range(4)])
-        result['recon_spec'] = dict(
-            pj_cm=pj2_cm, homog_vm=homog_vm, x_cols=x_T, sd_cm=gram.sd_cm,
-            weights_pad=gram.weights_pad,
-        )
+        f2_cols = torch.cat([pre['feat_cols'], x_T], dim=0)
+        if 'recon_spec' in requested_keys:
+            result['recon_spec'] = dict(
+                pj_cm=pj2_cm, feat_cols=f2_cols, weights_pad=gram.weights_pad,
+                consts_pad=gram.consts_full, homog_vm=homog_vm, x_cols=x_T, sd_cm=gram.sd_cm,
+            )
+        if 'vertices_vm' in requested_keys:
+            result['vertices_vm'] = lbs_kernels.lbs_points(
+                pj2_cm, f2_cols, gram.weights_pad, gram.consts_full)
     return result
+
+
+def lbs_recon_spec_lm(bm, plan, gram: GramData, glob_lm, x_T):
+    """Reconstruction operands of a known shape ``x_T`` (E, B) (betas, and the
+    kid factor when the plan has it) under rotations glob_lm (9, J, B): the
+    per-part-sum spec (as the solve's ``recon_spec``, without the posed-template
+    cache), the model joints (3, J, B) and sum_v rec_v (3, B), the latter
+    contracted from the first moments ``Kc`` and ``W1`` without the mesh."""
+    E = gram.n_ext
+    pre = _fk_ext_prelude(bm, plan, glob_lm)
+    p_j = pre['p_j'] + torch.einsum('aejb,eb->ajb', pre['P4'], x_T)
+    t2 = pre['t_lm'] + sum(pre['T4'][:, e] * x_T[e][None, None] for e in range(E))
+    pj_cm = torch.stack(
+        [glob_lm[a * 3 + c] if c < 3 else t2[a] for a in range(3) for c in range(4)])
+    feat_cols = torch.cat([pre['feat_cols'], x_T], dim=0)
+    spec = dict(pj_cm=pj_cm, feat_cols=feat_cols, weights_pad=gram.weights_pad,
+                consts_pad=gram.consts_full, homog_vm=None)
+    # sum_v rec_v[a] = sum_j R_j[a, :] . (Kc_j @ feat) + W1_j t2[a, j]
+    kq = torch.einsum('jcf,fb->cjb', gram.Kc, feat_cols)
+    w1 = gram.W1_col[:, 0]
+    rec_sum = torch.stack([
+        sum((glob_lm[a * 3 + c] * kq[c]).sum(dim=0) for c in range(3))
+        + torch.einsum('j,jb->b', w1, t2[a])
+        for a in range(3)
+    ])
+    return spec, p_j, rec_sum

@@ -29,9 +29,19 @@ _I = ctypes.c_int
 # name -> argument types; every launcher returns a cudaError_t as int.
 _SIGNATURES = {
     'lbs_points_launch': [_P] * 5 + [_I] * 5 + [_P],
-    'rhs_moments_launch': [_P] * 10 + [_I] * 7 + [_P],
+    'rhs_moments_launch': [_P] * 13 + [_I] * 9 + [_P],
     'gram_assembly_launch': [_P] * 14 + [_I] * 4 + [_P],
     'recon_part_sums_launch': [_P] * 13 + [_I] * 6 + [_P],
+    'part_sums_launch': [_P] * 9 + [_I] * 5 + [_P],
+    'recon_lbs_part_sums_launch': [_P] * 12 + [_I] * 6 + [_P],
+}
+# name -> argument types of the shared-memory size queries (restype size_t).
+_SMEM_SIGNATURES = {
+    'lbs_points_smem_bytes': [_I],
+    'recon_part_sums_smem_bytes': [_I],
+    'recon_lbs_part_sums_smem_bytes': [_I],
+    'gram_assembly_smem_bytes': [_I, _I],
+    'rhs_moments_smem_bytes': [_I, _I, _I],
 }
 
 _lib = None
@@ -104,12 +114,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name in ('lbs_points_smem_bytes', 'recon_part_sums_smem_bytes'):
-            getattr(lib, name).argtypes = [_I]
-            getattr(lib, name).restype = ctypes.c_size_t
-        for name in ('rhs_moments_smem_bytes', 'gram_assembly_smem_bytes'):
-            getattr(lib, name).argtypes = [_I, _I]
-            getattr(lib, name).restype = ctypes.c_size_t
+        for name, argtypes in _SMEM_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_size_t
         lib.smpl_error_string.argtypes = [_I]
         lib.smpl_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,4 +1,4 @@
-"""The fit's four kernels: launch wrappers, plain PyTorch twins, launch counts.
+"""The fit's kernels: launch wrappers, plain PyTorch twins, launch counts.
 
 Layouts follow ``smplfitter_tpu.ops.lbs_kernels``: per-vertex arrays are
 component-major ``(C, V, B)`` with the batch last (contiguous), per-joint
@@ -11,12 +11,15 @@ hand-written kernel in ``csrc/`` (built on first use, see ``_build.py``), or
 the wrapper raises; there is no fallback from one to the other. Each kernel
 launch adds one to ``LAUNCHES[<name>]``.
 
-| wrapper                     | CUDA source                 | replaces (JAX package)        |
-|-----------------------------|-----------------------------|-------------------------------|
-| lbs_points                  | csrc/lbs_points.cu          | _lbs_points_kernel (K1)       |
-| rhs_moments_h               | csrc/rhs_moments.cu         | _rhs_kernel, emit_homog (K2)  |
-| gram_assembly               | csrc/gram_assembly.cu       | _gram_kernel (K3)             |
-| recon_part_sums_cached_lm   | csrc/recon_part_sums.cu     | _recon_cached_kernel (K4)     |
+| wrapper                     | CUDA source                 | replaces (JAX package)          |
+|-----------------------------|-----------------------------|---------------------------------|
+| lbs_points                  | csrc/lbs_points.cu          | _lbs_points_kernel (K1)         |
+| rhs_moments_h               | csrc/rhs_moments.cu         | _rhs_kernel, emit_homog (K2)    |
+| rhs_moments                 | csrc/rhs_moments.cu         | _rhs_kernel, plain / scale (K2) |
+| gram_assembly               | csrc/gram_assembly.cu       | _gram_kernel (K3)               |
+| recon_part_sums_cached_lm   | csrc/recon_part_sums.cu     | _recon_cached_kernel (K4)       |
+| part_sums_vm_lm             | csrc/part_sums.cu           | _part_sums_kernel (K5)          |
+| recon_part_sums_lm          | csrc/recon_lbs_part_sums.cu | _recon_part_sums_kernel (K6)    |
 """
 
 from __future__ import annotations
@@ -32,8 +35,12 @@ from . import _build
 LAUNCHES = {
     'lbs_points': 0,
     'rhs_moments_h': 0,
+    'rhs_moments': 0,
+    'rhs_moments_scale': 0,
     'gram_assembly': 0,
     'recon_part_sums_cached': 0,
+    'part_sums': 0,
+    'recon_part_sums': 0,
 }
 
 # Row padding of the per-vertex constant operands (weights_pad, consts, sd_cm).
@@ -160,31 +167,52 @@ def lbs_points(pj_cm, feat_cols, weights_pad, consts_pad):
 
 
 # ---------------------------------------------------------------------------
-# K2: residual moments of the shape solve, emitting the posed template
+# K2: residual moments of the shape solve (emit-homog, plain and scale forms)
 # ---------------------------------------------------------------------------
 
 
-def rhs_moments_h_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
-    """Plain twin of :func:`rhs_moments_h`."""
+def _rhs_twin(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: bool):
+    """The three forms of K2 in plain PyTorch: (r, y, homog[, rt, yt, sc])."""
     v_t = tgt_vm.shape[1]
     homog = torch.einsum('cvf,fb->cvb', consts_pad[:3], feat_cols)
     blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
     pos = _apply_blend(blend, homog)
-    b = torch.zeros_like(pos)
-    b[:, :v_t] = tgt_vm - pos[:, :v_t]
-    y = torch.einsum('vj,avb->ajb', weights_pad, b)
-    g = torch.stack([sum(blend[a * 4 + c] * b[a] for a in range(3)) for c in range(3)])
-    r = torch.einsum('cve,cvb->eb', sd_cm, g)
-    return r.contiguous(), y.contiguous(), homog.contiguous()
+    t = torch.zeros_like(pos)
+    t[:, :v_t] = tgt_vm
+    pos_t = torch.zeros_like(pos)
+    pos_t[:, :v_t] = pos[:, :v_t]
+    b = t - pos_t
+
+    def moments(field):  # y (3, J, B) and r (E, B) of a per-vertex field
+        y = torch.einsum('vj,avb->ajb', weights_pad, field)
+        g = torch.stack([sum(blend[a * 4 + c] * field[a] for a in range(3)) for c in range(3)])
+        return torch.einsum('cve,cvb->eb', sd_cm, g).contiguous(), y.contiguous()
+
+    r, y = moments(b)
+    out = (r, y, homog.contiguous())
+    if scale:
+        rt, yt = moments(t)
+        sc = torch.stack([(t * t).sum(dim=(0, 1)), (t * pos_t).sum(dim=(0, 1)),
+                          (pos_t * pos_t).sum(dim=(0, 1))])
+        out += (rt, yt, sc)
+    return out
 
 
-def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
-    """Residual projection of the shape solve.
+def rhs_moments_h_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
+    """Plain twin of :func:`rhs_moments_h`."""
+    return _rhs_twin(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, False)
 
-    With pos = the extended LBS of :func:`lbs_points` and b = tgt - pos (zero
-    past the target's V rows): r (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T b_v)_c,
-    y (3, J, B) = sum_v w_vj b_v, and the posed template homog (3, V_pad, B)."""
-    name = 'rhs_moments_h'
+
+def rhs_moments_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
+                    scale: bool = False):
+    """Plain twin of :func:`rhs_moments`."""
+    r, y, _, *rest = _rhs_twin(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale)
+    return (r, y, *rest)
+
+
+def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
+              emit_homog: bool, scale: bool):
+    """Checks, then one K2 form: its kernel on CUDA tensors, its twin on CPU ones."""
     cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
                     weights_pad=weights_pad, consts_pad=consts_pad, sd_cm=sd_cm)
     _, J, B = pj_cm.shape
@@ -202,22 +230,54 @@ def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
     if consts_pad.shape[0] < 3:
         raise ValueError(f'{name}: consts_pad needs at least 3 channels')
+    args = (tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm)
     if not cuda:
-        return rhs_moments_h_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm)
+        return rhs_moments_h_ref(*args) if emit_homog else rhs_moments_ref(*args, scale=scale)
     lib = _build.library()
     dev = tgt_vm.device
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
     tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
-    r = torch.empty((E, B), dtype=torch.float32, device=dev)
-    y = torch.empty((3, J, B), dtype=torch.float32, device=dev)
-    homog = torch.empty((3, Vp, B), dtype=torch.float32, device=dev)
-    part = torch.empty((n_splits, 3 * J + E, B), dtype=torch.float32, device=dev)
+    r, y = empty(E, B), empty(3, J, B)
+    homog = empty(3, Vp, B) if emit_homog else None
+    rt, yt, sc = (empty(E, B), empty(3, J, B), empty(3, B)) if scale else (None,) * 3
+    n_rows = 6 * J + 2 * E + 3 if scale else 3 * J + E
+    part = empty(n_splits, n_rows, B)
+
+    def ptr(t):
+        return None if t is None else _ptr(t)
+
     err = lib.rhs_moments_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
-        _ptr(sd_cm), _ptr(r), _ptr(y), _ptr(homog), _ptr(part),
-        J, B, F, E, v_t, Vp, tiles_per_block, _stream(r))
+        _ptr(sd_cm), _ptr(r), _ptr(y), ptr(homog), ptr(rt), ptr(yt), ptr(sc), _ptr(part),
+        J, B, F, E, v_t, Vp, tiles_per_block, int(emit_homog), int(scale), _stream(r))
     _build.check(err, name)
     LAUNCHES[name] += 1
-    return r, y, homog
+    if emit_homog:
+        return r, y, homog
+    return (r, y, rt, yt, sc) if scale else (r, y)
+
+
+def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
+    """Residual projection of the shape solve.
+
+    With pos = the extended LBS of :func:`lbs_points` and b = tgt - pos (zero
+    past the target's V rows): r (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T b_v)_c,
+    y (3, J, B) = sum_v w_vj b_v, and the posed template homog (3, V_pad, B)."""
+    return _rhs_call('rhs_moments_h', tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
+                     emit_homog=True, scale=False)
+
+
+def rhs_moments(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: bool = False):
+    """:func:`rhs_moments_h` without the posed template: (r, y). With
+    ``scale=True`` also the target-side moments of the scale column,
+    rt (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T t_v)_c, yt (3, J, B) =
+    sum_v w_vj t_v and sc (3, B) = [sum |t|^2, sum t.pos, sum |pos|^2] over
+    the target's rows: (r, y, rt, yt, sc)."""
+    return _rhs_call('rhs_moments_scale' if scale else 'rhs_moments', tgt_vm, pj_cm, feat_cols,
+                     weights_pad, consts_pad, sd_cm, emit_homog=False, scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -341,15 +401,9 @@ class PartIndex:
 
 def recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, pm, weights_pad):
     """Plain twin of :func:`recon_part_sums_cached_lm` (``pm``: (J, V_pad))."""
-    v_t = tgt_vm.shape[1]
     hfull = homog_vm + torch.einsum('cve,eb->cvb', sd_cm, x_cols)
     blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
-    pos = _apply_blend(blend, hfull)
-    pm_t, pos_t = pm[:, :v_t], pos[:, :v_t]
-    raw = torch.stack([pm_t @ (tgt_vm[c] * pos_t[d]) for c in range(3) for d in range(3)])
-    s_t = torch.stack([pm_t @ tgt_vm[c] for c in range(3)])
-    s_a = torch.stack([pm @ pos[d] for d in range(3)])
-    return raw, s_t, s_a
+    return _part_sums_of(pm, tgt_vm, _apply_blend(blend, hfull))
 
 
 def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: PartIndex,
@@ -379,19 +433,8 @@ def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: Par
                                           weights_pad)
     if E > 16:
         raise ValueError(f'{name}: the kernel takes E <= 16, got {E}')
-    for arg in ('verts', 'seg_offset', 'part_seg'):
-        t = getattr(parts, arg)
-        if t.dtype != torch.int32 or t.device != pj_cm.device or not t.is_contiguous():
-            raise ValueError(f'{name}: parts.{arg} must be contiguous int32 on {pj_cm.device}')
-    if parts.part_seg.shape[0] != J + 1:
-        raise ValueError(f'{name}: parts.part_seg must have J + 1 = {J + 1} entries')
-    lib = _build.library()
-    dev = tgt_vm.device
-    raw = torch.empty((9, J, B), dtype=torch.float32, device=dev)
-    s_t = torch.empty((3, J, B), dtype=torch.float32, device=dev)
-    s_a = torch.empty((3, J, B), dtype=torch.float32, device=dev)
-    part = torch.empty((max(parts.n_seg, 1), 15, B), dtype=torch.float32, device=dev)
-    err = lib.recon_part_sums_launch(
+    raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
+    err = _build.library().recon_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(x_cols), _ptr(sd_cm), _ptr(homog_vm),
         _ptr(weights_pad), _ptr(parts.verts), _ptr(parts.seg_offset), _ptr(parts.part_seg),
         _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, E, B, v_t, Vp, parts.n_seg,
@@ -399,3 +442,126 @@ def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: Par
     _build.check(err, name)
     LAUNCHES[name] += 1
     return raw, s_t, s_a
+
+
+def _part_sums_outputs(name: str, parts: PartIndex, J: int, B: int, device):
+    """Check the part index for a segment kernel; allocate raw (9, J, B),
+    s_t and s_a (3, J, B) and the (n_seg, 15, B) segment partials."""
+    for arg in ('verts', 'seg_offset', 'part_seg'):
+        t = getattr(parts, arg)
+        if t.dtype != torch.int32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f'{name}: parts.{arg} must be contiguous int32 on {device}')
+    if parts.part_seg.shape[0] != J + 1:
+        raise ValueError(f'{name}: parts.part_seg must have J + 1 = {J + 1} entries')
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    return empty(9, J, B), empty(3, J, B), empty(3, J, B), empty(max(parts.n_seg, 1), 15, B)
+
+
+def _part_sums_of(pm, t, a):
+    """raw (9, J, B), s_t, s_a (3, J, B) of a target t (3, V_t, B) and a
+    reference a (3, V_a, B) over the membership pm (J, >= max(V_t, V_a))."""
+    v = min(t.shape[1], a.shape[1])
+    pm_ta = pm[:, :v]
+    raw = torch.stack([pm_ta @ (t[c, :v] * a[d, :v]) for c in range(3) for d in range(3)])
+    s_t = torch.stack([pm[:, :t.shape[1]] @ t[c] for c in range(3)])
+    s_a = torch.stack([pm[:, :a.shape[1]] @ a[d] for d in range(3)])
+    return raw, s_t, s_a
+
+
+# ---------------------------------------------------------------------------
+# K5: per-part sums against a per-instance reference mesh
+# ---------------------------------------------------------------------------
+
+
+def part_sums_ref(t_vm, a_vm, pm):
+    """Plain twin of :func:`part_sums_vm_lm` (``pm``: (J, V_pad))."""
+    return _part_sums_of(pm, t_vm, a_vm)
+
+
+def part_sums_vm_lm(t_vm, a_vm, parts: PartIndex):
+    """Per-part sums of a target t (3, V_t, B) against a reference a
+    (3, V_a, B) that varies over the batch: raw (9, J, B) = sum_v pm_jv t_c a_d
+    (rows c*3+d), s_t (3, J, B) = sum_v pm_jv t, s_a (3, J, B) = sum_v pm_jv a."""
+    name = 'part_sums'
+    cuda = _on_cuda(name, t_vm=t_vm, a_vm=a_vm, pm=parts.pm)
+    J, Vp = parts.pm.shape
+    _, v_t, B = t_vm.shape
+    v_a = a_vm.shape[1]
+    _expect(name, 't_vm', t_vm, (3, v_t, B))
+    _expect(name, 'a_vm', a_vm, (3, v_a, B))
+    if max(v_t, v_a) > Vp:
+        raise ValueError(f'{name}: point rows {max(v_t, v_a)} exceed V_pad {Vp}')
+    if not cuda:
+        return part_sums_ref(t_vm, a_vm, parts.pm)
+    raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, t_vm.device)
+    err = _build.library().part_sums_launch(
+        _ptr(t_vm), _ptr(a_vm), _ptr(parts.verts), _ptr(parts.seg_offset),
+        _ptr(parts.part_seg), _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, B, v_t, v_a,
+        parts.n_seg, _stream(raw))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return raw, s_t, s_a
+
+
+# ---------------------------------------------------------------------------
+# K6: extended-LBS reconstruction fused into per-part sums
+# ---------------------------------------------------------------------------
+
+
+def recon_part_sums_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, pm):
+    """Plain twin of :func:`recon_part_sums_lm` (``pm``: (J, V_pad))."""
+    return _part_sums_of(pm, tgt_vm, lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad))
+
+
+def recon_part_sums_lm(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts: PartIndex):
+    """Per-part sums (as :func:`part_sums_vm_lm`) of the targets against the
+    extended LBS of :func:`lbs_points`, which the kernel never writes out."""
+    name = 'recon_part_sums'
+    cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
+                    weights_pad=weights_pad, consts_pad=consts_pad, pm=parts.pm)
+    _, J, B = pj_cm.shape
+    F = feat_cols.shape[0]
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    _expect(name, 'tgt_vm', tgt_vm, (3, v_t, B))
+    _expect(name, 'feat_cols', feat_cols, (F, B))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    _expect(name, 'pm', parts.pm, (J, Vp))
+    if v_t > Vp:
+        raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
+    if consts_pad.shape[0] < 3:
+        raise ValueError(f'{name}: consts_pad needs at least 3 channels')
+    if not cuda:
+        return recon_part_sums_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts.pm)
+    raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
+    err = _build.library().recon_lbs_part_sums_launch(
+        _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
+        _ptr(parts.verts), _ptr(parts.seg_offset), _ptr(parts.part_seg), _ptr(raw), _ptr(s_t),
+        _ptr(s_a), _ptr(part), J, B, F, v_t, Vp, parts.n_seg, _stream(raw))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return raw, s_t, s_a
+
+
+# wrapper -> its plain twin
+TWINS = {
+    'lbs_points': lbs_points_ref,
+    'rhs_moments_h': rhs_moments_h_ref,
+    'rhs_moments': rhs_moments_ref,
+    'gram_assembly': gram_assembly_ref,
+    'recon_part_sums_cached_lm': recon_part_sums_cached_ref,
+    'part_sums_vm_lm': part_sums_ref,
+    'recon_part_sums_lm': recon_part_sums_ref,
+}
+
+
+def twin_call(wrapper: str, args, kwargs) -> tuple:
+    """The plain twin of ``wrapper`` on the wrapper's own arguments (a
+    PartIndex becomes its membership matrix), as a tuple of outputs."""
+    args = [a.pm if isinstance(a, PartIndex) else a for a in args]
+    out = TWINS[wrapper](*args, **kwargs)
+    return out if isinstance(out, tuple) else (out,)

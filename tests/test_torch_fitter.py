@@ -22,9 +22,9 @@ import smplfitter_tpu_torch
 PLAN_TENSORS = ('part_counts', 'center_matrix', 'mjp_joint_membership', 'mjp_joint_counts',
                 'mjp_center_matrix', 'J_template_ext', 'bone_ext', 'pm_t_pad', 'default_mesh_vm')
 PLAN_STATIC = ('bone_parts', 'leaf_parts', 'bone_pairs', 'assemble_indices', 'children_and_self',
-               'is_smpl_family', 'n_betas', 'adj_level_buckets')
+               'is_smpl_family', 'n_betas', 'enable_kid', 'adj_level_buckets')
 GRAM_TENSORS = ('weights_pad', 'consts_pose', 'consts_full', 'sd_cm', 'Ksd', 'Lz_e', 'sd1_2d',
-                'q', 'W1_col')
+                'q', 'W1_col', 'Kc')
 FIT_KW = dict(num_iter=3, beta_regularizer=1.0, final_adjust_rots=True,
               requested_keys=('pose_rotvecs', 'shape_betas', 'trans'))
 
@@ -36,9 +36,22 @@ def models(body_models_dir):
     return jax_bm, smplfitter_tpu.BodyFitter(jax_bm), bm, smplfitter_tpu_torch.BodyFitter(bm)
 
 
+@pytest.fixture(scope='module')
+def kid_fitters(models):
+    """The two packages' fitters with the kid column (E = 11)."""
+    return (smplfitter_tpu.BodyFitter(models[0], enable_kid=True),
+            smplfitter_tpu_torch.BodyFitter(models[2], enable_kid=True))
+
+
+def _fitters(models, kid_fitters, enable_kid):
+    return kid_fitters if enable_kid else (models[1], models[3])
+
+
+@pytest.mark.parametrize('enable_kid', [False, True])
 @pytest.mark.parametrize('field', PLAN_TENSORS + PLAN_STATIC)
-def test_plan_field_matches_jax(models, field):
-    jax_plan, plan = models[1].plan, models[3].plan
+def test_plan_field_matches_jax(models, kid_fitters, field, enable_kid):
+    jax_fitter, fitter = _fitters(models, kid_fitters, enable_kid)
+    jax_plan, plan = jax_fitter.plan, fitter.plan
     assert jax_plan.vperm is None  # canonical vertex order on both sides
     ours, theirs = getattr(plan, field), getattr(jax_plan, field)
     if field in PLAN_STATIC:
@@ -47,13 +60,15 @@ def test_plan_field_matches_jax(models, field):
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-6, atol=0)
 
 
+@pytest.mark.parametrize('enable_kid', [False, True])
 @pytest.mark.parametrize('field', GRAM_TENSORS + ('n_ext',))
-def test_gram_field_matches_jax(models, field):
-    jax_gram, gram = models[1].gram, models[3].gram
+def test_gram_field_matches_jax(models, kid_fitters, field, enable_kid):
+    jax_fitter, fitter = _fitters(models, kid_fitters, enable_kid)
+    jax_gram, gram = jax_fitter.gram, fitter.gram
     assert jax_gram.vperm is None
     ours, theirs = getattr(gram, field), getattr(jax_gram, field)
     if field == 'n_ext':
-        assert ours == theirs
+        assert ours == theirs == 10 + enable_kid
     else:
         np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-6, atol=0)
 
@@ -119,20 +134,28 @@ def test_fit_variants_match_jax(models, targets, num_iter, final_adjust):
 
 
 @pytest.mark.parametrize('option', [
-    dict(target_joints=None), dict(vertex_weights='w'), dict(share_beta=True),
-    dict(scale_target=True), dict(initial_shape_betas='b'),
-    dict(requested_keys=('vertices',)),
+    'fit_vertex_weights', 'fit_share_beta', 'fit_share_beta_warm_start', 'static_weights',
+    'fit_joint_weights', 'known_pose_share_beta',
 ])
 def test_unported_options_raise(models, targets, option):
     bm, fitter = models[2:]
     tv, tj = targets
     batch = tv.shape[0]
-    kw = dict(target_joints=tj)
-    for key, value in option.items():
-        kw[key] = np.ones((batch, bm.num_vertices), np.float32) if value == 'w' else (
-            np.zeros((batch, 10), np.float32) if value == 'b' else value)
+    pose = np.zeros((batch, 72), np.float32)
+    calls = {
+        'fit_vertex_weights': lambda: fitter.fit(
+            tv, tj, vertex_weights=np.ones((batch, bm.num_vertices), np.float32)),
+        'fit_share_beta': lambda: fitter.fit(tv, tj, share_beta=True),
+        'fit_share_beta_warm_start': lambda: fitter.fit(
+            tv, share_beta=True, initial_shape_betas=np.zeros((batch, 10), np.float32)),
+        'static_weights': lambda: smplfitter_tpu_torch.BodyFitter(
+            bm, vertex_weights=np.ones(bm.num_vertices, np.float32)),
+        'fit_joint_weights': lambda: fitter.fit(
+            tv, tj, joint_weights=np.ones((batch, bm.num_joints), np.float32)),
+        'known_pose_share_beta': lambda: fitter.fit_with_known_pose(pose, tv, share_beta=True),
+    }
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fitter.fit(tv, **kw)
+        calls[option]()
 
 
 def test_import_leaves_out_jax():
