@@ -3,15 +3,22 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one CUDA device, nvcc and PyTorch built for CUDA. It builds the kernels from
-``smplfitter_tpu_torch/csrc``, then, on a synthetic SMPL model at full width
-(V=6890, J=24, 10 betas, kid shapedir; weights random from a seed):
+``smplfitter_tpu_torch/csrc``, then, on synthetic models at full width
+(weights random from a seed): SMPL (V=6890, J=24, 10 betas, kid shapedir),
+SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
+(V=6890, J=52, 16 betas) and MANO (V=778, J=16, 10 betas):
 
  1. prints the toolchain (torch, CUDA, device, power limit, nvcc);
  2. builds the kernels and prints the build time;
  3. runs every kernel against its plain PyTorch twin on the operands the
     fitting paths give it (captured during forward passes, the benchmark fit
-    and paths a-e below) at B=4096 and at a ragged B=1000, and times both;
- 4. makes 8 distinct target sets with ``BodyModel`` at B=4096;
+    and paths a-e below, on SMPL and on SMPL-X, the latter also with the kid
+    column and joints) at B=4096 and at a ragged B=1000, asserting which
+    wrappers each model's paths reach (CAPTURED), and times the kernel,
+    the twin and, where one PyTorch call computes the same function, that
+    call at B=4096; each kernel's least time on the card (its bound) is
+    reckoned from the same operands;
+ 4. makes 8 distinct SMPL target sets with ``BodyModel`` at B=4096;
  5. fits them with ``BodyFitter.fit`` (the benchmark configuration: num_iter=3,
     beta_regularizer=1, final rotation adjustment), checks that every kernel of
     the path was launched (K2 = K3 = K4 = 3 per fit) and reports fits/s;
@@ -24,7 +31,14 @@ one CUDA device, nvcc and PyTorch built for CUDA. It builds the kernels from
     ``fit_with_known_shape`` with joints; (d) ``fit_with_known_pose`` without
     joints; (e) ``fit(scale_fit=True)`` with joints;
  8. runs each of paths a-e at B=32 on the card and on the CPU under the gate
-    of phase 6.
+    of phase 6;
+ 9. SMPL-X: the forward pass at B=4096 makes 8 distinct target sets, the
+    headline fit and paths a-e fit them, each with its launches per fit
+    asserted (K7, K2 cached, K8 and K4 on the headline; K3 never) and fits/s;
+10. SMPL-X's headline fit and paths a-e, and the SMPL+H and MANO headline
+    fits, at B=32 on the card and on the CPU under the gate of phase 6, where
+    the betas' limit is the larger of 1e-3 and a multiple of the fit's own
+    spread (see SPREAD_MULT).
 
 It prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -34,6 +48,7 @@ exits non-zero; without a CUDA device it exits non-zero before doing anything.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -51,60 +66,111 @@ FIT_KW = dict(num_iter=3, beta_regularizer=1.0, final_adjust_rots=True,
 KERNEL_REL_TOL = 1e-5  # max |kernel - twin| / max |twin|, per output
 PARITY_DBETA = 1e-3
 PARITY_V2V_MM = 0.01
+# The synthetic hands' nearly degenerate finger parts amplify f32 rounding into
+# the betas. Phase 10 therefore measures each fit's own spread: the largest
+# change of its betas (kid, scale) over NOISE_SEEDS seeded changes of tv and tj
+# by NOISE_REL relative, on the CPU and on the card alike. The card may differ
+# from the CPU by no more than the larger of PARITY_DBETA and SPREAD_MULT times
+# that spread; each line says whether PARITY_DBETA alone held. The multiple:
+# a change of 1e-7 moves each target by about one ulp, while the card differs
+# from the CPU in every sum (its kernels by up to ~6e-7 of max|twin|); on the
+# known-pose fit, one linear solve with nothing to amplify, the card-vs-CPU
+# gap measured 3.0x the spread on SMPL-X (H100, B=32).
+NOISE_SEEDS = 3
+NOISE_REL = 1e-7
+SPREAD_MULT = 4
+# Published peaks of one H100 SXM (dense, at 700 W): f32 on the CUDA cores and
+# device memory bandwidth; a kernel's bound is the larger of its operations
+# over the first and its bytes over the second.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# model -> (joints, betas, pose std of the synthetic targets)
+MODELS = {'smpl': (24, 10, 0.3), 'smplx': (55, 16, 0.1), 'smplh16': (52, 16, 0.1),
+          'mano': (16, 10, 0.1)}
 
 # LAUNCHES key -> (wrapper, CUDA source, TPU kernel replaced, output names). The
-# two K2 forms without the posed template share the wrapper rhs_moments (its
-# ``scale`` argument picks the form).
+# K2 forms share two wrappers: rhs_moments and rhs_moments_cached, whose
+# ``scale`` argument picks the form.
+SRC = 'smplfitter_tpu_torch/csrc/'
+TPU = 'smplfitter_tpu/ops/lbs_kernels.py:'
 KERNELS = {
-    'lbs_points': ('lbs_points', 'smplfitter_tpu_torch/csrc/lbs_points.cu',
-                   'smplfitter_tpu/ops/lbs_kernels.py:771', ('points',)),
-    'rhs_moments_h': ('rhs_moments_h', 'smplfitter_tpu_torch/csrc/rhs_moments.cu',
-                      'smplfitter_tpu/ops/lbs_kernels.py:525', ('r', 'y', 'homog')),
-    'rhs_moments': ('rhs_moments', 'smplfitter_tpu_torch/csrc/rhs_moments.cu',
-                    'smplfitter_tpu/ops/lbs_kernels.py:525', ('r', 'y')),
-    'rhs_moments_scale': ('rhs_moments', 'smplfitter_tpu_torch/csrc/rhs_moments.cu',
-                          'smplfitter_tpu/ops/lbs_kernels.py:525',
+    'lbs_points': ('lbs_points', SRC + 'lbs_points.cu', TPU + '771', ('points',)),
+    'rhs_moments_h': ('rhs_moments_h', SRC + 'rhs_moments.cu', TPU + '525', ('r', 'y', 'homog')),
+    'rhs_moments': ('rhs_moments', SRC + 'rhs_moments.cu', TPU + '525', ('r', 'y')),
+    'rhs_moments_scale': ('rhs_moments', SRC + 'rhs_moments.cu', TPU + '525',
                           ('r', 'y', 'rt', 'yt', 'sc')),
-    'gram_assembly': ('gram_assembly', 'smplfitter_tpu_torch/csrc/gram_assembly.cu',
-                      'smplfitter_tpu/ops/lbs_kernels.py:1819', ('G', 'SA', 'rb', 'Sb')),
-    'recon_part_sums_cached': ('recon_part_sums_cached_lm',
-                               'smplfitter_tpu_torch/csrc/recon_part_sums.cu',
-                               'smplfitter_tpu/ops/lbs_kernels.py:2808',
-                               ('raw', 's_t', 's_a')),
-    'part_sums': ('part_sums_vm_lm', 'smplfitter_tpu_torch/csrc/part_sums.cu',
-                  'smplfitter_tpu/ops/lbs_kernels.py:832', ('raw', 's_t', 's_a')),
-    'recon_part_sums': ('recon_part_sums_lm', 'smplfitter_tpu_torch/csrc/recon_lbs_part_sums.cu',
-                        'smplfitter_tpu/ops/lbs_kernels.py:1365', ('raw', 's_t', 's_a')),
+    'rhs_moments_cached': ('rhs_moments_cached', SRC + 'rhs_moments.cu', TPU + '525', ('r', 'y')),
+    'rhs_moments_cached_scale': ('rhs_moments_cached', SRC + 'rhs_moments.cu', TPU + '525',
+                                 ('r', 'y', 'rt', 'yt', 'sc')),
+    'gram_assembly': ('gram_assembly', SRC + 'gram_assembly.cu', TPU + '1819',
+                      ('G', 'SA', 'rb', 'Sb')),
+    'recon_part_sums_cached': ('recon_part_sums_cached_lm', SRC + 'recon_part_sums.cu',
+                               TPU + '2808', ('raw', 's_t', 's_a')),
+    'part_sums': ('part_sums_vm_lm', SRC + 'part_sums.cu', TPU + '832', ('raw', 's_t', 's_a')),
+    'recon_part_sums': ('recon_part_sums_lm', SRC + 'recon_lbs_part_sums.cu', TPU + '1365',
+                        ('raw', 's_t', 's_a')),
+    'posed_template': ('posed_template_lm', SRC + 'posed_template.cu', TPU + '2523', ('homog',)),
+    'term1': ('term1', SRC + 'term1.cu', TPU + '1884', ('G1',)),
 }
 WRAPPERS = sorted({spec[0] for spec in KERNELS.values()})
+# The keys each model's fitting paths reach (phase 3 asserts both sets). On
+# SMPL-X the Gramian's wrapper streams through K8 and launches no K3.
+SMPLX_ONLY = {'posed_template', 'rhs_moments_cached', 'rhs_moments_cached_scale', 'term1'}
+CAPTURED = {'smpl': set(KERNELS) - SMPLX_ONLY,
+            'smplx': SMPLX_ONLY | {'lbs_points', 'gram_assembly', 'recon_part_sums_cached',
+                                   'part_sums', 'recon_part_sums'}}
+SCALE_FORM = {'rhs_moments': 'rhs_moments_scale',
+              'rhs_moments_cached': 'rhs_moments_cached_scale'}
 
-# The other fitting paths (phases 7 and 8): the call on (fitter, fitter_kid,
-# targets, params) and the kernel launches of one call, from the code.
+# The other fitting paths (phases 7-10): the call on (fitter, fitter_kid,
+# targets, params) and the kernel launches of one call, from the code, on SMPL
+# (`launches`) and on the large-F models (`launches_x`: the posed template once
+# per solve, K2's cached form, the Gramian through K8, and K4 wherever a solve
+# hands its cache to a rotation fit with joints).
 FLIP_KW = dict(num_iter=1, beta_regularizer=1e-2, beta_regularizer2=1e-2, kid_regularizer=1e9,
                final_adjust_rots=True, requested_keys=('pose_rotvecs',))
+X_SOLVES = dict(posed_template=1, rhs_moments_cached=1, term1=1)
+
+
+def _per_solve(n, **extra):
+    return dict({k: v * n for k, v in X_SOLVES.items()}, **extra)
+
+
+HEADLINE = dict(
+    run=lambda f, fk, tv, tj, p: f.fit(tv, tj, **FIT_KW),
+    launches=dict(rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=3),
+    launches_x=_per_solve(3, recon_part_sums_cached=3))
 PATHS = {
     'a_fit_no_joints': dict(
         run=lambda f, fk, tv, tj, p: f.fit(tv, num_iter=3, final_adjust_rots=True,
                                            requested_keys=('pose_rotvecs', 'vertices')),
-        launches=dict(rhs_moments=3, gram_assembly=3, part_sums=3, lbs_points=4)),
+        launches=dict(rhs_moments=3, gram_assembly=3, part_sums=3, lbs_points=4),
+        launches_x=_per_solve(3, part_sums=3, lbs_points=4)),
     'b_flipper': dict(
         run=lambda f, fk, tv, tj, p: fk.fit(tv, initial_pose_rotvecs=p[0] + 0.05,
                                             initial_shape_betas=p[1] + 0.1,
                                             initial_kid_factor=p[3] + 0.1, **FLIP_KW),
-        launches=dict(rhs_moments=1, gram_assembly=1, part_sums=2, lbs_points=2)),
+        launches=dict(rhs_moments=1, gram_assembly=1, part_sums=2, lbs_points=2),
+        launches_x=_per_solve(1, part_sums=2, lbs_points=2)),
     'c_known_shape': dict(
         run=lambda f, fk, tv, tj, p: f.fit_with_known_shape(p[1], tv, tj, num_iter=3,
                                                             final_adjust_rots=True),
-        launches=dict(recon_part_sums=4)),
+        launches=dict(recon_part_sums=4),
+        launches_x=dict(recon_part_sums=4)),
     'd_known_pose': dict(
         run=lambda f, fk, tv, tj, p: f.fit_with_known_pose(p[0], tv),
-        launches=dict(rhs_moments=1, gram_assembly=1)),
+        launches=dict(rhs_moments=1, gram_assembly=1),
+        launches_x=_per_solve(1)),
     'e_scale_fit': dict(
         run=lambda f, fk, tv, tj, p: f.fit(tv, tj, num_iter=3, scale_fit=True,
                                            final_adjust_rots=True),
         launches=dict(rhs_moments_h=2, rhs_moments_scale=1, gram_assembly=3,
-                      recon_part_sums_cached=2, recon_part_sums=1)),
+                      recon_part_sums_cached=2, recon_part_sums=1),
+        launches_x=dict(posed_template=3, rhs_moments_cached=2, rhs_moments_cached_scale=1,
+                        term1=3, recon_part_sums_cached=3)),
 }
+# A fit with the kid column and target joints: K2 cached, K8 and K4 at E = 17.
+KID_JOINTS = dict(run=lambda f, fk, tv, tj, p: fk.fit(tv, tj, num_iter=2, final_adjust_rots=True))
 
 
 def log(msg: str) -> None:
@@ -118,9 +184,10 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_params(rng, batch):
-    pose = rng.normal(0, 0.3, (batch, 72)).astype(np.float32)
-    betas = rng.normal(0, 1, (batch, 10)).astype(np.float32)
+def random_params(rng, batch, model='smpl'):
+    J, S, pose_std = MODELS[model]
+    pose = rng.normal(0, pose_std, (batch, 3 * J)).astype(np.float32)
+    betas = rng.normal(0, 1, (batch, S)).astype(np.float32)
     trans = rng.normal(0, 0.5, (batch, 3)).astype(np.float32)
     return pose, betas, trans
 
@@ -134,12 +201,11 @@ def capture_kernel_calls(lbs_kernels, run) -> dict:
     LAUNCHES key."""
     calls = {key: [] for key in KERNELS}
     originals = {name: getattr(lbs_kernels, name) for name in WRAPPERS}
-
-    key_of = {spec[0]: key for key, spec in KERNELS.items() if key != 'rhs_moments_scale'}
+    key_of = {spec[0]: key for key, spec in KERNELS.items() if key not in SCALE_FORM.values()}
 
     def recorder(name, fn):
         def wrapped(*args, **kwargs):
-            key = 'rhs_moments_scale' if kwargs.get('scale') else key_of[name]
+            key = SCALE_FORM[name] if kwargs.get('scale') else key_of[name]
             calls[key].append((args, kwargs))
             return fn(*args, **kwargs)
         return wrapped
@@ -161,6 +227,87 @@ def kernel_call(lbs_kernels, key, args, kwargs):
 
 def twin_call(lbs_kernels, key, args, kwargs):
     return lbs_kernels.twin_call(KERNELS[key][0], args, kwargs)
+
+
+def library_call(torch, key):
+    """One PyTorch call computing the same function as the kernel (timed as a
+    yardstick, never used by the port), or None where there is none."""
+    if key == 'posed_template':
+        return lambda feat, consts: torch.matmul(consts[:3], feat)
+    if key == 'term1':  # the einsum that forms X, then the product
+        return lambda R, ksd: ksd.T @ torch.einsum('ajb,akb->jkb', R, R).reshape(-1, R.shape[2])
+    return None
+
+
+def kernel_work(key, args) -> tuple[float, float]:
+    """(operations, bytes) that the kernel's function needs on these operands:
+    each input read once and each output written once; the per-part kernels
+    count only the vertices that belong to a part."""
+    n = lambda t: float(t.numel())  # noqa: E731
+    if key == 'lbs_points':
+        pj, feat, w, consts = args
+        _, J, B = pj.shape
+        F, Vp = feat.shape[0], w.shape[0]
+        return (2.0 * Vp * B * (3 * F + 12 * J + 12),
+                4 * (n(pj) + n(feat) + n(w) + 3 * Vp * F + 3 * Vp * B))
+    if key.startswith('rhs_moments'):
+        cached = key.startswith('rhs_moments_cached')
+        scale = key.endswith('_scale')
+        tgt, pj = args[0], args[1]
+        w, sd = (args[3], args[4]) if cached else (args[3], args[5])
+        _, J, B = pj.shape
+        Vp, E = w.shape[0], sd.shape[2]
+        F = 0 if cached else args[2].shape[0]
+        per = 3 * F + 12 * J + 12 + 3 + 3 * J + 9 + 3 * E
+        if scale:
+            per += 3 * J + 9 + 3 * E + 3
+        ins = n(tgt) + n(pj) + n(w) + n(sd) + (n(args[2]) if cached else n(args[2]) + 3 * Vp * F)
+        outs = (3 * J + E) * B * (2 if scale else 1) + (3 * B if scale else 0)
+        outs += 3 * Vp * B if key == 'rhs_moments_h' else 0
+        return 2.0 * Vp * B * per, 4 * (ins + outs)
+    if key == 'posed_template':
+        feat, consts = args
+        F, B = feat.shape
+        Vp = consts.shape[1]
+        return 2.0 * 3 * Vp * F * B, 4 * (n(feat) + 3 * Vp * F + 3 * Vp * B)
+    if key == 'term1':
+        R, ksd = args
+        _, J3, B = R.shape
+        EE = ksd.shape[1]
+        return 2.0 * B * J3 * J3 * (EE + 3), 4 * (n(R) + n(ksd) + EE * B)
+    if key == 'gram_assembly':
+        R, T, y, P, bJ, ksd, lz, sd1, q, w1 = args
+        _, J3, B = R.shape
+        E = sd1.shape[1]
+        J = J3 // 3
+        per = (J3 * J3 * (E * E + 3) + 3 * J3 * E * J + 3 * E * E * J * 3 + 3 * E * J * J
+               + 3 * J3 * E + 6 * E * J)
+        outs = (E * E + 3 * E + E + 3) * B
+        return 2.0 * B * per, 4 * (sum(n(a) for a in args) + outs)
+    # per-part kernels: the used vertices of the part index
+    parts = next(a for a in args if hasattr(a, 'verts'))
+    Vu = float(parts.verts.numel())
+    if key == 'part_sums':
+        t, a = args[0], args[1]
+        J, B = parts.pm.shape[0], t.shape[2]
+        return Vu * B * 24, 4 * (6 * Vu * B + 15 * J * B)
+    tgt, pj = args[0], args[1]
+    _, J, B = pj.shape
+    if key == 'recon_part_sums_cached':
+        x, sd, homog, _, w = args[2:]
+        E = x.shape[0]
+        per = 3 * E + 3 + 12 * J + 12 + 15
+        return 2.0 * Vu * B * per, 4 * (6 * Vu * B + n(pj) + n(x) + Vu * (3 * E + J) + 15 * J * B)
+    feat, w, consts = args[2], args[3], args[4]  # recon_part_sums
+    F = feat.shape[0]
+    per = 3 * F + 12 * J + 12 + 15
+    return 2.0 * Vu * B * per, 4 * (3 * Vu * B + n(pj) + n(feat) + Vu * (J + 3 * F) + 15 * J * B)
+
+
+def bound(key, args) -> tuple[float, str]:
+    flops, nbytes = kernel_work(key, args)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
 
 
 def check_launches(launches: dict, expected_per_fit: dict, n_fits: int, what: str) -> None:
@@ -196,6 +343,132 @@ def recon_v2v_mm(bm, res, tv) -> float:
     return (re['vertices'] - tv).norm(dim=-1).mean().item() * 1e3
 
 
+def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model) -> dict:
+    """Phase 3 for one model: capture the kernels' operands from ``make_run``'s
+    fitting paths at B=4096 and B=1000, hold every kernel to its twin, and at
+    B=4096 time kernel, twin and library call and reckon the bound."""
+    results = {}
+    for batch in (BATCH, RAGGED_BATCH):
+        params = [random_params(rng, batch, model) for _ in range(3)]
+        kid = torch.as_tensor(kid_factors(kid_rng, batch), device=dev)
+        lbs_kernels.reset_launch_counts()
+        calls = capture_kernel_calls(lbs_kernels, make_run(params, kid))
+        captured = {key for key, arg_sets in calls.items() if arg_sets}
+        if captured != CAPTURED[model]:
+            raise AssertionError(f'{label} at B={batch}: the paths reached {sorted(captured)}, '
+                                 f'expected {sorted(CAPTURED[model])}')
+        if 'term1' in captured:  # the Gramian streamed: K8, and no K3 launch
+            if lbs_kernels.LAUNCHES['gram_assembly'] or not lbs_kernels.LAUNCHES['term1']:
+                raise AssertionError(f'{label} at B={batch}: the Gramian launched K3 '
+                                     f'{lbs_kernels.LAUNCHES["gram_assembly"]} times and K8 '
+                                     f'{lbs_kernels.LAUNCHES["term1"]} times')
+            captured.remove('gram_assembly')
+        if model == 'smplx' and 17 not in {a[2].shape[0] for a, _ in
+                                           calls['recon_part_sums_cached']}:
+            raise AssertionError(f'{label} at B={batch}: K4 saw no operands with E = 17')
+        for key in [k for k in KERNELS if k in captured]:
+            arg_sets = calls[key]
+            res = results.setdefault(key, dict(max_abs_err=0.0, rel_err={}))
+            outputs = KERNELS[key][3]
+            for args, kwargs in arg_sets:
+                got = kernel_call(lbs_kernels, key, args, kwargs)
+                want = twin_call(lbs_kernels, key, args, kwargs)
+                torch.cuda.synchronize()
+                for out_name, g, w in zip(outputs, got, want, strict=True):
+                    abs_err = (g - w).abs().max().item()
+                    scale = w.abs().max().item()
+                    rel = abs_err / scale if scale > 0 else abs_err
+                    if not (rel <= KERNEL_REL_TOL and torch.isfinite(g).all().item()):
+                        raise AssertionError(
+                            f'{label} {key}.{out_name} at B={batch}: max|kernel - twin| = '
+                            f'{abs_err:.3e} = {rel:.3e} x max|twin| > {KERNEL_REL_TOL}')
+                    res['max_abs_err'] = max(res['max_abs_err'], abs_err)
+                    res['rel_err'][out_name] = max(res['rel_err'].get(out_name, 0.0), rel)
+                del got, want
+            # Timed over the calls of the first call's configuration (same
+            # keyword arguments and operand shapes).
+            args0, kw = arg_sets[0]
+            shapes0 = [getattr(a, 'shape', None) for a in args0]
+            sets = [args for args, kwargs in arg_sets
+                    if kwargs == kw and [getattr(a, 'shape', None) for a in args] == shapes0]
+            errs = ' '.join(f'{k} {v:.2e}' for k, v in res['rel_err'].items())
+            line = f'{label:6s} {key:24s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
+            if batch == BATCH:
+                res['ms'] = time_ms(torch, lambda *a: kernel_call(lbs_kernels, key, a, kw), sets)
+                res['plain_ms'] = time_ms(torch, lambda *a: twin_call(lbs_kernels, key, a, kw),
+                                          sets)
+                lib = library_call(torch, key)
+                res['library_ms'] = None if lib is None else time_ms(torch, lib, sets)
+                res['bound_ms'], res['bound_by'] = bound(key, args0)
+                lib_txt = '' if lib is None else f'  library {res["library_ms"]:.3f} ms'
+                line += (f'  kernel {res["ms"]:.3f} ms  twin {res["plain_ms"]:.3f} ms{lib_txt}'
+                         f'  bound {res["bound_ms"]:.3f} ms ({res["bound_by"]})')
+            log(line)
+        del calls
+        torch.cuda.empty_cache()
+    return results
+
+
+def time_path(torch, lbs_kernels, run, fitter, fitter_kid, targets, inputs, kids):
+    """Warm-up, then the path on every target set between CUDA events: (fits,
+    launches, device ms over all sets, host s over all sets)."""
+    lbs_kernels.reset_launch_counts()
+    run(fitter, fitter_kid, *targets[0], inputs[0] + (kids[0],))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    fits = [run(fitter, fitter_kid, tv, tj, p + (k,))
+            for (tv, tj), p, k in zip(targets, inputs, kids)]
+    end.record()
+    torch.cuda.synchronize()
+    return fits, dict(lbs_kernels.LAUNCHES), start.elapsed_time(end), time.perf_counter() - t0
+
+
+def max_dparams(a, b) -> float:
+    return max((a[k].cpu() - b[k].cpu()).abs().max().item()
+               for k in ('shape_betas', 'kid_factor', 'scale_corr') if k in a)
+
+
+def parity(name, run, gpu_fitters, cpu_fitters, bm, tv, tj, params, failures,
+           noise_floor=False) -> None:
+    """One path on the card and on the CPU: max|d betas, kid, scale| within
+    PARITY_DBETA and mean reconstruction errors within 0.01 mm; a miss is
+    appended to ``failures``. With ``noise_floor`` the betas' limit is the
+    larger of PARITY_DBETA and SPREAD_MULT x the fit's own spread: the largest
+    change of its parameters, on the CPU and on the card, over NOISE_SEEDS
+    seeded changes of tv and tj by a factor 1 + NOISE_REL N(0, 1)."""
+    import torch
+
+    gpu = run(*gpu_fitters, tv, tj, params)
+    cpu_args = (tv.cpu(), tj.cpu(), tuple(x.cpu() for x in params))
+    cpu = run(*cpu_fitters, *cpu_args)
+    max_d = max_dparams(gpu, cpu)
+    limit, spread = PARITY_DBETA, ''
+    if noise_floor:
+        own = dict(cpu=0.0, card=0.0)
+        for seed in range(NOISE_SEEDS):
+            g = torch.Generator().manual_seed(SEED + seed)
+            tv_n, tj_n = (t * (1 + NOISE_REL * torch.randn(t.shape, generator=g))
+                          for t in cpu_args[:2])
+            own['cpu'] = max(own['cpu'], max_dparams(run(*cpu_fitters, tv_n, tj_n,
+                                                         cpu_args[2]), cpu))
+            own['card'] = max(own['card'], max_dparams(
+                run(*gpu_fitters, tv_n.to(tv.device), tj_n.to(tv.device), params), gpu))
+        limit = max(limit, SPREAD_MULT * max(own.values()))
+        spread = (f'; own spread over {NOISE_SEEDS} target changes x (1 + {NOISE_REL:g} N): '
+                  f'cpu {own["cpu"]:.3e} card {own["card"]:.3e}, limit {SPREAD_MULT}x')
+    v2v_gpu, v2v_cpu = recon_v2v_mm(bm, gpu, tv), recon_v2v_mm(bm, cpu, tv)
+    ok = max_d <= limit and abs(v2v_gpu - v2v_cpu) <= PARITY_V2V_MM
+    line = (f'{name}: ok={ok} max|d betas, kid, scale|={max_d:.3e} (limit {limit:.3e}; '
+            f'{PARITY_DBETA:g} {"held" if max_d <= PARITY_DBETA else "missed"}) '
+            f'v2v card={v2v_gpu:.4f} mm cpu={v2v_cpu:.4f} mm{spread}')
+    log(line)
+    if not ok:
+        failures.append(name)
+
+
 def main() -> int:
     import torch
 
@@ -207,6 +480,9 @@ def main() -> int:
     from smplfitter_tpu_torch.ops import _build, lbs_kernels
     from smplfitter_tpu_torch.utils import synthetic
 
+    # The fit's precision rule: f32 products without TF32 (the port's default).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device('cuda', 0)
     rng = np.random.default_rng(SEED)
     kid_rng = np.random.default_rng(SEED + 1)
@@ -232,64 +508,38 @@ def main() -> int:
         if any(key in line for key in ('Compiling entry', 'Used', 'spill stores')):
             log('  ' + line.strip())
 
+    # The synthetic models live beside the build, inside the checkout.
+    models_dir = synthetic.ensure_cached_models(
+        os.path.join(_build.BUILD_ROOT, 'synthetic_models'))
+
+    def load(name, kid=False):
+        bm = port.BodyModel(name, 'neutral', model_root=os.path.join(models_dir, name),
+                            device=dev)
+        return bm, port.BodyFitter(bm), port.BodyFitter(bm, enable_kid=True) if kid else None
+
     # 3. Kernels against their twins on the fitting paths' operands.
-    log('== phase 3: kernels vs plain twins (synthetic SMPL, V=6890)')
-    models_dir = synthetic.ensure_cached_models()
-    bm = port.BodyModel('smpl', 'neutral', model_root=models_dir + '/smpl', device=dev)
-    fitter = port.BodyFitter(bm)
-    fitter_kid = port.BodyFitter(bm, enable_kid=True)
-    results = {key: dict(max_abs_err=0.0, rel_err={out: 0.0 for out in spec[3]})
-               for key, spec in KERNELS.items()}
-    for batch in (BATCH, RAGGED_BATCH):
-        params = [random_params(rng, batch) for _ in range(3)]
-        kid = torch.as_tensor(kid_factors(kid_rng, batch), device=dev)
+    log('== phase 3: kernels vs plain twins (synthetic SMPL V=6890; SMPL-X V=10475)')
+    bm, fitter, fitter_kid = load('smpl', kid=True)
+    bm_x, fitter_x, fitter_x_kid = load('smplx', kid=True)
 
-        def run():
-            for p in params:
-                out = bm(*p)
-            tv, tj = out['vertices'], out['joints']
-            fitter.fit(tv, tj, **FIT_KW)
-            p = tuple(torch.as_tensor(x, device=dev) for x in params[-1]) + (kid,)
-            for path in PATHS.values():
-                path['run'](fitter, fitter_kid, tv, tj, p)
+    def make_run(bm, fitter, fitter_kid, extra=()):
+        def run_for(params, kid):
+            def run():
+                for p in params:
+                    out = bm(*p)
+                tv, tj = out['vertices'], out['joints']
+                fitter.fit(tv, tj, **FIT_KW)
+                p = tuple(torch.as_tensor(x, device=dev) for x in params[-1]) + (kid,)
+                for path in list(PATHS.values()) + list(extra):
+                    path['run'](fitter, fitter_kid, tv, tj, p)
+            return run
+        return run_for
 
-        calls = capture_kernel_calls(lbs_kernels, run)
-        for key, arg_sets in calls.items():
-            if not arg_sets:
-                raise AssertionError(f'{key}: no call captured at B={batch}')
-            outputs = KERNELS[key][3]
-            for args, kwargs in arg_sets:
-                got = kernel_call(lbs_kernels, key, args, kwargs)
-                want = twin_call(lbs_kernels, key, args, kwargs)
-                torch.cuda.synchronize()
-                for out_name, g, w in zip(outputs, got, want, strict=True):
-                    abs_err = (g - w).abs().max().item()
-                    scale = w.abs().max().item()
-                    rel = abs_err / scale if scale > 0 else abs_err
-                    if not (rel <= KERNEL_REL_TOL and torch.isfinite(g).all().item()):
-                        raise AssertionError(
-                            f'{key}.{out_name} at B={batch}: max|kernel - twin| = {abs_err:.3e}'
-                            f' = {rel:.3e} x max|twin| > {KERNEL_REL_TOL}')
-                    res = results[key]
-                    res['max_abs_err'] = max(res['max_abs_err'], abs_err)
-                    res['rel_err'][out_name] = max(res['rel_err'][out_name], rel)
-            # Timed over the calls of the first call's configuration (same
-            # keyword arguments and operand shapes).
-            args0, kw = arg_sets[0]
-            shapes0 = [getattr(a, 'shape', None) for a in args0]
-            sets = [args for args, kwargs in arg_sets
-                    if kwargs == kw and [getattr(a, 'shape', None) for a in args] == shapes0]
-            errs = ' '.join(f'{k} {v:.2e}' for k, v in results[key]['rel_err'].items())
-            line = f'{key:24s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
-            if batch == BATCH:
-                results[key]['ms'] = time_ms(
-                    torch, lambda *a: kernel_call(lbs_kernels, key, a, kw), sets)
-                results[key]['plain_ms'] = time_ms(
-                    torch, lambda *a: twin_call(lbs_kernels, key, a, kw), sets)
-                line += (f'  kernel {results[key]["ms"]:.3f} ms  '
-                         f'twin {results[key]["plain_ms"]:.3f} ms')
-            log(line)
-        del calls
+    results = {'smpl': check_kernels(torch, lbs_kernels, 'smpl', make_run(bm, fitter, fitter_kid),
+                                     dev, rng, kid_rng, 'smpl')}
+    results['smplx'] = check_kernels(
+        torch, lbs_kernels, 'smplx', make_run(bm_x, fitter_x, fitter_x_kid, [KID_JOINTS]), dev,
+        rng, kid_rng, 'smplx')
     torch.cuda.empty_cache()
 
     # 4./5. The main path: forward to make targets, then fit them.
@@ -311,78 +561,58 @@ def main() -> int:
         raise AssertionError('the forward pass did not launch lbs_points')
     log(f'forward: {N_TARGETS} x B={BATCH} in {fwd_s * 1e3:.1f} ms, lbs_points launches '
         f'{fwd_launches}')
+    total_launches = dict(lbs_kernels.LAUNCHES)
 
     log(f'== phase 5: fit, B={BATCH}, {N_TARGETS} distinct target sets')
-    fitter.fit(*targets[0], **FIT_KW)  # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    fits = [fitter.fit(tv, tj, **FIT_KW) for tv, tj in targets]
-    end.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    fit_ms = start.elapsed_time(end)
-    launches = dict(lbs_kernels.LAUNCHES)
+    kids = [torch.as_tensor(kid_factors(kid_rng, BATCH), device=dev) for _ in range(N_TARGETS)]
+    fits, launches, fit_ms, host_s = time_path(torch, lbs_kernels, HEADLINE['run'], fitter,
+                                               fitter_kid, targets, inputs, kids)
     n_fits = N_TARGETS + 1
-    check_launches(dict(launches, lbs_points=launches['lbs_points'] - fwd_launches),
-                   dict(rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=3),
-                   n_fits, 'phase 5')
+    check_launches(launches, HEADLINE['launches'], n_fits, 'phase 5')
     shapes = dict(pose_rotvecs=(BATCH, 72), shape_betas=(BATCH, 10), trans=(BATCH, 3))
     for res in fits:
         for key, shape in shapes.items():
             if tuple(res[key].shape) != shape or not torch.isfinite(res[key]).all():
                 raise AssertionError(f'fit output {key}: shape {tuple(res[key].shape)}, '
                                      f'expected {shape}, or not finite')
-    fits_per_s = N_TARGETS * BATCH / (fit_ms / 1e3)
     log(f'launches in the main path: {json.dumps(launches)}')
-    log(f'fit throughput: {fits_per_s:.1f} fits/s (B={BATCH}, {N_TARGETS} fits, '
-        f'{fit_ms / N_TARGETS:.2f} ms/fit on CUDA events, {host_s / N_TARGETS * 1e3:.2f} ms/fit '
-        f'host) on {smi}')
+    log(f'fit throughput: {N_TARGETS * BATCH / (fit_ms / 1e3):.1f} fits/s (B={BATCH}, '
+        f'{N_TARGETS} fits, {fit_ms / N_TARGETS:.2f} ms/fit on CUDA events, '
+        f'{host_s / N_TARGETS * 1e3:.2f} ms/fit host) on {smi}')
     refit = bm(fits[-1]['pose_rotvecs'], fits[-1]['shape_betas'], fits[-1]['trans'])
     v2v_mm = (refit['vertices'] - targets[-1][0]).norm(dim=-1).mean().item() * 1e3
     if not np.isfinite(v2v_mm):
         raise AssertionError('round-trip reconstruction is not finite')
     log(f'round-trip mean v2v: {v2v_mm:.4f} mm')
+    for key in total_launches:
+        total_launches[key] += launches[key]
     del fits, refit
     torch.cuda.empty_cache()
-    total_launches = dict(launches)
 
     # 6. Card against the CPU twins at B=32.
     log(f'== phase 6: parity, B={PARITY_BATCH}, card vs CPU')
-    pose, betas, trans = (torch.as_tensor(x, device=dev)
-                          for x in random_params(rng, PARITY_BATCH))
-    out = bm(pose, betas, trans)
-    tv, tj = out['vertices'].contiguous(), out['joints']
-    gpu = fitter.fit(tv, tj, **FIT_KW)
-    cpu_bm = port.BodyModel.from_model_data(bm.model_data, device='cpu')
-    cpu_fitter = port.BodyFitter(cpu_bm)
-    cpu = cpu_fitter.fit(tv.cpu(), tj.cpu(), **FIT_KW)
-    max_dbeta = (gpu['shape_betas'].cpu() - cpu['shape_betas']).abs().max().item()
-    v2v_gpu, v2v_cpu = recon_v2v_mm(bm, gpu, tv), recon_v2v_mm(bm, cpu, tv)
-    ok = max_dbeta <= PARITY_DBETA and abs(v2v_gpu - v2v_cpu) <= PARITY_V2V_MM
-    log(f'parity: ok={ok} max|dbeta|={max_dbeta:.3e} v2v card={v2v_gpu:.4f} mm '
-        f'cpu={v2v_cpu:.4f} mm')
-    if not ok:
-        raise AssertionError('card fit disagrees with the CPU fit')
+    cpu_models = {}
+
+    def cpu_fitters(name, bm, kid=False):
+        if name not in cpu_models:
+            cpu_bm = port.BodyModel.from_model_data(bm.model_data, name, device='cpu')
+            cpu_models[name] = (port.BodyFitter(cpu_bm),
+                                port.BodyFitter(cpu_bm, enable_kid=True) if kid else None)
+        return cpu_models[name]
+
+    params = tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, PARITY_BATCH))
+    params += (torch.as_tensor(kid_factors(kid_rng, PARITY_BATCH), device=dev),)
+    out = bm(*params)
+    tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+    failures = []
+    parity('headline', HEADLINE['run'], (fitter, fitter_kid), cpu_fitters('smpl', bm, True), bm,
+           tv, tj, params, failures)
 
     # 7. The other fitting paths on the same target sets.
-    kids = [torch.as_tensor(kid_factors(kid_rng, BATCH), device=dev) for _ in range(N_TARGETS)]
     for name, path in PATHS.items():
         log(f'== phase 7{name[0]}: {name}, B={BATCH}, {N_TARGETS} distinct target sets')
-        lbs_kernels.reset_launch_counts()
-        path['run'](fitter, fitter_kid, *targets[0], inputs[0] + (kids[0],))  # warm-up
-        torch.cuda.synchronize()
-        start.record()
-        t0 = time.perf_counter()
-        fits = [path['run'](fitter, fitter_kid, tv, tj, p + (k,))
-                for (tv, tj), p, k in zip(targets, inputs, kids)]
-        end.record()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-        path_ms = start.elapsed_time(end)
-        launches = dict(lbs_kernels.LAUNCHES)
+        fits, launches, path_ms, host_s = time_path(torch, lbs_kernels, path['run'], fitter,
+                                                    fitter_kid, targets, inputs, kids)
         check_launches(launches, path['launches'], n_fits, name)
         for key in total_launches:
             total_launches[key] += launches[key]
@@ -398,36 +628,90 @@ def main() -> int:
         del fits
     del targets, inputs, kids
     torch.cuda.empty_cache()
+
+    # 8. Each other path on the card against the CPU twins at B=32.
+    log(f'== phase 8: parity of paths a-e, B={PARITY_BATCH}, card vs CPU')
+    for name, path in PATHS.items():
+        parity(name, path['run'], (fitter, fitter_kid), cpu_fitters('smpl', bm, True), bm, tv, tj,
+               params, failures)
+
+    # 9. SMPL-X at full width: forward, then the headline fit and paths a-e.
+    log(f'== phase 9: SMPL-X (V=10475, J=55, F=487), forward and fits, B={BATCH}, '
+        f'{N_TARGETS} distinct target sets')
+    inputs = [tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, BATCH, 'smplx'))
+              for _ in range(N_TARGETS)]
+    kids = [torch.as_tensor(kid_factors(kid_rng, BATCH), device=dev) for _ in range(N_TARGETS)]
+    lbs_kernels.reset_launch_counts()
+    bm_x(*inputs[0])  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    targets = []
+    for p in inputs:
+        out = bm_x(*p)
+        targets.append((out['vertices'], out['joints']))
+    end.record()
+    torch.cuda.synchronize()
+    check_launches(dict(lbs_kernels.LAUNCHES), dict(lbs_points=1), n_fits, 'smplx forward')
+    total_launches['lbs_points'] += lbs_kernels.LAUNCHES['lbs_points']
+    log(f'smplx forward: {start.elapsed_time(end) / N_TARGETS:.3f} ms per B={BATCH} call '
+        f'(CUDA events), lbs_points launches {lbs_kernels.LAUNCHES["lbs_points"]} on {smi}')
+    for name, path in dict(headline=HEADLINE, **PATHS).items():
+        fits, launches, path_ms, host_s = time_path(torch, lbs_kernels, path['run'], fitter_x,
+                                                    fitter_x_kid, targets, inputs, kids)
+        check_launches(launches, path['launches_x'], n_fits, f'smplx {name}')
+        for key in total_launches:
+            total_launches[key] += launches[key]
+        for res in fits:
+            for key, value in res.items():
+                if value.shape[0] != BATCH or not torch.isfinite(value).all():
+                    raise AssertionError(f'smplx {name} output {key}: shape '
+                                         f'{tuple(value.shape)} or not finite')
+        log(f'smplx {name}: {N_TARGETS * BATCH / (path_ms / 1e3):.1f} fits/s '
+            f'({path_ms / N_TARGETS:.2f} ms/fit on CUDA events, '
+            f'{host_s / N_TARGETS * 1e3:.2f} ms/fit host), launches per fit '
+            f'{json.dumps(path["launches_x"])} on {smi}')
+        del fits
+    del targets, inputs, kids
+    torch.cuda.empty_cache()
+
+    # 10. The large models on the card against the CPU twins at B=32.
+    log(f'== phase 10: parity of SMPL-X (headline, a-e), SMPL+H and MANO, B={PARITY_BATCH}, '
+        'card vs CPU')
+    params = tuple(torch.as_tensor(x, device=dev)
+                   for x in random_params(rng, PARITY_BATCH, 'smplx'))
+    params += (torch.as_tensor(kid_factors(kid_rng, PARITY_BATCH), device=dev),)
+    out = bm_x(*params)
+    tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+    for name, path in dict(headline=HEADLINE, **PATHS).items():
+        parity(f'smplx {name}', path['run'], (fitter_x, fitter_x_kid),
+               cpu_fitters('smplx', bm_x, True), bm_x, tv, tj, params, failures,
+               noise_floor=True)
+    for name in ('smplh16', 'mano'):
+        bm_o, fitter_o, _ = load(name)
+        params = tuple(torch.as_tensor(x, device=dev)
+                       for x in random_params(rng, PARITY_BATCH, name))
+        out = bm_o(*params)
+        tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+        parity(f'{name} headline', HEADLINE['run'], (fitter_o, None),
+               cpu_fitters(name, bm_o), bm_o, tv, tj, params, failures, noise_floor=True)
+    if failures:
+        raise AssertionError(f'the card disagrees with the CPU on: {failures}')
+
     unlaunched = [key for key, n in total_launches.items() if n == 0]
     if unlaunched:
         raise AssertionError(f'kernels never launched on the fitting paths: {unlaunched}')
 
-    # 8. Each other path on the card against the CPU twins at B=32.
-    log(f'== phase 8: parity of paths a-e, B={PARITY_BATCH}, card vs CPU')
-    cpu_fitter_kid = port.BodyFitter(cpu_bm, enable_kid=True)
-    params = tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, PARITY_BATCH))
-    params += (torch.as_tensor(kid_factors(kid_rng, PARITY_BATCH), device=dev),)
-    out = bm(*params)
-    tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
-    for name, path in PATHS.items():
-        gpu = path['run'](fitter, fitter_kid, tv, tj, params)
-        cpu = path['run'](cpu_fitter, cpu_fitter_kid, tv.cpu(), tj.cpu(),
-                          tuple(x.cpu() for x in params))
-        max_d = max((gpu[k].cpu() - cpu[k]).abs().max().item()
-                    for k in ('shape_betas', 'kid_factor', 'scale_corr') if k in gpu)
-        v2v_gpu, v2v_cpu = recon_v2v_mm(bm, gpu, tv), recon_v2v_mm(bm, cpu, tv)
-        ok = max_d <= PARITY_DBETA and abs(v2v_gpu - v2v_cpu) <= PARITY_V2V_MM
-        log(f'{name}: ok={ok} max|d betas, kid, scale|={max_d:.3e} v2v card={v2v_gpu:.4f} mm '
-            f'cpu={v2v_cpu:.4f} mm')
-        if not ok:
-            raise AssertionError(f'{name}: card disagrees with the CPU')
-
     kernels = []
     for key, (_, source, replaces, _) in KERNELS.items():
-        r = results[key]
+        # This slice's measurements where the kernel runs on SMPL-X, else SMPL's.
+        model = 'smplx' if key in results['smplx'] else 'smpl'
+        r = results[model][key]
         kernels.append(dict(name=key, route='cuda', source=source, replaces=replaces,
                             launches=total_launches[key], max_abs_err=r['max_abs_err'],
-                            ms=r['ms'], plain_ms=r['plain_ms']))
+                            ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],
+                            bound_by=r['bound_by'], library_ms=r['library_ms'], model=model))
     print(json.dumps(dict(kernels=kernels)), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps(dict(ok=True, device=dict(platform='gpu', kind=card,

@@ -1,10 +1,11 @@
-// K2: fused residual projection of the shape solve, in three forms.
+// K2: fused residual projection of the shape solve, in five forms.
 //
 // Replaces the TPU kernel smplfitter_tpu/ops/lbs_kernels.py:_rhs_kernel
-// (launcher _rhs_moments_impl; APIs rhs_moments_h, rhs_moments and
-// rhs_moments(scale=True)). Per vertex and batch column: the posed template
-// homog_c = consts_c . feat, the LBS position pos = blended [R|t] . homog, the
-// residual b = tgt - pos, and its two vertex reductions
+// (launcher _rhs_moments_impl; APIs rhs_moments_h, rhs_moments,
+// rhs_moments(scale=True) and rhs_moments_cached with and without scale). Per
+// vertex and batch column: the posed template homog_c = consts_c . feat, the
+// LBS position pos = blended [R|t] . homog, the residual b = tgt - pos, and
+// its two vertex reductions
 //     y[a, j, :] = sum_v w[v, j] b_a(v)                        (3, J, B)
 //     r[e, :]    = sum_v sum_c SD[c, v, e] (Rbar_v^T b_v)_c     (E, B)
 // where Rbar_v is the rotation part of the blended transform. The forms are
@@ -12,34 +13,47 @@
 //   - emit-homog (EMIT): also writes homog (3, V_pad, B) for this iteration's
 //     cached recon kernel (K4);
 //   - plain: y and r only; no homog store (it would be ~340 MB of writes per
-//     call at B=4096 that nobody reads);
+//     call at SMPL b4096 that nobody reads);
 //   - scale (SCALE): also the target-side moments of the scale column,
 //     yt[a, j] = sum_v w[v, j] t_a(v), rt[e] = sum_v sum_c SD[c, v, e]
-//     (Rbar_v^T t_v)_c and sc = [sum |t|^2, sum t.pos, sum |pos|^2] (3, B).
+//     (Rbar_v^T t_v)_c and sc = [sum |t|^2, sum t.pos, sum |pos|^2] (3, B);
+//   - cached (CACHED, plain or with SCALE): reads homog (3, V_pad, B), the
+//     posed template that K7 (posed_template.cu) computed once per solve,
+//     instead of running the F-deep homog dot. The large-F models (SMPL-X
+//     F = 487, SMPL+H F = 460) take it.
 //
 // What bounds it on an H100: f32 arithmetic. Per (vertex, batch column): 3F
-// FMAs of homog dot, 12J of position, 12J of the Rbar^T b projection and 3J + 3E
-// of reductions (twice the last two in the scale form); at SMPL b4096 (F = 208,
-// J = 24, E = 10) about 7168 * 4096 * 1300 * 2 = 76 GFLOP against ~0.35 GB of
-// traffic (targets in; plus 0.34 GB of homog out in the emit form).
+// FMAs of homog dot (none in the cached form), 12J of position, 12J of the
+// Rbar^T b projection and 3J + 3E of reductions (twice the last two in the
+// scale form); at SMPL b4096 (F = 208, J = 24, E = 10) about
+// 7168 * 4096 * 1300 * 2 = 76 GFLOP against ~0.35 GB of traffic; at SMPL-X
+// b4096 cached (J = 55, E = 16) about 10496 * 4096 * 1500 * 2 = 129 GFLOP
+// against ~1 GB (targets and homog in).
 //
 // Design: the TPU grid swept the vertex chunks of a batch tile in order and
 // accumulated into the output block. Here blocks run in parallel with no
 // order, so a block owns (batch tile, vertex split): it walks its split's
-// 64-vertex tiles, accumulating the output rows per batch column in shared
-// memory, and writes one partial per split. A second kernel sums the partials
-// over splits in a fixed order, so runs repeat bit for bit (no float atomics).
-// The homog dot and the position reuse the shared tile routines of K1; the
-// residual never leaves registers except as a shared-memory tile for the
-// reductions. The scale form runs the same two reductions a second time on
-// the targets and adds three per-column sums, all into the same partials. The
-// target's vertex edge (V_t <= V_pad rows) and the batch edge are masked by
-// global index.
+// 64-vertex tiles and accumulates the output rows of its 64 columns in its own
+// slice of the per-split partials in device memory (one owner thread per
+// entry, so no atomics; the slice stays in L2). A second kernel sums the
+// partials over splits in a fixed order, so runs repeat bit for bit. Shared
+// memory holds the batch tile's [R|t] entries, the tile's weights and shape
+// directions and one 64 x 64 staging tile, which one coordinate of a field at
+// a time passes through for the reductions: 213 KB at J = 55, E = 17. The homog
+// dot and the position reuse the shared tile routines of K1; the residual
+// never leaves registers except through the staging tile. The scale form runs
+// the same two reductions a second time on the targets and adds three
+// per-column sums. The target's vertex edge (V_t <= V_pad rows) and the batch
+// edge are masked by global index.
 #include "lbs_tile.cuh"
 
 using namespace lbs;
 
 namespace {
+
+constexpr int NG = NT / TB;          // column groups of the reductions (4)
+constexpr int MAXE = 32;             // E <= 32
+constexpr int EPT = MAXE / NG;       // shape rows per thread in reduce_sd_rows
 
 // Output rows of the partials: y (3J), r (E) [, yt (3J), rt (E), sc (3)].
 __host__ __device__ inline int rhs_rows(int J, int E, bool scale) {
@@ -79,50 +93,70 @@ __device__ inline void project_rbar(float g[3][4][4], const float field[3][4][4]
   }
 }
 
-// work[(a * TV + row) * TB + col] = field[a] of this thread's micro-tile, then a barrier.
-__device__ inline void stage_field(float* work, const float field[3][4][4]) {
+// work[row * TB + col] = one coordinate of a field on this thread's
+// micro-tile, then a barrier.
+__device__ inline void stage_coord(float* work, const float f[4][4]) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int a = 0; a < 3; ++a)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) work[(a * TV + ty + 16 * i) * TB + tx + 16 * k] = field[a][i][k];
+    for (int k = 0; k < 4; ++k) work[(ty + 16 * i) * TB + tx + 16 * k] = f[i][k];
   __syncthreads();
 }
 
-// acc[row0 + a*J + j] += sum_vv w[v, j] field_a(v). Ends with a barrier.
-__device__ inline void reduce_joint_rows(float* acc_s, int row0, const float field[3][4][4],
-                                         const float* w_s, float* work, int J) {
+// part[row0 + a*J + j] += sum_vv w[v, j] field_a(v), for the block's columns
+// (part points at the block's split, row stride B). Ends with a barrier.
+__device__ inline void reduce_joint_rows(float* part, int row0, const float field[3][4][4],
+                                         const float* w_s, float* work, int J, int B, int b0) {
   const int col = threadIdx.x % TB, grp = threadIdx.x / TB;
-  stage_field(work, field);
-  for (int r = grp; r < 3 * J; r += NT / TB) {
-    const int a = r / J, j = r % J;
-    float s = 0.f;
+  const int b = b0 + col;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    stage_coord(work, field[a]);
+    if (b < B) {
+      for (int j = grp; j < J; j += NG) {
+        float s = 0.f;
 #pragma unroll 8
-    for (int vv = 0; vv < TV; ++vv) s = fmaf(w_s[j * TVP + vv], work[(a * TV + vv) * TB + col], s);
-    acc_s[(row0 + r) * TB + col] += s;
-  }
-  __syncthreads();
-}
-
-// acc[row0 + e] += sum_vv sum_c SD[c, v, e] g_c(v). Ends with a barrier.
-__device__ inline void reduce_sd_rows(float* acc_s, int row0, const float g[3][4][4],
-                                      const float* sd_s, float* work, int E) {
-  const int col = threadIdx.x % TB, grp = threadIdx.x / TB;
-  stage_field(work, g);
-  for (int e = grp; e < E; e += NT / TB) {
-    float s = 0.f;
-    for (int c = 0; c < 3; ++c) {
-#pragma unroll 8
-      for (int vv = 0; vv < TV; ++vv) s = fmaf(sd_s[(c * E + e) * TVP + vv], work[(c * TV + vv) * TB + col], s);
+        for (int vv = 0; vv < TV; ++vv) s = fmaf(w_s[j * TVP + vv], work[vv * TB + col], s);
+        part[(size_t)(row0 + a * J + j) * B + b] += s;
+      }
     }
-    acc_s[(row0 + e) * TB + col] += s;
+    __syncthreads();
   }
-  __syncthreads();
 }
 
-template <bool EMIT, bool SCALE>
+// part[row0 + e] += sum_vv sum_c SD[c, v, e] g_c(v). Ends with a barrier.
+__device__ inline void reduce_sd_rows(float* part, int row0, const float g[3][4][4],
+                                      const float* sd_s, float* work, int E, int B, int b0) {
+  const int col = threadIdx.x % TB, grp = threadIdx.x / TB;
+  const int b = b0 + col;
+  float s[EPT];
+#pragma unroll
+  for (int m = 0; m < EPT; ++m) s[m] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    stage_coord(work, g[c]);
+#pragma unroll
+    for (int m = 0; m < EPT; ++m) {
+      const int e = grp + NG * m;
+      if (e < E) {
+#pragma unroll 8
+        for (int vv = 0; vv < TV; ++vv)
+          s[m] = fmaf(sd_s[(c * E + e) * TVP + vv], work[vv * TB + col], s[m]);
+      }
+    }
+    __syncthreads();
+  }
+  if (b < B) {
+#pragma unroll
+    for (int m = 0; m < EPT; ++m) {
+      const int e = grp + NG * m;
+      if (e < E) part[(size_t)(row0 + e) * B + b] += s[m];
+    }
+  }
+}
+
+template <bool EMIT, bool SCALE, bool CACHED>
 __global__ void __launch_bounds__(NT, 1)
 rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
                    const float* __restrict__ feat, const float* __restrict__ w,
@@ -134,14 +168,17 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
   float* pj_s = smem;                   // [12][J][TB]
   float* w_s = pj_s + 12 * J * TB;      // [J][TVP]
   float* sd_s = w_s + J * TVP;          // [3][E][TVP]
-  float* acc_s = sd_s + 3 * E * TVP;    // [R][TB]
-  float* work = acc_s + R * TB;         // staging, or a [3][TV][TB] reduction tile
+  float* work = sd_s + 3 * E * TVP;     // homog staging, or a [TV][TB] reduction tile
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int col = threadIdx.x % TB, grp = threadIdx.x / TB;
   const int b0 = blockIdx.x * TB;
+  float* part_blk = part + (size_t)blockIdx.y * R * B;
 
   load_pj_tile(pj_s, pj, J, B, b0);
-  for (int idx = threadIdx.x; idx < R * TB; idx += NT) acc_s[idx] = 0.f;
+  for (int idx = threadIdx.x; idx < R * TB; idx += NT) {
+    const int b = b0 + idx % TB;
+    if (b < B) part_blk[(size_t)(idx / TB) * B + b] = 0.f;
+  }
 
   for (int t = 0; t < tiles_per_block; ++t) {
     const int v0 = (blockIdx.y * tiles_per_block + t) * TV;
@@ -156,7 +193,22 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
     }
 
     float h[3][4][4];
-    homog_tile(h, feat, consts, F, B, Vp, rows, b0, work);
+    if (CACHED) {
+      __syncthreads();  // publishes w_s and sd_s (homog_tile's barriers do it otherwise)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int v = v0 + ty + 16 * i;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int b = b0 + tx + 16 * k;
+          const bool ok = v < Vp && b < B;
+#pragma unroll
+          for (int c = 0; c < 3; ++c) h[c][i][k] = ok ? homog[((size_t)c * Vp + v) * B + b] : 0.f;
+        }
+      }
+    } else {
+      homog_tile(h, feat, consts, F, B, Vp, rows, b0, work);
+    }
     if (EMIT) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -202,8 +254,8 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
 
     float g[3][4][4];
     project_rbar(g, res, pj_s, w_s, J);
-    reduce_joint_rows(acc_s, 0, res, w_s, work, J);
-    reduce_sd_rows(acc_s, 3 * J, g, sd_s, work, E);
+    reduce_joint_rows(part_blk, 0, res, w_s, work, J, B, b0);
+    reduce_sd_rows(part_blk, 3 * J, g, sd_s, work, E, B, b0);
 
     if (SCALE) {
       // sc rows: per-column sums over the tile's rows, summed over ty in order.
@@ -212,22 +264,17 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
 #pragma unroll
         for (int k = 0; k < 4; ++k) work[(s * 16 + ty) * TB + tx + 16 * k] = sc[s][k];
       __syncthreads();
-      for (int s = grp; s < 3; s += NT / TB) {
+      const int b = b0 + col;
+      for (int s = grp; s < 3; s += NG) {
         float sum = 0.f;
         for (int y = 0; y < 16; ++y) sum += work[(s * 16 + y) * TB + col];
-        acc_s[(6 * J + 2 * E + s) * TB + col] += sum;
+        if (b < B) part_blk[(size_t)(6 * J + 2 * E + s) * B + b] += sum;
       }
       __syncthreads();
       project_rbar(g, tv, pj_s, w_s, J);
-      reduce_joint_rows(acc_s, 3 * J + E, tv, w_s, work, J);
-      reduce_sd_rows(acc_s, 6 * J + E, g, sd_s, work, E);
+      reduce_joint_rows(part_blk, 3 * J + E, tv, w_s, work, J, B, b0);
+      reduce_sd_rows(part_blk, 6 * J + E, g, sd_s, work, E, B, b0);
     }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < R * TB; idx += NT) {
-    const int r = idx / TB, bb = idx % TB;
-    const int b = b0 + bb;
-    if (b < B) part[((size_t)blockIdx.y * R + r) * B + b] = acc_s[idx];
   }
 }
 
@@ -252,52 +299,60 @@ __global__ void rhs_split_sum_kernel(const float* __restrict__ part, float* __re
   }
 }
 
-template <bool EMIT, bool SCALE>
+template <bool EMIT, bool SCALE, bool CACHED>
 cudaError_t launch_form(const float* tgt, const float* pj, const float* feat, const float* w,
                         const float* consts, const float* sd, float* homog, float* part,
                         int J, int B, int F, int E, int Vt, int Vp, int tiles_per_block,
                         size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(rhs_moments_kernel<EMIT, SCALE>,
+  cudaError_t err = cudaFuncSetAttribute(rhs_moments_kernel<EMIT, SCALE, CACHED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_vtiles = (Vp + TV - 1) / TV;
   const int n_splits = (n_vtiles + tiles_per_block - 1) / tiles_per_block;
   dim3 grid((B + TB - 1) / TB, n_splits);
-  rhs_moments_kernel<EMIT, SCALE><<<grid, NT, smem, stream>>>(
+  rhs_moments_kernel<EMIT, SCALE, CACHED><<<grid, NT, smem, stream>>>(
       tgt, pj, feat, w, consts, sd, homog, part, J, B, F, E, Vt, Vp, tiles_per_block);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-SMPL_API size_t rhs_moments_smem_bytes(int J, int E, int scale) {
-  const int work = staging_floats() > 3 * TV * TB ? staging_floats() : 3 * TV * TB;
-  return sizeof(float) * (12 * J * TB + J * TVP + 3 * E * TVP + rhs_rows(J, E, scale) * TB + work);
+SMPL_API size_t rhs_moments_smem_bytes(int J, int E) {
+  const int work = staging_floats() > TV * TB ? staging_floats() : TV * TB;
+  return sizeof(float) * (12 * J * TB + J * TVP + 3 * E * TVP + work);
 }
 
 // tgt (3, Vt, B), pj (12, J, B), feat (F, B), w (Vp, J), consts (>= 3, Vp, F),
-// sd (3, Vp, E) -> r (E, B), y (3, J, B); homog (3, Vp, B) when emit_homog;
-// rt (E, B), yt (3, J, B), sc (3, B) when scale (the two flags exclude each
-// other; unused outputs may be null). part is scratch of n_splits * R * B
-// floats, R = rhs_rows(J, E, scale), n_splits = ceil(ceil(Vp / 64) / tiles_per_block).
+// sd (3, Vp, E) -> r (E, B), y (3, J, B); homog (3, Vp, B) is written when
+// emit_homog and read instead of feat and consts (which may be null) when
+// cached; rt (E, B), yt (3, J, B), sc (3, B) when scale. emit_homog excludes
+// scale and cached; unused outputs may be null. part is scratch of
+// n_splits * R * B floats, R = rhs_rows(J, E, scale),
+// n_splits = ceil(ceil(Vp / 64) / tiles_per_block). Requires E <= 32.
 SMPL_API int rhs_moments_launch(const float* tgt, const float* pj, const float* feat,
                                 const float* w, const float* consts, const float* sd,
                                 float* r_out, float* y, float* homog, float* rt, float* yt,
                                 float* sc, float* part, int J, int B, int F, int E, int Vt,
                                 int Vp, int tiles_per_block, int emit_homog, int scale,
-                                cudaStream_t stream) {
-  if (emit_homog && scale) return (int)cudaErrorInvalidValue;
-  const size_t smem = rhs_moments_smem_bytes(J, E, scale);
+                                int cached, cudaStream_t stream) {
+  if ((emit_homog && (scale || cached)) || E > MAXE) return (int)cudaErrorInvalidValue;
+  const size_t smem = rhs_moments_smem_bytes(J, E);
   cudaError_t err;
   if (emit_homog)
-    err = launch_form<true, false>(tgt, pj, feat, w, consts, sd, homog, part, J, B, F, E, Vt,
-                                   Vp, tiles_per_block, smem, stream);
+    err = launch_form<true, false, false>(tgt, pj, feat, w, consts, sd, homog, part, J, B, F,
+                                          E, Vt, Vp, tiles_per_block, smem, stream);
+  else if (cached && scale)
+    err = launch_form<false, true, true>(tgt, pj, feat, w, consts, sd, homog, part, J, B, F,
+                                         E, Vt, Vp, tiles_per_block, smem, stream);
+  else if (cached)
+    err = launch_form<false, false, true>(tgt, pj, feat, w, consts, sd, homog, part, J, B, F,
+                                          E, Vt, Vp, tiles_per_block, smem, stream);
   else if (scale)
-    err = launch_form<false, true>(tgt, pj, feat, w, consts, sd, nullptr, part, J, B, F, E,
-                                   Vt, Vp, tiles_per_block, smem, stream);
+    err = launch_form<false, true, false>(tgt, pj, feat, w, consts, sd, nullptr, part, J, B, F,
+                                          E, Vt, Vp, tiles_per_block, smem, stream);
   else
-    err = launch_form<false, false>(tgt, pj, feat, w, consts, sd, nullptr, part, J, B, F, E,
-                                    Vt, Vp, tiles_per_block, smem, stream);
+    err = launch_form<false, false, false>(tgt, pj, feat, w, consts, sd, nullptr, part, J, B,
+                                           F, E, Vt, Vp, tiles_per_block, smem, stream);
   if (err != cudaSuccess) return (int)err;
   const int n_vtiles = (Vp + TV - 1) / TV;
   const int n_splits = (n_vtiles + tiles_per_block - 1) / tiles_per_block;

@@ -7,14 +7,14 @@ all from per-part sufficient statistics) and the moment-tensor shape and
 translation solve (``shape_gram``). Rotations flow as ``(9, J, B)`` entry
 arrays and 3-vectors as ``(3, J, B)``, the layouts the kernels use.
 
-Ported here: :meth:`BodyFitter.fit` with or without target joints, any number
-of iterations, optional final rotation adjustment, warm starts, the kid
-factor, ``scale_target`` / ``scale_fit`` and the ``'vertices'`` / ``'joints'``
-outputs; :meth:`~BodyFitter.fit_with_known_pose`,
+Ported here, for SMPL, SMPL-X, SMPL+H and MANO: :meth:`BodyFitter.fit` with
+or without target joints, any number of iterations, optional final rotation
+adjustment, warm starts, the kid factor, ``scale_target`` / ``scale_fit`` and
+the ``'vertices'`` / ``'joints'`` outputs; :meth:`~BodyFitter.fit_with_known_pose`,
 :meth:`~BodyFitter.fit_with_known_shape` and
 :meth:`~BodyFitter.fit_scale_and_translation`. Fit weights (static or per
-call), ``share_beta`` and models with large template features (SMPL-X,
-SMPL+H) raise ``NotImplementedError`` naming their ROADMAP item.
+call) and ``share_beta`` raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -31,12 +31,6 @@ from ..ops import lbs_kernels
 from ..ops import rotation as rot_ops
 from .bodymodel import BodyModel, fk_rotations, index_tensor, tree_levels
 from .shape_gram import GramData, build_gram_data, fit_shape_gram_lm, lbs_recon_spec_lm
-
-# Models whose pose template has more features than this (SMPL-X, SMPL+H) take
-# the JAX package's large-F pipeline (posed template as its own kernel), which
-# is not ported yet; the same bound as lbs_kernels.HOMOG_GEMM_MIN_F there.
-HOMOG_GEMM_MIN_F = 320
-
 
 # ---------------------------------------------------------------------------
 # Static fit plan
@@ -530,9 +524,6 @@ class BodyFitter(nn.Module):
         gram = build_gram_data(data.weights, data.shapedirs,
                                data.kid_shapedir if enable_kid else None, plan.n_betas,
                                data.v_template, data.posedirs, device=dev)
-        if gram.consts_pose.shape[2] > HOMOG_GEMM_MIN_F:
-            raise _not_ported(f'fitting models with more than {HOMOG_GEMM_MIN_F} template '
-                              'features (SMPL-X, SMPL+H)', 6)
         self._static = {}
         for prefix, obj in (('plan', plan), ('gram', gram)):
             for f in dataclasses.fields(obj):

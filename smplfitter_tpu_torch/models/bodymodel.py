@@ -78,8 +78,20 @@ def fk_positions(parents: tuple, glob_rotmats: torch.Tensor, bones: torch.Tensor
     return pos
 
 
+def _model_device(device) -> torch.device:
+    """The device a model is built on: the CUDA card unless the caller names
+    another; a CUDA device without one present is an error, never the CPU."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(f'BodyModel(device={str(device)!r}): no CUDA device is available; '
+                           "pass device='cpu' to run on the CPU")
+    return device
+
+
 class BodyModel(nn.Module):
-    """SMPL-family body model. Constants are float32 buffers on ``device``.
+    """SMPL-family body model (SMPL, SMPL-X, SMPL+H, MANO). Constants are
+    float32 buffers on ``device``: the CUDA card by default, ``device='cpu'``
+    for the CPU.
 
     ``BodyModel(model_name, gender, model_root, num_betas, device=...)`` loads
     the model files like the JAX package; :meth:`from_model_data` builds it
@@ -88,16 +100,18 @@ class BodyModel(nn.Module):
 
     def __init__(self, model_name: str = 'smpl', gender: str = 'neutral',
                  model_root: Optional[str] = None, num_betas: Optional[int] = None,
-                 *, device='cpu'):
+                 *, device='cuda'):
         super().__init__()
+        device = _model_device(device)
         data = _modeldata.initialize(model_name, gender, model_root, num_betas)
         self._init_from_data(data, model_name, gender, device)
 
     @classmethod
     def from_model_data(cls, data: _modeldata.ModelData, model_name: str = 'smpl',
-                        gender: str = 'neutral', *, device='cpu') -> 'BodyModel':
+                        gender: str = 'neutral', *, device='cuda') -> 'BodyModel':
         """Build the model from a :class:`ModelData` of numpy arrays (the
         weights carried over from the JAX package's ``BodyModel.model_data``)."""
+        device = _model_device(device)
         obj = cls.__new__(cls)
         nn.Module.__init__(obj)
         obj._init_from_data(data, model_name, gender, device)

@@ -7,9 +7,12 @@ The beta-Jacobian of every vertex has low-rank structure in the joints,
 so every vertex sum of the normal equations factors through joint-pair
 moments of the static skinning weights and shape directions (``Ksd``,
 ``Lz_e``, ``q``, ...), precomputed once per model in f64 on the host. Per
-call, one kernel (K2) reduces the residual over the vertices and another (K3)
-assembles each instance's Gramian from joint-space operands; the translation
-is eliminated jointly in a small augmented SPD system.
+call, one kernel (K2) reduces the residual over the vertices and another (K3,
+or at large J the streamed term1 kernel K8) assembles each instance's Gramian
+from joint-space operands; the translation is eliminated jointly in a small
+augmented SPD system. Models with a wide pose template (SMPL-X, SMPL+H) first
+compute the posed template as a kernel of its own (K7) and run K2's cached
+form on it.
 
 Ported here: the unweighted, non-shared solve, with or without target joints,
 with the kid column, warm-start regularizer references and the scale column
@@ -155,7 +158,8 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
     (3, J, B), vertices_vm (3, V_pad, B) and recon_spec (the fitted mesh's
     operands for the per-part sums: pj_cm, feat_cols, consts_pad,
     weights_pad, and the posed-template cache homog_vm, x_cols, sd_cm, where
-    homog_vm is None unless the solve computed it).
+    homog_vm is None unless the solve computed it: always for large-F
+    models, else only when recon_spec is requested without a scale column).
 
     ``scale_target`` / ``scale_fit`` add the scale column from K2's
     target-side moments (the model side follows by linearity, pos = tgt - b)."""
@@ -171,7 +175,16 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
     rhs_args = (tgt_vm, pre['pj_cm'], pre['feat_cols'], gram.weights_pad, gram.consts_pose,
                 gram.sd_cm)
     homog_vm = None
-    if scale_col:
+    if gram.consts_pose.shape[2] > lbs_kernels.HOMOG_GEMM_MIN_F:
+        # Large-F models (SMPL-X, SMPL+H): the posed template once per solve
+        # (K7), read by K2's cached form here and by K4 through recon_spec.
+        homog_vm = lbs_kernels.posed_template_lm(pre['feat_cols'], gram.consts_pose)
+        cached_args = (tgt_vm, pre['pj_cm'], homog_vm, gram.weights_pad, gram.sd_cm)
+        if scale_col:
+            rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments_cached(*cached_args, scale=True)
+        else:
+            rk, yk = lbs_kernels.rhs_moments_cached(*cached_args)
+    elif scale_col:
         rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments(*rhs_args, scale=True)
     elif 'recon_spec' in requested_keys:
         rk, yk, homog_vm = lbs_kernels.rhs_moments_h(*rhs_args)

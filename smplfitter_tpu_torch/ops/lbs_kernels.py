@@ -11,15 +11,22 @@ hand-written kernel in ``csrc/`` (built on first use, see ``_build.py``), or
 the wrapper raises; there is no fallback from one to the other. Each kernel
 launch adds one to ``LAUNCHES[<name>]``.
 
-| wrapper                     | CUDA source                 | replaces (JAX package)          |
-|-----------------------------|-----------------------------|---------------------------------|
-| lbs_points                  | csrc/lbs_points.cu          | _lbs_points_kernel (K1)         |
-| rhs_moments_h               | csrc/rhs_moments.cu         | _rhs_kernel, emit_homog (K2)    |
-| rhs_moments                 | csrc/rhs_moments.cu         | _rhs_kernel, plain / scale (K2) |
-| gram_assembly               | csrc/gram_assembly.cu       | _gram_kernel (K3)               |
-| recon_part_sums_cached_lm   | csrc/recon_part_sums.cu     | _recon_cached_kernel (K4)       |
-| part_sums_vm_lm             | csrc/part_sums.cu           | _part_sums_kernel (K5)          |
-| recon_part_sums_lm          | csrc/recon_lbs_part_sums.cu | _recon_part_sums_kernel (K6)    |
+| wrapper                     | CUDA source                 | replaces (JAX package)           |
+|-----------------------------|-----------------------------|----------------------------------|
+| lbs_points                  | csrc/lbs_points.cu          | _lbs_points_kernel (K1)          |
+| rhs_moments_h               | csrc/rhs_moments.cu         | _rhs_kernel, emit_homog (K2)     |
+| rhs_moments                 | csrc/rhs_moments.cu         | _rhs_kernel, plain / scale (K2)  |
+| rhs_moments_cached          | csrc/rhs_moments.cu         | _rhs_kernel, cached (K2)         |
+| gram_assembly               | csrc/gram_assembly.cu       | _gram_kernel (K3)                |
+| recon_part_sums_cached_lm   | csrc/recon_part_sums.cu     | _recon_cached_kernel (K4)        |
+| part_sums_vm_lm             | csrc/part_sums.cu           | _part_sums_kernel (K5)           |
+| recon_part_sums_lm          | csrc/recon_lbs_part_sums.cu | _recon_part_sums_kernel (K6)     |
+| posed_template_lm           | csrc/posed_template.cu      | _posed_template_kernel (K7)      |
+| term1                       | csrc/term1.cu               | _term1_kernel (K8)               |
+
+``gram_assembly`` runs K3 at small J and, where the JAX package streams
+term1 (SMPL-X, SMPL+H), K8 plus :func:`gram_mparts_ref` in PyTorch ops, as
+the JAX package leaves those pieces to XLA.
 """
 
 from __future__ import annotations
@@ -37,10 +44,14 @@ LAUNCHES = {
     'rhs_moments_h': 0,
     'rhs_moments': 0,
     'rhs_moments_scale': 0,
+    'rhs_moments_cached': 0,
+    'rhs_moments_cached_scale': 0,
     'gram_assembly': 0,
     'recon_part_sums_cached': 0,
     'part_sums': 0,
     'recon_part_sums': 0,
+    'posed_template': 0,
+    'term1': 0,
 }
 
 # Row padding of the per-vertex constant operands (weights_pad, consts, sd_cm).
@@ -51,6 +62,18 @@ VC = 256
 _TV = 64  # vertex tile of the LBS kernels (csrc/lbs_tile.cuh)
 _TB = 64  # batch tile of the LBS kernels
 _SEG = 512  # max vertices per part segment of the recon kernel
+
+# The JAX package's route for the shape solve of models whose pose template
+# has more features than this (SMPL-X F=487, SMPL+H F=460): the posed template
+# once per solve as its own kernel (K7), read by K2's cached form and K4,
+# instead of the in-kernel homog dot (lbs_kernels.HOMOG_GEMM_MIN_F there).
+HOMOG_GEMM_MIN_F = 320
+
+# The JAX package's switch between the two Gramian routes: where Ksd takes
+# more than this many bytes (J3^2 E^2 4; SMPL 2.07 MB, SMPL-X 27.9 MB) term1
+# is streamed by its own kernel (K8) and the rest of G is plain tensor ops
+# (lbs_kernels._gram_xblock there); below it one fused kernel (K3).
+TERM1_STREAM_MIN_BYTES = 2.75 * 2 ** 20
 
 
 def reset_launch_counts() -> None:
@@ -133,7 +156,7 @@ def _apply_blend(blend: torch.Tensor, homog: torch.Tensor) -> torch.Tensor:
 
 def lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad):
     """Plain twin of :func:`lbs_points`."""
-    homog = torch.einsum('cvf,fb->cvb', consts_pad[:3], feat_cols)
+    homog = posed_template_ref(feat_cols, consts_pad)
     blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
     return _apply_blend(blend, homog).contiguous()
 
@@ -167,14 +190,47 @@ def lbs_points(pj_cm, feat_cols, weights_pad, consts_pad):
 
 
 # ---------------------------------------------------------------------------
-# K2: residual moments of the shape solve (emit-homog, plain and scale forms)
+# K7: the posed template of the large-F shape solve
 # ---------------------------------------------------------------------------
 
 
-def _rhs_twin(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: bool):
-    """The three forms of K2 in plain PyTorch: (r, y, homog[, rt, yt, sc])."""
+def posed_template_ref(feat_cols, consts_pad):
+    """Plain twin of :func:`posed_template_lm`."""
+    return torch.einsum('cvf,fb->cvb', consts_pad[:3], feat_cols).contiguous()
+
+
+def posed_template_lm(feat_cols, consts_pad):
+    """The posed zero-beta template homog_c = consts_c @ feat (c = 0..2),
+    component-major (3, V_pad, B), for feat (F, B) and consts (>= 3, V_pad, F):
+    computed once per shape solve of a large-F model and read by
+    :func:`rhs_moments_cached` and :func:`recon_part_sums_cached_lm`."""
+    name = 'posed_template'
+    cuda = _on_cuda(name, feat_cols=feat_cols, consts_pad=consts_pad)
+    F, B = feat_cols.shape
+    Vp = consts_pad.shape[1]
+    _expect(name, 'feat_cols', feat_cols, (F, B))
+    _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    if consts_pad.shape[0] < 3:
+        raise ValueError(f'{name}: consts_pad needs at least 3 channels')
+    if not cuda:
+        return posed_template_ref(feat_cols, consts_pad)
+    out = torch.empty((3, Vp, B), dtype=torch.float32, device=feat_cols.device)
+    err = _build.library().posed_template_launch(
+        _ptr(feat_cols), _ptr(consts_pad), _ptr(out), F, B, Vp, _stream(out))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K2: residual moments of the shape solve (emit-homog, plain, scale and cached forms)
+# ---------------------------------------------------------------------------
+
+
+def _rhs_twin(tgt_vm, pj_cm, homog, weights_pad, sd_cm, scale: bool):
+    """The forms of K2 in plain PyTorch, from the posed template homog
+    (3, V_pad, B): (r, y[, rt, yt, sc])."""
     v_t = tgt_vm.shape[1]
-    homog = torch.einsum('cvf,fb->cvb', consts_pad[:3], feat_cols)
     blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
     pos = _apply_blend(blend, homog)
     t = torch.zeros_like(pos)
@@ -189,7 +245,7 @@ def _rhs_twin(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: b
         return torch.einsum('cve,cvb->eb', sd_cm, g).contiguous(), y.contiguous()
 
     r, y = moments(b)
-    out = (r, y, homog.contiguous())
+    out = (r, y)
     if scale:
         rt, yt = moments(t)
         sc = torch.stack([(t * t).sum(dim=(0, 1)), (t * pos_t).sum(dim=(0, 1)),
@@ -200,39 +256,59 @@ def _rhs_twin(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: b
 
 def rhs_moments_h_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
     """Plain twin of :func:`rhs_moments_h`."""
-    return _rhs_twin(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, False)
+    homog = posed_template_ref(feat_cols, consts_pad)
+    return _rhs_twin(tgt_vm, pj_cm, homog, weights_pad, sd_cm, False) + (homog,)
 
 
 def rhs_moments_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
                     scale: bool = False):
     """Plain twin of :func:`rhs_moments`."""
-    r, y, _, *rest = _rhs_twin(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale)
-    return (r, y, *rest)
+    return _rhs_twin(tgt_vm, pj_cm, posed_template_ref(feat_cols, consts_pad), weights_pad,
+                     sd_cm, scale)
 
 
-def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
+def rhs_moments_cached_ref(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: bool = False):
+    """Plain twin of :func:`rhs_moments_cached`."""
+    return _rhs_twin(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale)
+
+
+def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
               emit_homog: bool, scale: bool):
-    """Checks, then one K2 form: its kernel on CUDA tensors, its twin on CPU ones."""
-    cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
-                    weights_pad=weights_pad, consts_pad=consts_pad, sd_cm=sd_cm)
+    """Checks, then one K2 form: its kernel on CUDA tensors, its twin on CPU
+    ones. The cached form takes ``homog_vm`` in place of feat and consts."""
+    cached = homog_vm is not None
+    if cached:
+        cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, homog_vm=homog_vm,
+                        weights_pad=weights_pad, sd_cm=sd_cm)
+    else:
+        cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
+                        weights_pad=weights_pad, consts_pad=consts_pad, sd_cm=sd_cm)
     _, J, B = pj_cm.shape
-    F = feat_cols.shape[0]
     Vp = weights_pad.shape[0]
     v_t = tgt_vm.shape[1]
     E = sd_cm.shape[2]
     _expect(name, 'tgt_vm', tgt_vm, (3, v_t, B))
     _expect(name, 'pj_cm', pj_cm, (12, J, B))
-    _expect(name, 'feat_cols', feat_cols, (F, B))
     _expect(name, 'weights_pad', weights_pad, (Vp, J))
-    _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
     _expect(name, 'sd_cm', sd_cm, (3, Vp, E))
+    if cached:
+        F = 0
+        _expect(name, 'homog_vm', homog_vm, (3, Vp, B))
+    else:
+        F = feat_cols.shape[0]
+        _expect(name, 'feat_cols', feat_cols, (F, B))
+        _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+        if consts_pad.shape[0] < 3:
+            raise ValueError(f'{name}: consts_pad needs at least 3 channels')
     if v_t > Vp:
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
-    if consts_pad.shape[0] < 3:
-        raise ValueError(f'{name}: consts_pad needs at least 3 channels')
-    args = (tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm)
     if not cuda:
+        if cached:
+            return rhs_moments_cached_ref(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale)
+        args = (tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm)
         return rhs_moments_h_ref(*args) if emit_homog else rhs_moments_ref(*args, scale=scale)
+    if E > 32:
+        raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
     lib = _build.library()
     dev = tgt_vm.device
 
@@ -241,7 +317,7 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
 
     tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
     r, y = empty(E, B), empty(3, J, B)
-    homog = empty(3, Vp, B) if emit_homog else None
+    homog = empty(3, Vp, B) if emit_homog else homog_vm
     rt, yt, sc = (empty(E, B), empty(3, J, B), empty(3, B)) if scale else (None,) * 3
     n_rows = 6 * J + 2 * E + 3 if scale else 3 * J + E
     part = empty(n_splits, n_rows, B)
@@ -250,9 +326,10 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
         return None if t is None else _ptr(t)
 
     err = lib.rhs_moments_launch(
-        _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
+        _ptr(tgt_vm), _ptr(pj_cm), ptr(feat_cols), _ptr(weights_pad), ptr(consts_pad),
         _ptr(sd_cm), _ptr(r), _ptr(y), ptr(homog), ptr(rt), ptr(yt), ptr(sc), _ptr(part),
-        J, B, F, E, v_t, Vp, tiles_per_block, int(emit_homog), int(scale), _stream(r))
+        J, B, F, E, v_t, Vp, tiles_per_block, int(emit_homog), int(scale), int(cached),
+        _stream(r))
     _build.check(err, name)
     LAUNCHES[name] += 1
     if emit_homog:
@@ -267,7 +344,7 @@ def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
     past the target's V rows): r (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T b_v)_c,
     y (3, J, B) = sum_v w_vj b_v, and the posed template homog (3, V_pad, B)."""
     return _rhs_call('rhs_moments_h', tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
-                     emit_homog=True, scale=False)
+                     None, emit_homog=True, scale=False)
 
 
 def rhs_moments(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: bool = False):
@@ -277,7 +354,16 @@ def rhs_moments(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale:
     sum_v w_vj t_v and sc (3, B) = [sum |t|^2, sum t.pos, sum |pos|^2] over
     the target's rows: (r, y, rt, yt, sc)."""
     return _rhs_call('rhs_moments_scale' if scale else 'rhs_moments', tgt_vm, pj_cm, feat_cols,
-                     weights_pad, consts_pad, sd_cm, emit_homog=False, scale=scale)
+                     weights_pad, consts_pad, sd_cm, None, emit_homog=False, scale=scale)
+
+
+def rhs_moments_cached(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: bool = False):
+    """:func:`rhs_moments` from the cached posed template ``homog_vm``
+    (3, V_pad, B) of :func:`posed_template_lm` instead of feat and consts:
+    the same outputs, (r, y) or with ``scale=True`` (r, y, rt, yt, sc)."""
+    return _rhs_call('rhs_moments_cached_scale' if scale else 'rhs_moments_cached', tgt_vm,
+                     pj_cm, None, weights_pad, None, sd_cm, homog_vm, emit_homog=False,
+                     scale=scale)
 
 
 # ---------------------------------------------------------------------------
@@ -319,9 +405,13 @@ def gram_assembly(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
     P_cm (3, E*J, B), bJ_cm (3, J, B) the joints block (any (3, 1, B) dummies
     when ``has_joints`` is False); ksd (9J^2, E^2), lz (3J, E*J),
     sd1_2d (3J, E), q (J, J), w1 (J, 1) static moments.
-    Returns G (E^2, B), SA (3E, B), rb (E, B), Sb (3, B)."""
+    Returns G (E^2, B), SA (3E, B), rb (E, B), Sb (3, B).
+
+    Runs the fused kernel K3 (E <= 16), or where :func:`streams_term1` says
+    so (large J) the streamed term1 kernel K8 plus :func:`gram_mparts_ref`
+    in tensor ops."""
     name = 'gram_assembly'
-    cuda = _on_cuda(name, R_cm=R_cm, T_cm=T_cm, y_cm=y_cm, P_cm=P_cm, bJ_cm=bJ_cm, ksd=ksd,
+    cuda =_on_cuda(name, R_cm=R_cm, T_cm=T_cm, y_cm=y_cm, P_cm=P_cm, bJ_cm=bJ_cm, ksd=ksd,
                     lz=lz, sd1_2d=sd1_2d, q=q, w1=w1)
     _, J3, B = R_cm.shape
     J = J3 // 3
@@ -337,6 +427,10 @@ def gram_assembly(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
     _expect(name, 'sd1_2d', sd1_2d, (J3, E))
     _expect(name, 'q', q, (J, J))
     _expect(name, 'w1', w1, (J, 1))
+    if streams_term1(J3, E):
+        G2, SA, rb, Sb = gram_mparts_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, lz, sd1_2d, q, w1,
+                                         has_joints)
+        return (term1(R_cm, ksd) + G2).contiguous(), SA, rb, Sb
     if not cuda:
         return gram_assembly_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
                                  has_joints)
@@ -355,6 +449,69 @@ def gram_assembly(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
     _build.check(err, name)
     LAUNCHES[name] += 1
     return G, SA, rb, Sb
+
+
+def streams_term1(J3: int, E: int) -> bool:
+    """True where the Gramian takes the streamed route (K8 + the small parts
+    in tensor ops): the J3^2 E^2 4 bytes of Ksd exceed TERM1_STREAM_MIN_BYTES."""
+    return J3 * J3 * E * E * 4 > TERM1_STREAM_MIN_BYTES
+
+
+def gram_mparts_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, lz, sd1_2d, q, w1, has_joints: bool):
+    """Every piece of :func:`gram_assembly` except term1 (Ksd : X), in tensor
+    ops, as ``_gram_mparts_ref`` of the JAX package states them in XLA:
+    (G - term1, SA, rb, Sb). All are (B, ~E J) contractions, cheap at any J."""
+    _, J3, B = R_cm.shape
+    E = sd1_2d.shape[1]
+    T3 = T_cm.reshape(3, E, -1, B)
+    Z3 = torch.einsum('jx,ajb->axb', lz, R_cm).reshape(3, E, -1, B)
+    M1 = torch.einsum('aejb,afjb->efb', Z3, T3)
+    Q3 = torch.einsum('jk,aekb->aejb', q, T3)
+    M2 = torch.einsum('aejb,afjb->efb', Q3, T3)
+    G = (M1 + M1.transpose(0, 1) + M2).reshape(E * E, B)
+    SA = torch.einsum('je,ajb->aeb', sd1_2d, R_cm) + torch.einsum('j,aejb->aeb', w1[:, 0], T3)
+    rb = torch.einsum('aejb,ajb->eb', T3, y_cm)
+    Sb = y_cm.sum(dim=1)
+    if has_joints:
+        P3 = P_cm.reshape(3, E, -1, B)
+        G = G + torch.einsum('aejb,afjb->efb', P3, P3).reshape(E * E, B)
+        SA = SA + P3.sum(dim=2)
+        rb = rb + torch.einsum('aejb,ajb->eb', P3, bJ_cm)
+        Sb = Sb + bJ_cm.sum(dim=1)
+    return G, SA.reshape(3 * E, B).contiguous(), rb.contiguous(), Sb.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K8: streamed term1 of the large-J Gramian
+# ---------------------------------------------------------------------------
+
+
+def term1_ref(R_cm, ksd):
+    """Plain twin of :func:`term1`: X materialized, then one product."""
+    _, J3, B = R_cm.shape
+    X = torch.einsum('ajb,akb->jkb', R_cm, R_cm).reshape(J3 * J3, B)
+    return (ksd.T @ X).contiguous()
+
+
+def term1(R_cm, ksd):
+    """term1 of the Gramian, G1 (E^2, B) = Ksd^T X with X[(j,k)] =
+    sum_a R_a[j] R_a[k], for rotations R_cm (3, J3, B) (rows (joint, c)) and
+    Ksd (J3^2, E^2), without forming X. E <= 32."""
+    name = 'term1'
+    cuda = _on_cuda(name, R_cm=R_cm, ksd=ksd)
+    _, J3, B = R_cm.shape
+    EE = ksd.shape[1]
+    _expect(name, 'R_cm', R_cm, (3, J3, B))
+    _expect(name, 'ksd', ksd, (J3 * J3, EE))
+    if not cuda:
+        return term1_ref(R_cm, ksd)
+    if EE > 32 * 32:
+        raise ValueError(f'{name}: the kernel takes E <= 32, got E^2 = {EE}')
+    G = torch.empty((EE, B), dtype=torch.float32, device=R_cm.device)
+    err = _build.library().term1_launch(_ptr(R_cm), _ptr(ksd), _ptr(G), J3, EE, B, _stream(G))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return G
 
 
 # ---------------------------------------------------------------------------
@@ -431,8 +588,8 @@ def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: Par
     if not cuda:
         return recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts.pm,
                                           weights_pad)
-    if E > 16:
-        raise ValueError(f'{name}: the kernel takes E <= 16, got {E}')
+    if E > 32:
+        raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
     err = _build.library().recon_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(x_cols), _ptr(sd_cm), _ptr(homog_vm),
@@ -552,10 +709,13 @@ TWINS = {
     'lbs_points': lbs_points_ref,
     'rhs_moments_h': rhs_moments_h_ref,
     'rhs_moments': rhs_moments_ref,
+    'rhs_moments_cached': rhs_moments_cached_ref,
     'gram_assembly': gram_assembly_ref,
     'recon_part_sums_cached_lm': recon_part_sums_cached_ref,
     'part_sums_vm_lm': part_sums_ref,
     'recon_part_sums_lm': recon_part_sums_ref,
+    'posed_template_lm': posed_template_ref,
+    'term1': term1_ref,
 }
 
 

@@ -1,11 +1,11 @@
-"""Synthetic SMPL model files for license-free testing and benchmarking.
+"""Synthetic SMPL-family model files for license-free testing and benchmarking.
 
 The official model files are not redistributable, so the tests and
-``chip_smoke.py`` run on synthetic models with the exact file format, skeleton
-topology and tensor shapes of the real ones (configurable vertex count). This
-is the SMPL part of ``smplfitter_tpu.utils.synthetic``, copied so that the
-PyTorch package imports without JAX; the tests hold both writers to identical
-files.
+``chip_smoke.py`` run on synthetic models (SMPL, SMPL-X, SMPL+H, MANO) with
+the exact file format, skeleton topology and tensor shapes of the real ones
+(configurable vertex count). This is the model writer of
+``smplfitter_tpu.utils.synthetic``, copied so that the PyTorch package imports
+without JAX; the tests hold both writers to identical files.
 
 The geometry is a plausible stick-figure body: joints at anthropometric
 positions, vertices scattered along the bones, skinning weights dominated by
@@ -20,10 +20,27 @@ import pickle
 
 import numpy as np
 
-# Parent indices of the SMPL kinematic tree (public convention).
+# Parent indices of the SMPL-family kinematic trees (public convention; joint
+# name order as in modeldata.JOINT_NAMES_BY_MODEL).
 SMPL_PARENTS = [
     -1, 0, 0, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 9, 9, 12, 13, 14, 16, 17, 18, 19, 20, 21,
 ]
+
+
+def _hand_parents(wrist: int, start: int) -> list[int]:
+    """Parents of the 15 hand joints (5 fingers x 3 segments) rooted at wrist."""
+    parents = []
+    for finger in range(5):
+        parents += [wrist, start + finger * 3, start + finger * 3 + 1]
+    return parents
+
+
+SMPLH_PARENTS = SMPL_PARENTS[:22] + _hand_parents(20, 22) + _hand_parents(21, 37)
+SMPLX_PARENTS = (
+    SMPL_PARENTS[:22] + [15, 15, 15] + _hand_parents(20, 25) + _hand_parents(21, 40)
+)
+MANO_PARENTS = [-1] + _hand_parents(0, 1)
+MANO_NUM_VERTICES = 778
 
 _BODY_JOINT_POS = np.array(
     [
@@ -55,13 +72,49 @@ _BODY_JOINT_POS = np.array(
 )
 
 
+def _hand_joint_pos(wrist_pos: np.ndarray, side: float) -> np.ndarray:
+    """15 finger joints extending from the wrist along +-x."""
+    pos = []
+    for finger in range(5):
+        y_off = (finger - 2) * 0.015
+        for seg in range(3):
+            pos.append(
+                wrist_pos + np.array([side * (0.035 + 0.025 * seg), y_off, 0.01 * finger - 0.02])
+            )
+    return np.array(pos)
+
+
 def skeleton(model_name: str):
     """Return (parents, joint_positions) for a synthetic model variant."""
     if model_name == 'smpl':
         return list(SMPL_PARENTS), _BODY_JOINT_POS.copy()
-    raise NotImplementedError(
-        f'synthetic {model_name!r} models are not ported yet (ROADMAP Queue 1, item 6)'
-    )
+    if model_name in ('smplh', 'smplh16'):
+        pos = np.concatenate(
+            [
+                _BODY_JOINT_POS[:22],
+                _hand_joint_pos(_BODY_JOINT_POS[20], +1.0),
+                _hand_joint_pos(_BODY_JOINT_POS[21], -1.0),
+            ]
+        )
+        return list(SMPLH_PARENTS), pos
+    if model_name in ('smplx', 'smplxlh', 'smplxmoyo'):
+        head = _BODY_JOINT_POS[15]
+        face = np.array([head + [0.0, -0.04, 0.06], head + [0.03, 0.02, 0.07],
+                         head + [-0.03, 0.02, 0.07]])
+        pos = np.concatenate(
+            [
+                _BODY_JOINT_POS[:22],
+                face,
+                _hand_joint_pos(_BODY_JOINT_POS[20], +1.0),
+                _hand_joint_pos(_BODY_JOINT_POS[21], -1.0),
+            ]
+        )
+        return list(SMPLX_PARENTS), pos
+    if model_name == 'mano':
+        wrist = np.zeros(3)
+        pos = np.concatenate([wrist[None], _hand_joint_pos(wrist, +1.0)])
+        return list(MANO_PARENTS), pos
+    raise ValueError(f'Unknown model name: {model_name}')
 
 
 def make_raw_model(
@@ -175,17 +228,23 @@ def write_model_files(
 def ensure_cached_models(
     cache_dir: str | None = None,
     num_vertices_smpl: int = 6890,
+    num_vertices_smplx: int = 10475,
 ) -> str:
-    """Write (once) and return a cached synthetic body_models directory holding
-    an SMPL model at real tensor shapes (V=6890 by default)."""
+    """Write (once) and return a cached synthetic body_models directory at
+    real tensor shapes: SMPL (V=6890, 10 betas), SMPL-X (V=10475, 16 betas),
+    SMPL+H ``smplh16`` (the SMPL vertex count, 16 betas) by default, and MANO
+    (V=778, 10 betas)."""
     if cache_dir is None:
         cache_dir = os.path.join(
             os.path.expanduser('~'), '.cache', 'smplfitter_tpu_torch',
-            f'synthetic_v{num_vertices_smpl}',
+            f'synthetic_v{num_vertices_smpl}_{num_vertices_smplx}',
         )
     marker = osp.join(cache_dir, '.complete')
     if not osp.exists(marker):
         write_model_files(cache_dir, 'smpl', num_vertices_smpl)
+        write_model_files(cache_dir, 'smplx', num_vertices_smplx, num_betas=16)
+        write_model_files(cache_dir, 'smplh16', num_vertices_smpl, num_betas=16)
+        write_model_files(cache_dir, 'mano', MANO_NUM_VERTICES)
         with open(marker, 'w') as f:
             f.write('ok')
     return cache_dir

@@ -1,6 +1,7 @@
 """Card tests of the PyTorch port: each CUDA kernel against its plain twin on
-the operands of the fitting paths, the launch counts of a fit with and without
-target joints, and a fit on the card against the same fit on the CPU.
+the operands of the fitting paths (SMPL and SMPL-X), the launch counts of a
+fit with and without target joints and of an SMPL-X fit, and fits on the card
+against the same fits on the CPU.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
 no JAX, so on a machine without JAX run it without the suite's conftest:
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from port_on_cpu import port_model_from
 from smplfitter_tpu_torch import BodyFitter, BodyModel
 from smplfitter_tpu_torch.ops import lbs_kernels
 from smplfitter_tpu_torch.utils import synthetic
@@ -24,6 +26,7 @@ REL_TOL = 1e-5  # max |kernel - twin| / max |twin|: f32 sums in another order
 FIT_KW = dict(num_iter=3, beta_regularizer=1.0, final_adjust_rots=True,
               requested_keys=('pose_rotvecs', 'shape_betas', 'trans'))
 WRAPPERS = ('lbs_points', 'rhs_moments_h', 'gram_assembly', 'recon_part_sums_cached_lm')
+NO_LAUNCHES = {name: 0 for name in lbs_kernels.LAUNCHES}
 
 
 @pytest.fixture(scope='module')
@@ -142,8 +145,7 @@ def test_fit_launches_each_kernel_three_times(card_models):
     lbs_kernels.reset_launch_counts()
     fitter.fit(out['vertices'], out['joints'], **FIT_KW)
     assert lbs_kernels.LAUNCHES == dict(
-        lbs_points=0, rhs_moments_h=3, rhs_moments=0, rhs_moments_scale=0, gram_assembly=3,
-        recon_part_sums_cached=3, part_sums=0, recon_part_sums=0)
+        NO_LAUNCHES, rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=3)
 
 
 def test_fit_without_joints_launch_counts(card_models):
@@ -153,8 +155,7 @@ def test_fit_without_joints_launch_counts(card_models):
     fitter.fit(out['vertices'], num_iter=3, final_adjust_rots=True,
                requested_keys=('pose_rotvecs', 'vertices'))
     assert lbs_kernels.LAUNCHES == dict(
-        lbs_points=4, rhs_moments_h=0, rhs_moments=3, rhs_moments_scale=0, gram_assembly=3,
-        recon_part_sums_cached=0, part_sums=3, recon_part_sums=0)
+        NO_LAUNCHES, lbs_points=4, rhs_moments=3, gram_assembly=3, part_sums=3)
 
 
 def test_card_fit_matches_cpu_fit(card_models):
@@ -162,7 +163,124 @@ def test_card_fit_matches_cpu_fit(card_models):
     out = bm(*_params(16, 2))
     tv, tj = out['vertices'], out['joints']
     card = fitter.fit(tv, tj, **FIT_KW)
-    cpu = BodyFitter(BodyModel.from_model_data(bm.model_data)).fit(tv.cpu(), tj.cpu(), **FIT_KW)
+    cpu = BodyFitter(port_model_from(bm)).fit(tv.cpu(), tj.cpu(), **FIT_KW)
     assert (card['shape_betas'].cpu() - cpu['shape_betas']).abs().max().item() <= 1e-3
     for key in ('pose_rotvecs', 'trans'):
         assert torch.allclose(card[key].cpu(), cpu[key], atol=1e-3), key
+
+
+# ---------------------------------------------------------------------------
+# SMPL-X: the large-model kernels (K7, K2 cached, K8, K4 at E = 17)
+# ---------------------------------------------------------------------------
+
+X_WRAPPERS = ('posed_template_lm', 'rhs_moments_cached', 'term1', 'recon_part_sums_cached_lm')
+
+
+@pytest.fixture(scope='module')
+def smplx_models(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    d = str(tmp_path_factory.mktemp('body_models_x'))
+    synthetic.write_model_files(d, 'smplx', 1200, num_betas=16)
+    bm = BodyModel('smplx', 'neutral', model_root=d + '/smplx', device='cuda')
+    return bm, BodyFitter(bm), BodyFitter(bm, enable_kid=True)
+
+
+def _smplx_params(batch, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 0.1, (batch, 165)).astype(np.float32),
+            rng.normal(0, 1, (batch, 16)).astype(np.float32),
+            rng.normal(0, 0.5, (batch, 3)).astype(np.float32))
+
+
+def _capture_smplx(bm, fitter, kid_fitter, batch):
+    """The large-model wrappers' arguments from the SMPL-X headline fit, a fit
+    with the kid column and joints (E = 17) and a scale fit."""
+    calls = {name: [] for name in X_WRAPPERS}
+    originals = {name: getattr(lbs_kernels, name) for name in X_WRAPPERS}
+
+    def recorder(name):
+        def wrapped(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return originals[name](*args, **kwargs)
+        return wrapped
+
+    out = bm(*_smplx_params(batch, batch))
+    tv, tj = out['vertices'], out['joints']
+    try:
+        for name in X_WRAPPERS:
+            setattr(lbs_kernels, name, recorder(name))
+        fitter.fit(tv, tj, **FIT_KW)
+        kid_fitter.fit(tv, tj, num_iter=1)
+        fitter.fit(tv, tj, num_iter=1, scale_fit=True)
+    finally:
+        for name in X_WRAPPERS:
+            setattr(lbs_kernels, name, originals[name])
+    return calls
+
+
+@pytest.mark.parametrize('batch', [64, 37])
+@pytest.mark.parametrize('name', X_WRAPPERS + ('rhs_moments_cached_scale',))
+def test_large_model_kernel_matches_twin(smplx_models, name, batch):
+    wrapper = name.removesuffix('_scale')
+    calls = _capture_smplx(*smplx_models, batch)[wrapper]
+    if wrapper == 'rhs_moments_cached':
+        calls = [c for c in calls if c[1].get('scale', False) == name.endswith('_scale')]
+    if wrapper == 'recon_part_sums_cached_lm':
+        assert {c[0][2].shape[0] for c in calls} == {16, 17}
+    assert calls, f'{name} was not called on the SMPL-X fits'
+    _check_against_twin(wrapper, calls)
+
+
+def test_smplx_fit_launch_counts(smplx_models):
+    """Per solve K7, K2 cached and K8; K4 per rotation fit on the cache; no K3."""
+    bm, fitter, _ = smplx_models
+    out = bm(*_smplx_params(40, 5))
+    lbs_kernels.reset_launch_counts()
+    fitter.fit(out['vertices'], out['joints'], **FIT_KW)
+    assert lbs_kernels.LAUNCHES == dict(NO_LAUNCHES, posed_template=3, rhs_moments_cached=3,
+                                        term1=3, recon_part_sums_cached=3)
+
+
+def _max_dbetas(a, b):
+    return (a['shape_betas'].cpu() - b['shape_betas'].cpu()).abs().max().item()
+
+
+def _own_spread(fit, tv, tj, base, seeds=3):
+    """The largest change of the fit's betas over seeded changes of its
+    targets by a factor 1 + 1e-7 N(0, 1) (the same changes on either device)."""
+    spread = 0.0
+    for seed in range(seeds):
+        g = torch.Generator().manual_seed(seed)
+        tv_n, tj_n = (t.cpu() * (1 + 1e-7 * torch.randn(t.shape, generator=g)) for t in (tv, tj))
+        spread = max(spread, _max_dbetas(fit(tv_n.to(tv.device), tj_n.to(tv.device)), base))
+    return spread
+
+
+def test_smplx_card_fit_matches_cpu_fit(smplx_models):
+    """The one-solve known-pose fit under the bench gate's betas (1e-3); the
+    headline fit, whose nearly degenerate finger parts amplify f32 rounding
+    into the betas, under the gate's mean reconstruction error (0.01 mm) and
+    betas within the larger of 1e-3 and the fit's own spread under 1e-7
+    relative changes of its targets, on the CPU and on the card, times 4 (the
+    multiple of ``chip_smoke.SPREAD_MULT``, which says why)."""
+    bm, fitter, _ = smplx_models
+    pose, betas, trans = _smplx_params(16, 6)
+    out = bm(pose, betas, trans)
+    tv, tj = out['vertices'], out['joints']
+    cpu_fitter = BodyFitter(port_model_from(bm))
+    card = fitter.fit_with_known_pose(pose, tv)
+    cpu = cpu_fitter.fit_with_known_pose(pose, tv.cpu())
+    assert (card['shape_betas'].cpu() - cpu['shape_betas']).abs().max().item() <= 1e-3
+
+    def v2v_mm(res):
+        re = bm(glob_rotmats=res['orientations'].cuda(), shape_betas=res['shape_betas'].cuda(),
+                trans=res['trans'].cuda())
+        return (re['vertices'] - tv).norm(dim=-1).mean().item() * 1e3
+
+    card = fitter.fit(tv, tj, **FIT_KW)
+    cpu = cpu_fitter.fit(tv.cpu(), tj.cpu(), **FIT_KW)
+    assert abs(v2v_mm(card) - v2v_mm(cpu)) <= 0.01
+    spread = max(_own_spread(lambda a, b: cpu_fitter.fit(a, b, **FIT_KW), tv.cpu(), tj.cpu(), cpu),
+                 _own_spread(lambda a, b: fitter.fit(a, b, **FIT_KW), tv, tj, card))
+    assert _max_dbetas(card, cpu) <= max(1e-3, 4 * spread)

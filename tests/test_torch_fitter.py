@@ -18,6 +18,7 @@ import torch
 
 import smplfitter_tpu
 import smplfitter_tpu_torch
+from port_on_cpu import port_model_from
 
 PLAN_TENSORS = ('part_counts', 'center_matrix', 'mjp_joint_membership', 'mjp_joint_counts',
                 'mjp_center_matrix', 'J_template_ext', 'bone_ext', 'pm_t_pad', 'default_mesh_vm')
@@ -32,7 +33,7 @@ FIT_KW = dict(num_iter=3, beta_regularizer=1.0, final_adjust_rots=True,
 @pytest.fixture(scope='module')
 def models(body_models_dir):
     jax_bm = smplfitter_tpu.BodyModel('smpl', 'neutral')
-    bm = smplfitter_tpu_torch.BodyModel.from_model_data(jax_bm.model_data)
+    bm = port_model_from(jax_bm)
     return jax_bm, smplfitter_tpu.BodyFitter(jax_bm), bm, smplfitter_tpu_torch.BodyFitter(bm)
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import port_on_cpu
 from smplfitter_tpu.ops import lbs_kernels as jax_k
 from smplfitter_tpu_torch.ops import lbs_kernels as port_k
 
@@ -27,9 +28,9 @@ REL_TOL = 2e-5
 
 @pytest.fixture(scope='module')
 def port_model(body_models_dir):
-    from smplfitter_tpu_torch import BodyFitter, BodyModel
+    from smplfitter_tpu_torch import BodyFitter
 
-    bm = BodyModel('smpl', 'neutral')
+    bm = port_on_cpu.port_model('smpl', 'neutral')
     return bm, BodyFitter(bm)
 
 

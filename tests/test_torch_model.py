@@ -15,10 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from port_on_cpu import port_model, port_model_from
 from smplfitter_tpu import BodyModel as JaxBodyModel
 from smplfitter_tpu.utils import modeldata as jax_modeldata
 from smplfitter_tpu.utils import synthetic as jax_synthetic
-from smplfitter_tpu_torch import BodyModel
 from smplfitter_tpu_torch.utils import modeldata as port_modeldata
 from smplfitter_tpu_torch.utils import synthetic as port_synthetic
 
@@ -73,7 +73,7 @@ def test_ensure_cached_models_writes_once(tmp_path):
 @pytest.fixture(scope='module')
 def both_models(body_models_dir):
     jax_bm = JaxBodyModel('smpl', 'neutral')
-    return jax_bm, BodyModel.from_model_data(jax_bm.model_data)
+    return jax_bm, port_model_from(jax_bm)
 
 
 def _assert_close(ours, theirs):
@@ -110,7 +110,7 @@ def test_forward_defaults_match_jax(both_models):
 
 def test_model_loads_by_name_like_from_model_data(both_models):
     _, bm = both_models
-    loaded = BodyModel('smpl', 'neutral')
+    loaded = port_model('smpl', 'neutral')
     for name, buf in bm.named_buffers():
         assert torch.equal(buf, getattr(loaded, name)), name
     assert loaded.lbs_consts.shape == (4, 512, 207 + 1 + 10 + 1)

@@ -26,7 +26,8 @@ from scipy.spatial.transform import Rotation
 from smplfitter_tpu import BodyModel as JaxBodyModel
 from smplfitter_tpu.ops import lbs_kernels as jax_k
 from smplfitter_tpu.ops import rotation as jax_rot
-from smplfitter_tpu_torch import BodyFitter, BodyModel
+from port_on_cpu import port_model_from
+from smplfitter_tpu_torch import BodyFitter
 from smplfitter_tpu_torch.ops import lbs_kernels as port_k
 
 REL_TOL = 2e-5
@@ -37,7 +38,7 @@ WRAPPERS = ('rhs_moments', 'part_sums_vm_lm', 'recon_part_sums_lm')
 @pytest.fixture(scope='module')
 def models(body_models_dir):
     jax_bm = JaxBodyModel('smpl', 'neutral')
-    bm = BodyModel.from_model_data(jax_bm.model_data)
+    bm = port_model_from(jax_bm)
     return jax_bm, bm
 
 

@@ -19,6 +19,7 @@ import torch
 
 import smplfitter_tpu
 import smplfitter_tpu_torch
+from port_on_cpu import port_model_from
 
 BATCH = 8
 PARAM_ATOL = 1e-3  # betas, kid factor, scale
@@ -30,7 +31,7 @@ V2V_MM = 0.01
 @pytest.fixture(scope='module')
 def setup(body_models_dir):
     jax_bm = smplfitter_tpu.BodyModel('smpl', 'neutral')
-    bm = smplfitter_tpu_torch.BodyModel.from_model_data(jax_bm.model_data)
+    bm = port_model_from(jax_bm)
     fitters = {kid: (smplfitter_tpu.BodyFitter(jax_bm, enable_kid=kid),
                      smplfitter_tpu_torch.BodyFitter(bm, enable_kid=kid))
                for kid in (False, True)}
