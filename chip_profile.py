@@ -5,6 +5,9 @@ Usage, from the repository root on a machine with a CUDA device:
 
     python3 chip_profile.py [--model smplx] [--path headline] [--gram-routes]
 
+``--path`` takes the headline, ``chip_smoke.PATHS`` (a-e) or the fit-weight
+paths ``chip_smoke.WPATHS`` (f-l, with ``chip_smoke``'s seeded weights).
+
 It builds the kernels, loads the synthetic model at full width (as
 ``chip_smoke.py`` does), makes one target set of ``chip_smoke.BATCH`` (4096)
 with the forward pass and then:
@@ -39,7 +42,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--model', default='smplx', choices=sorted(chip_smoke.MODELS))
     parser.add_argument('--path', default='headline',
-                        choices=['headline', *chip_smoke.PATHS])
+                        choices=['headline', *chip_smoke.PATHS, *chip_smoke.WPATHS])
     parser.add_argument('--gram-routes', action='store_true')
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -65,10 +68,19 @@ def main() -> int:
     p += (torch.as_tensor(chip_smoke.kid_factors(rng, chip_smoke.BATCH), device=dev),)
     out = bm(*p[:3])
     tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
-    path = chip_smoke.HEADLINE if args.path == 'headline' else chip_smoke.PATHS[args.path]
+    if args.path in chip_smoke.WPATHS:
+        path = chip_smoke.WPATHS[args.path]
+        fs = chip_smoke.weighted_fitters(port, bm, args.model, rng, fitter)
+        p += tuple(chip_smoke.fit_weights(torch, rng, chip_smoke.BATCH, n, dev)
+                   for n in (bm.num_vertices, bm.num_joints))
 
-    def run():
-        return path['run'](fitter, fitter_kid, tv, tj, p)
+        def run():
+            return path['run'](fs, tv, tj, p)
+    else:
+        path = chip_smoke.HEADLINE if args.path == 'headline' else chip_smoke.PATHS[args.path]
+
+        def run():
+            return path['run'](fitter, fitter_kid, tv, tj, p)
 
     what = f'{args.model} {args.path} B={chip_smoke.BATCH}'
     run()

@@ -38,7 +38,19 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
 10. SMPL-X's headline fit and paths a-e, and the SMPL+H and MANO headline
     fits, at B=32 on the card and on the CPU under the gate of phase 6, where
     the betas' limit is the larger of 1e-3 and a multiple of the fit's own
-    spread (see SPREAD_MULT).
+    spread (see SPREAD_MULT);
+11. the fit-weight paths at B=4096, each with its launches per fit asserted
+    and its fits/s (weights seeded uniform(0.1, 2.0)): (f) per-call vertex
+    and joint weights in the headline configuration, on SMPL and SMPL-X; (g)
+    per-call vertex weights without joints; (h) static vertex and joint
+    weights with joints; (i) the hand replacer's call on SMPL+H (static
+    vertex weights, 0.1 on the vertices whose dominant joint is a hand
+    joint, no joints, num_iter=3, beta_regularizer=0, no final adjustment);
+    (j) ``fit_with_known_pose`` and (k) ``fit_with_known_shape`` with
+    per-call weights and joints; (l) static vertex weights without joints
+    and ``scale_fit``, on SMPL and SMPL-X;
+12. each of paths f-l at B=32 on the card and on the CPU under the gate of
+    phase 10 (its own-spread limit on SMPL-X and SMPL+H).
 
 It prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -63,7 +75,7 @@ PARITY_BATCH = 32
 N_TARGETS = 8
 FIT_KW = dict(num_iter=3, beta_regularizer=1.0, final_adjust_rots=True,
               requested_keys=('pose_rotvecs', 'shape_betas', 'trans'))
-KERNEL_REL_TOL = 1e-5  # max |kernel - twin| / max |twin|, per output
+KERNEL_REL_TOL = 1e-5  # max |kernel - twin| / max |twin| per output (see error_scales)
 PARITY_DBETA = 1e-3
 PARITY_V2V_MM = 0.01
 # The synthetic hands' nearly degenerate finger parts amplify f32 rounding into
@@ -87,6 +99,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # model -> (joints, betas, pose std of the synthetic targets)
 MODELS = {'smpl': (24, 10, 0.3), 'smplx': (55, 16, 0.1), 'smplh16': (52, 16, 0.1),
           'mano': (16, 10, 0.1)}
+# SMPL+H's hand joints: 15 per hand after the 22 body joints.
+SMPLH_FIRST_HAND_JOINT = 22
+HAND_WEIGHT = 0.1
 
 # LAUNCHES key -> (wrapper, CUDA source, TPU kernel replaced, output names). The
 # K2 forms share two wrappers: rhs_moments and rhs_moments_cached, whose
@@ -111,14 +126,22 @@ KERNELS = {
                         ('raw', 's_t', 's_a')),
     'posed_template': ('posed_template_lm', SRC + 'posed_template.cu', TPU + '2523', ('homog',)),
     'term1': ('term1', SRC + 'term1.cu', TPU + '1884', ('G1',)),
+    'wgram': ('wgram_moments', SRC + 'wgram.cu', TPU + '2190', ('G', 'SA', 'r', 'Sb', 'W')),
 }
+# The fit-weighted (ω) forms: the same wrapper, source and TPU kernel, their
+# own launch count (the unweighted key + '_w').
+WEIGHTED = ('rhs_moments_h', 'rhs_moments', 'rhs_moments_scale', 'rhs_moments_cached',
+            'rhs_moments_cached_scale', 'recon_part_sums_cached', 'part_sums', 'recon_part_sums')
+KERNELS.update({key + '_w': KERNELS[key] for key in WEIGHTED})
 WRAPPERS = sorted({spec[0] for spec in KERNELS.values()})
 # The keys each model's fitting paths reach (phase 3 asserts both sets). On
-# SMPL-X the Gramian's wrapper streams through K8 and launches no K3.
-SMPLX_ONLY = {'posed_template', 'rhs_moments_cached', 'rhs_moments_cached_scale', 'term1'}
-CAPTURED = {'smpl': set(KERNELS) - SMPLX_ONLY,
-            'smplx': SMPLX_ONLY | {'lbs_points', 'gram_assembly', 'recon_part_sums_cached',
-                                   'part_sums', 'recon_part_sums'}}
+# SMPL-X the Gramian's wrapper streams through K8 and launches no K3; the
+# per-call weighted solve runs K7 on every model.
+SMPLX_ONLY = {'rhs_moments_cached', 'rhs_moments_cached_scale', 'term1',
+              'rhs_moments_cached_w', 'rhs_moments_cached_scale_w'}
+SMPL_ONLY = {'rhs_moments_h', 'rhs_moments', 'rhs_moments_scale', 'rhs_moments_h_w',
+             'rhs_moments_w', 'rhs_moments_scale_w'}
+CAPTURED = {'smpl': set(KERNELS) - SMPLX_ONLY, 'smplx': set(KERNELS) - SMPL_ONLY}
 SCALE_FORM = {'rhs_moments': 'rhs_moments_scale',
               'rhs_moments_cached': 'rhs_moments_cached_scale'}
 
@@ -172,6 +195,82 @@ PATHS = {
 # A fit with the kid column and target joints: K2 cached, K8 and K4 at E = 17.
 KID_JOINTS = dict(run=lambda f, fk, tv, tj, p: fk.fit(tv, tj, num_iter=2, final_adjust_rots=True))
 
+# The fit-weight paths (phases 11-12): the call on (fitters, targets, inputs),
+# fitters a dict of the model's 'plain' fitter, 'static' (static vertex and
+# joint weights) and 'static_vw' (static vertex weights; on SMPL+H the hand
+# replacer's), inputs (pose, betas, trans, kid, vertex weights (B, V), joint
+# weights (B, J)); the models it runs on; and its kernel launches per call,
+# from the code. Per-call weights run K9 with K7 once per solve on every
+# model, K5ω on the first rotation fit's T-pose and K4ω (joints) or K1 + K5ω
+# (no joints) per later rotation fit; static weights keep the unweighted
+# route with the ω forms of K2, K4 and K5.
+HAND_KW = dict(num_iter=3, beta_regularizer=0.0, final_adjust_rots=False,
+               requested_keys=('pose_rotvecs', 'shape_betas'))
+WPATHS = {
+    'f_call_weights': dict(
+        run=lambda fs, tv, tj, p: fs['plain'].fit(tv, tj, vertex_weights=p[4],
+                                                  joint_weights=p[5], **FIT_KW),
+        models=('smpl', 'smplx'),
+        launches=dict(part_sums_w=1, posed_template=3, wgram=3, recon_part_sums_cached_w=3)),
+    'g_call_vw_no_joints': dict(
+        run=lambda fs, tv, tj, p: fs['plain'].fit(tv, vertex_weights=p[4], num_iter=3,
+                                                  final_adjust_rots=True),
+        models=('smpl',),
+        launches=dict(part_sums_w=4, posed_template=3, wgram=3, lbs_points=3)),
+    'h_static_weights': dict(
+        run=lambda fs, tv, tj, p: fs['static'].fit(tv, tj, **FIT_KW),
+        models=('smpl',),
+        launches=dict(rhs_moments_h_w=3, gram_assembly=3, recon_part_sums_cached_w=3)),
+    'i_hand_replacer': dict(
+        run=lambda fs, tv, tj, p: fs['static_vw'].fit(tv, **HAND_KW),
+        models=('smplh16',),
+        launches=dict(posed_template=3, rhs_moments_cached_w=3, term1=3, lbs_points=3,
+                      part_sums_w=2)),
+    'j_known_pose': dict(
+        run=lambda fs, tv, tj, p: fs['plain'].fit_with_known_pose(
+            p[0], tv, tj, vertex_weights=p[4], joint_weights=p[5]),
+        models=('smpl',),
+        launches=dict(posed_template=1, wgram=1)),
+    'k_known_shape': dict(
+        run=lambda fs, tv, tj, p: fs['plain'].fit_with_known_shape(
+            p[1], tv, tj, vertex_weights=p[4], joint_weights=p[5], num_iter=3,
+            final_adjust_rots=True),
+        models=('smpl',),
+        launches=dict(recon_part_sums_w=4, lbs_points=1)),
+    'l_static_vw_scale_fit': dict(
+        run=lambda fs, tv, tj, p: fs['static_vw'].fit(tv, num_iter=3, scale_fit=True,
+                                                      final_adjust_rots=True),
+        models=('smpl', 'smplx'),
+        launches=dict(rhs_moments_w=2, rhs_moments_scale_w=1, gram_assembly=3, lbs_points=3,
+                      part_sums_w=3),
+        launches_x=dict(posed_template=3, rhs_moments_cached_w=2, rhs_moments_cached_scale_w=1,
+                        term1=3, lbs_points=3, part_sums_w=3)),
+}
+
+
+def wpath_launches(path, model) -> dict:
+    return path.get('launches_x', path['launches']) if model != 'smpl' else path['launches']
+
+
+def fit_weights(torch, rng, batch, n, device):
+    """Seeded per-call fit weights (batch, n), uniform in [0.1, 2)."""
+    return torch.as_tensor(rng.uniform(0.1, 2.0, (batch, n)).astype(np.float32), device=device)
+
+
+def weighted_fitters(port, bm, model, rng, plain) -> dict:
+    """The fitters of the weighted paths for one model: plain, with static
+    vertex and joint weights (seeded), and with static vertex weights (on
+    SMPL+H the hand replacer's: 0.1 where the dominant joint is a hand's)."""
+    V, J = bm.num_vertices, bm.num_joints
+    vw = rng.uniform(0.1, 2.0, V).astype(np.float32)
+    jw = rng.uniform(0.1, 2.0, J).astype(np.float32)
+    if model == 'smplh16':
+        dominant = np.argmax(np.asarray(bm.model_data.weights), axis=1)
+        vw = np.where(dominant >= SMPLH_FIRST_HAND_JOINT, HAND_WEIGHT, 1.0).astype(np.float32)
+    return dict(plain=plain,
+                static=port.BodyFitter(bm, vertex_weights=vw, joint_weights=jw),
+                static_vw=port.BodyFitter(bm, vertex_weights=vw))
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -201,11 +300,14 @@ def capture_kernel_calls(lbs_kernels, run) -> dict:
     LAUNCHES key."""
     calls = {key: [] for key in KERNELS}
     originals = {name: getattr(lbs_kernels, name) for name in WRAPPERS}
-    key_of = {spec[0]: key for key, spec in KERNELS.items() if key not in SCALE_FORM.values()}
+    key_of = {spec[0]: key for key, spec in KERNELS.items()
+              if key not in SCALE_FORM.values() and not key.endswith('_w')}
 
     def recorder(name, fn):
         def wrapped(*args, **kwargs):
             key = SCALE_FORM[name] if kwargs.get('scale') else key_of[name]
+            if kwargs.get('omega') is not None:
+                key += '_w'
             calls[key].append((args, kwargs))
             return fn(*args, **kwargs)
         return wrapped
@@ -218,6 +320,34 @@ def capture_kernel_calls(lbs_kernels, run) -> dict:
         for name, fn in originals.items():
             setattr(lbs_kernels, name, fn)
     return calls
+
+
+def same_configuration(kw_a, kw_b) -> bool:
+    """Two calls' keyword arguments agree (tensors by shape)."""
+    if kw_a.keys() != kw_b.keys():
+        return False
+    return all(getattr(a, 'shape', a) == getattr(b, 'shape', b)
+               for a, b in ((kw_a[k], kw_b[k]) for k in kw_a))
+
+
+def error_scales(torch, lbs_kernels, key, args, want) -> list:
+    """The scale each output's error is held to: max|twin|, except for two
+    outputs of K9 that cancel by construction. SA sums a Jacobian centred by
+    its own weighted mean (zero up to rounding) and r a product with
+    residuals of either sign; they are held to the Cauchy-Schwarz bounds of
+    their terms, max sqrt(W G_ee) and max sqrt(G_ee sum ω |b|^2)."""
+    scales = [w.abs().max().item() for w in want]
+    if key == 'wgram':
+        G, _, r, _, W = want
+        E1 = r.shape[0]
+        diag = G.reshape(E1, E1, -1).diagonal(dim1=0, dim2=1)  # (B, E1)
+        tgt, pj, homog, _, w, _, _, om = args[:8]
+        V = om.shape[0]
+        pos = lbs_kernels._apply_blend(torch.einsum('vj,xjb->xvb', w[:V], pj), homog[:, :V])
+        bb = (((tgt - pos) ** 2).sum(dim=0) * om).sum(dim=0)  # (B,)
+        scales[1] = (W[0][:, None] * diag).sqrt().max().item()
+        scales[2] = (diag * bb[:, None]).sqrt().max().item()
+    return scales
 
 
 def kernel_call(lbs_kernels, key, args, kwargs):
@@ -239,11 +369,29 @@ def library_call(torch, key):
     return None
 
 
-def kernel_work(key, args) -> tuple[float, float]:
+def kernel_work(key, args, kwargs=None) -> tuple[float, float]:
     """(operations, bytes) that the kernel's function needs on these operands:
     each input read once and each output written once; the per-part kernels
-    count only the vertices that belong to a part."""
+    count only the vertices that belong to a part. A fit-weighted form adds
+    its weights' bytes and one multiply per weighted term."""
     n = lambda t: float(t.numel())  # noqa: E731
+    kwargs = kwargs or {}
+    if key.endswith('_w'):
+        flops, nbytes = kernel_work(key[:-2], args)
+        om = kwargs['omega']
+        pts = args[0].shape[1] * args[0].shape[2]  # target rows x columns
+        parts = next((a for a in args if hasattr(a, 'verts')), None)
+        rows = om.shape[0] if parts is None else float(parts.verts.numel())
+        return flops + 2.0 * 4 * pts, nbytes + 4 * rows * om.shape[1]
+    if key == 'wgram':
+        tgt, pj, homog, t4, w, sd, mu, om = args[:8]
+        _, J, B = pj.shape
+        V, E = om.shape[0], sd.shape[2]
+        E1 = E + (1 if kwargs.get('scale_mode') else 0)
+        pairs = E1 * (E1 + 1) // 2
+        per = 12 * J + 3 * E * J + 9 * E + 9 + 4 * pairs + 7 * E1 + 4
+        ins = 7 * V * B + n(pj) + n(t4) + V * J + 3 * V * E + n(mu)
+        return 2.0 * V * B * per, 4 * (ins + (E1 * E1 + 4 * E1 + 4) * B)
     if key == 'lbs_points':
         pj, feat, w, consts = args
         _, J, B = pj.shape
@@ -290,7 +438,7 @@ def kernel_work(key, args) -> tuple[float, float]:
     if key == 'part_sums':
         t, a = args[0], args[1]
         J, B = parts.pm.shape[0], t.shape[2]
-        return Vu * B * 24, 4 * (6 * Vu * B + 15 * J * B)
+        return Vu * B * 24, 4 * (3 * Vu * (B + a.shape[2]) + 15 * J * B)
     tgt, pj = args[0], args[1]
     _, J, B = pj.shape
     if key == 'recon_part_sums_cached':
@@ -304,8 +452,8 @@ def kernel_work(key, args) -> tuple[float, float]:
     return 2.0 * Vu * B * per, 4 * (3 * Vu * B + n(pj) + n(feat) + Vu * (J + 3 * F) + 15 * J * B)
 
 
-def bound(key, args) -> tuple[float, str]:
-    flops, nbytes = kernel_work(key, args)
+def bound(key, args, kwargs=None) -> tuple[float, str]:
+    flops, nbytes = kernel_work(key, args, kwargs)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
 
@@ -374,14 +522,14 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
                 got = kernel_call(lbs_kernels, key, args, kwargs)
                 want = twin_call(lbs_kernels, key, args, kwargs)
                 torch.cuda.synchronize()
-                for out_name, g, w in zip(outputs, got, want, strict=True):
+                scales = error_scales(torch, lbs_kernels, key, args, want)
+                for out_name, g, w, scale in zip(outputs, got, want, scales, strict=True):
                     abs_err = (g - w).abs().max().item()
-                    scale = w.abs().max().item()
                     rel = abs_err / scale if scale > 0 else abs_err
                     if not (rel <= KERNEL_REL_TOL and torch.isfinite(g).all().item()):
                         raise AssertionError(
                             f'{label} {key}.{out_name} at B={batch}: max|kernel - twin| = '
-                            f'{abs_err:.3e} = {rel:.3e} x max|twin| > {KERNEL_REL_TOL}')
+                            f'{abs_err:.3e} = {rel:.3e} x its scale > {KERNEL_REL_TOL}')
                     res['max_abs_err'] = max(res['max_abs_err'], abs_err)
                     res['rel_err'][out_name] = max(res['rel_err'].get(out_name, 0.0), rel)
                 del got, want
@@ -390,7 +538,8 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
             args0, kw = arg_sets[0]
             shapes0 = [getattr(a, 'shape', None) for a in args0]
             sets = [args for args, kwargs in arg_sets
-                    if kwargs == kw and [getattr(a, 'shape', None) for a in args] == shapes0]
+                    if same_configuration(kwargs, kw)
+                    and [getattr(a, 'shape', None) for a in args] == shapes0]
             errs = ' '.join(f'{k} {v:.2e}' for k, v in res['rel_err'].items())
             line = f'{label:6s} {key:24s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
             if batch == BATCH:
@@ -399,7 +548,7 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
                                           sets)
                 lib = library_call(torch, key)
                 res['library_ms'] = None if lib is None else time_ms(torch, lib, sets)
-                res['bound_ms'], res['bound_by'] = bound(key, args0)
+                res['bound_ms'], res['bound_by'] = bound(key, args0, kw)
                 lib_txt = '' if lib is None else f'  library {res["library_ms"]:.3f} ms'
                 line += (f'  kernel {res["ms"]:.3f} ms  twin {res["plain_ms"]:.3f} ms{lib_txt}'
                          f'  bound {res["bound_ms"]:.3f} ms ({res["bound_by"]})')
@@ -521,8 +670,17 @@ def main() -> int:
     log('== phase 3: kernels vs plain twins (synthetic SMPL V=6890; SMPL-X V=10475)')
     bm, fitter, fitter_kid = load('smpl', kid=True)
     bm_x, fitter_x, fitter_x_kid = load('smplx', kid=True)
+    w_rng = np.random.default_rng(SEED + 2)
+    wfitters = {'smpl': weighted_fitters(port, bm, 'smpl', w_rng, fitter),
+                'smplx': weighted_fitters(port, bm_x, 'smplx', w_rng, fitter_x)}
 
-    def make_run(bm, fitter, fitter_kid, extra=()):
+    def with_weights(bm, p):
+        """An input tuple with seeded per-call vertex and joint weights appended."""
+        batch = p[0].shape[0]
+        return p + (fit_weights(torch, w_rng, batch, bm.num_vertices, dev),
+                    fit_weights(torch, w_rng, batch, bm.num_joints, dev))
+
+    def make_run(bm, fitter, fitter_kid, fs, extra=()):
         def run_for(params, kid):
             def run():
                 for p in params:
@@ -532,14 +690,20 @@ def main() -> int:
                 p = tuple(torch.as_tensor(x, device=dev) for x in params[-1]) + (kid,)
                 for path in list(PATHS.values()) + list(extra):
                     path['run'](fitter, fitter_kid, tv, tj, p)
+                p = with_weights(bm, p)
+                for name, path in WPATHS.items():
+                    if name != 'i_hand_replacer':  # SMPL+H only; its kernels are covered
+                        path['run'](fs, tv, tj, p)
             return run
         return run_for
 
-    results = {'smpl': check_kernels(torch, lbs_kernels, 'smpl', make_run(bm, fitter, fitter_kid),
+    results = {'smpl': check_kernels(torch, lbs_kernels, 'smpl',
+                                     make_run(bm, fitter, fitter_kid, wfitters['smpl']),
                                      dev, rng, kid_rng, 'smpl')}
     results['smplx'] = check_kernels(
-        torch, lbs_kernels, 'smplx', make_run(bm_x, fitter_x, fitter_x_kid, [KID_JOINTS]), dev,
-        rng, kid_rng, 'smplx')
+        torch, lbs_kernels, 'smplx',
+        make_run(bm_x, fitter_x, fitter_x_kid, wfitters['smplx'], [KID_JOINTS]), dev, rng,
+        kid_rng, 'smplx')
     torch.cuda.empty_cache()
 
     # 4./5. The main path: forward to make targets, then fit them.
@@ -696,6 +860,65 @@ def main() -> int:
         tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
         parity(f'{name} headline', HEADLINE['run'], (fitter_o, None),
                cpu_fitters(name, bm_o), bm_o, tv, tj, params, failures, noise_floor=True)
+
+    # 11. The fit-weight paths at full width.
+    bm_h, fitter_h, _ = load('smplh16')
+    wfitters['smplh16'] = weighted_fitters(port, bm_h, 'smplh16', w_rng, fitter_h)
+    wmodels = {'smpl': bm, 'smplx': bm_x, 'smplh16': bm_h}
+    log(f'== phase 11: fit-weight paths f-l, B={BATCH}, {N_TARGETS} distinct target sets')
+    for model, bm_w in wmodels.items():
+        paths = {name: path for name, path in WPATHS.items() if model in path['models']}
+        inputs = [with_weights(bm_w, tuple(torch.as_tensor(x, device=dev)
+                                           for x in random_params(rng, BATCH, model))
+                               + (torch.as_tensor(kid_factors(kid_rng, BATCH), device=dev),))
+                  for _ in range(N_TARGETS)]
+        targets = []
+        for p in inputs:
+            out = bm_w(*p[:3])
+            targets.append((out['vertices'], out['joints']))
+        for name, path in paths.items():
+            def run(fs, _unused, tv, tj, p, path=path):
+                return path['run'](fs, tv, tj, p)
+            fits, launches, path_ms, host_s = time_path(
+                torch, lbs_kernels, run, wfitters[model], None, targets, inputs,
+                [None] * N_TARGETS)
+            per_fit = wpath_launches(path, model)
+            check_launches(launches, per_fit, n_fits, f'{model} {name}')
+            for key in total_launches:
+                total_launches[key] += launches[key]
+            for res in fits:
+                for key, value in res.items():
+                    if value.shape[0] != BATCH or not torch.isfinite(value).all():
+                        raise AssertionError(f'{model} {name} output {key}: shape '
+                                             f'{tuple(value.shape)} or not finite')
+            log(f'{model} {name}: {N_TARGETS * BATCH / (path_ms / 1e3):.1f} fits/s '
+                f'({path_ms / N_TARGETS:.2f} ms/fit on CUDA events, '
+                f'{host_s / N_TARGETS * 1e3:.2f} ms/fit host), launches per fit '
+                f'{json.dumps(per_fit)} on {smi}')
+            del fits
+        del inputs, targets
+        torch.cuda.empty_cache()
+
+    # 12. The fit-weight paths on the card against the CPU twins at B=32.
+    log(f'== phase 12: parity of paths f-l, B={PARITY_BATCH}, card vs CPU')
+    for model, bm_w in wmodels.items():
+        fs = wfitters[model]
+        cpu_bm = port.BodyModel.from_model_data(bm_w.model_data, model, device='cpu')
+        cpu_fs = dict(plain=port.BodyFitter(cpu_bm),
+                      static=port.BodyFitter(cpu_bm, vertex_weights=fs['static'].static_vw,
+                                             joint_weights=fs['static'].static_jw),
+                      static_vw=port.BodyFitter(cpu_bm,
+                                                vertex_weights=fs['static_vw'].static_vw))
+        params = tuple(torch.as_tensor(x, device=dev)
+                       for x in random_params(rng, PARITY_BATCH, model))
+        params = with_weights(bm_w, params + (torch.as_tensor(
+            kid_factors(kid_rng, PARITY_BATCH), device=dev),))
+        out = bm_w(*params[:3])
+        tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+        for name, path in WPATHS.items():
+            if model in path['models']:
+                parity(f'{model} {name}', path['run'], (fs,), (cpu_fs,), bm_w, tv, tj, params,
+                       failures, noise_floor=model != 'smpl')
     if failures:
         raise AssertionError(f'the card disagrees with the CPU on: {failures}')
 

@@ -47,6 +47,30 @@ __device__ inline void add_part_sums(float acc[NS], const float t[3][seg::VQ],
   }
 }
 
+// The fit-weighted form: a already carries the vertex's weight ω (so raw and
+// s_a are weighted through it), and s_t adds t ω.
+__device__ inline void add_part_sums_w(float acc[NS], const float t[3][seg::VQ],
+                                       const float a[3][seg::VQ], const float om[seg::VQ]) {
+#pragma unroll
+  for (int q = 0; q < seg::VQ; ++q) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) acc[c * 3 + d] = fmaf(t[c][q], a[d][q], acc[c * 3 + d]);
+      acc[9 + c] = fmaf(t[c][q], om[q], acc[9 + c]);
+      acc[12 + c] += a[c][q];
+    }
+  }
+}
+
+// A fit weight: ω[v * rs + b * bs] for a vertex below both the target's rows
+// Vt and the weights' rows, else 0. The static column (V_pad, 1) is read with
+// rs = 1, bs = 0; per-call weights (Vt, B) with rs = B, bs = 1.
+__device__ inline float fit_weight(const float* __restrict__ om, int v, int b, int Vt,
+                                   int om_rows, int rs, int bs) {
+  return (v < Vt && v < om_rows) ? om[(size_t)v * rs + (size_t)b * bs] : 0.f;
+}
+
 // Combines the warps' sums in warp order and writes the segment's partial
 // part[seg, r, b0 + lane]. red_s holds NW * NS * TB4 floats.
 __device__ inline void store_warp_partials(const float acc[NS], float* red_s,

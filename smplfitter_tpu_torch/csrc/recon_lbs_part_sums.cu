@@ -7,7 +7,10 @@
 // homogeneous template homog_c = consts_c . feat (an F-deep dot, F = 207 + 1
 // + E at SMPL), pos = blended [R|t] . homog, and with p(v) the vertex's body
 // part, raw[c*3+d, p] += t_c pos_d, s_t[c, p] += t_c, s_a[d, p] += pos_d. The
-// reconstructed mesh never reaches device memory, as on the TPU.
+// reconstructed mesh never reaches device memory, as on the TPU. The
+// fit-weighted form (W) multiplies pos by ω in every sum and t by ω in s_t,
+// ω the static column (V_pad, 1) or per-call weights (V, B)
+// (part_segments.cuh:fit_weight).
 //
 // What bounds it on an H100: f32 arithmetic. Per (vertex, column): 3F FMAs of
 // homog dot, 12J of position and 15 of sums; at SMPL b4096 (F = 219, J = 24)
@@ -29,12 +32,14 @@ using namespace lbs;
 
 namespace {
 
+template <bool W>
 __global__ void __launch_bounds__(lbs::NT, 1)
 recon_lbs_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
                           const float* __restrict__ feat, const float* __restrict__ w,
-                          const float* __restrict__ consts, const int* __restrict__ verts,
-                          const int* __restrict__ seg_offset, float* __restrict__ part, int J,
-                          int B, int F, int Vt, int Vp) {
+                          const float* __restrict__ consts, const float* __restrict__ om,
+                          const int* __restrict__ verts, const int* __restrict__ seg_offset,
+                          float* __restrict__ part, int J, int B, int F, int Vt, int Vp,
+                          int om_rows, int om_rs, int om_bs) {
   extern __shared__ float smem[];
   float* pj_s = smem;                       // [12][J][TB]
   float* w_s = pj_s + 12 * J * TB;          // [J][TVP]
@@ -71,15 +76,18 @@ recon_lbs_segments_kernel(const float* __restrict__ tgt, const float* __restrict
       for (int k = 0; k < 4; ++k) {
         const int b = b0 + tx + 16 * k;
         const bool ok = v >= 0 && v < Vt && b < B;
-        float tv[3];
+        float tv[3], pw[3];
 #pragma unroll
         for (int c = 0; c < 3; ++c) tv[c] = ok ? tgt[((size_t)c * Vt + v) * B + b] : 0.f;
+        const float wv = W ? (ok ? fit_weight(om, v, b, Vt, om_rows, om_rs, om_bs) : 0.f) : 1.f;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) pw[c] = W ? pos[c][i][k] * wv : pos[c][i][k];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
 #pragma unroll
-          for (int d = 0; d < 3; ++d) acc[c * 3 + d][k] = fmaf(tv[c], pos[d][i][k], acc[c * 3 + d][k]);
-          acc[9 + c][k] += tv[c];
-          acc[12 + c][k] += pos[c][i][k];
+          for (int d = 0; d < 3; ++d) acc[c * 3 + d][k] = fmaf(tv[c], pw[d], acc[c * 3 + d][k]);
+          acc[9 + c][k] = W ? fmaf(tv[c], wv, acc[9 + c][k]) : acc[9 + c][k] + tv[c];
+          acc[12 + c][k] += pw[c];
         }
       }
     }
@@ -109,24 +117,41 @@ SMPL_API size_t recon_lbs_part_sums_smem_bytes(int J) {
   return sizeof(float) * (body > red ? body : red);
 }
 
+template <bool W>
+cudaError_t launch_segments(const float* tgt, const float* pj, const float* feat, const float* w,
+                            const float* consts, const float* om, const int* verts,
+                            const int* seg_offset, float* part, int J, int B, int F, int Vt,
+                            int Vp, int n_seg, int om_rows, int om_rs, int om_bs,
+                            cudaStream_t stream) {
+  const size_t smem = recon_lbs_part_sums_smem_bytes(J);
+  cudaError_t err = cudaFuncSetAttribute(
+      recon_lbs_segments_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((B + TB - 1) / TB, n_seg);
+  recon_lbs_segments_kernel<W><<<grid, lbs::NT, smem, stream>>>(
+      tgt, pj, feat, w, consts, om, verts, seg_offset, part, J, B, F, Vt, Vp, om_rows, om_rs,
+      om_bs);
+  return cudaGetLastError();
+}
+
 // tgt (3, Vt, B), pj (12, J, B), feat (F, B), w (Vp, J), consts (>= 3, Vp, F);
-// verts, seg_offset (n_seg + 1), part_seg (J + 1) as in recon_part_sums_launch
-// -> raw (9, J, B), st (3, J, B), sa (3, J, B); part is scratch of
-// n_seg * 15 * B floats.
+// om null or fit weights, verts, seg_offset (n_seg + 1), part_seg (J + 1) as
+// in recon_part_sums_launch -> raw (9, J, B), st (3, J, B), sa (3, J, B);
+// part is scratch of n_seg * 15 * B floats.
 SMPL_API int recon_lbs_part_sums_launch(const float* tgt, const float* pj, const float* feat,
-                                        const float* w, const float* consts, const int* verts,
-                                        const int* seg_offset, const int* part_seg, float* raw,
-                                        float* st, float* sa, float* part, int J, int B, int F,
-                                        int Vt, int Vp, int n_seg, cudaStream_t stream) {
+                                        const float* w, const float* consts, const float* om,
+                                        const int* verts, const int* seg_offset,
+                                        const int* part_seg, float* raw, float* st, float* sa,
+                                        float* part, int J, int B, int F, int Vt, int Vp,
+                                        int n_seg, int om_rows, int om_rs, int om_bs,
+                                        cudaStream_t stream) {
   if (n_seg > 0) {
-    const size_t smem = recon_lbs_part_sums_smem_bytes(J);
-    cudaError_t err = cudaFuncSetAttribute(
-        recon_lbs_segments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((B + TB - 1) / TB, n_seg);
-    recon_lbs_segments_kernel<<<grid, lbs::NT, smem, stream>>>(
-        tgt, pj, feat, w, consts, verts, seg_offset, part, J, B, F, Vt, Vp);
-    err = cudaGetLastError();
+    const cudaError_t err =
+        om == nullptr
+            ? launch_segments<false>(tgt, pj, feat, w, consts, om, verts, seg_offset, part, J,
+                                     B, F, Vt, Vp, n_seg, om_rows, om_rs, om_bs, stream)
+            : launch_segments<true>(tgt, pj, feat, w, consts, om, verts, seg_offset, part, J,
+                                    B, F, Vt, Vp, n_seg, om_rows, om_rs, om_bs, stream);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)launch_part_sum(part, part_seg, raw, st, sa, J, B, stream);

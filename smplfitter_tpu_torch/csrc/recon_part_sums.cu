@@ -5,6 +5,9 @@
 // and batch column: hfull_c = homog_c + SD_v[c, :] . x, pos = blended [R|t] .
 // hfull, and with p(v) the vertex's body part (one-hot membership pm),
 //     raw[c*3+d, p, :] += t_c pos_d,  s_t[c, p, :] += t_c,  s_a[d, p, :] += pos_d.
+// The fit-weighted form (W) multiplies pos by ω in every sum and t by ω in
+// s_t, ω the static column (V_pad, 1) or per-call weights (V, B), read
+// through a row and a batch stride (part_segments.cuh:fit_weight).
 //
 // What bounds it on an H100: f32 arithmetic of the blend (12J FMAs per vertex
 // and column; ~19 GFLOP at SMPL b4096), fed from shared memory; the cached
@@ -26,13 +29,14 @@ using namespace seg;
 
 namespace {
 
-template <int MAXE>
+template <int MAXE, bool W>
 __global__ void __launch_bounds__(NT)
 recon_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
                       const float* __restrict__ x, const float* __restrict__ sd,
                       const float* __restrict__ homog, const float* __restrict__ w,
-                      const int* __restrict__ verts, const int* __restrict__ seg_offset,
-                      float* __restrict__ part, int J, int E, int B, int Vt, int Vp) {
+                      const float* __restrict__ om, const int* __restrict__ verts,
+                      const int* __restrict__ seg_offset, float* __restrict__ part, int J, int E,
+                      int B, int Vt, int Vp, int om_rows, int om_rs, int om_bs) {
   extern __shared__ float smem[];
   float* pj_s = smem;                 // [12][J][TB4]
   float* red_s = pj_s + 12 * J * TB4; // [NW][NS][TB4]
@@ -102,23 +106,51 @@ recon_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ p
           pos[a][q] = fmaf(wq[q], t, pos[a][q]);
         }
     }
-    add_part_sums(acc, tq, pos);
+    if (W) {
+      float wq[VQ];
+#pragma unroll
+      for (int q = 0; q < VQ; ++q) {
+        wq[q] = (live && okq[q]) ? fit_weight(om, vq[q], b, Vt, om_rows, om_rs, om_bs) : 0.f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) pos[a][q] *= wq[q];
+      }
+      add_part_sums_w(acc, tq, pos, wq);
+    } else {
+      add_part_sums(acc, tq, pos);
+    }
   }
   store_warp_partials(acc, red_s, part, seg_id, b0, B);
 }
 
-template <int MAXE>
+template <int MAXE, bool W>
 cudaError_t launch_segments(const float* tgt, const float* pj, const float* x, const float* sd,
-                            const float* homog, const float* w, const int* verts,
-                            const int* seg_offset, float* part, int J, int E, int B, int Vt,
-                            int Vp, int n_seg, size_t smem, cudaStream_t stream) {
+                            const float* homog, const float* w, const float* om,
+                            const int* verts, const int* seg_offset, float* part, int J, int E,
+                            int B, int Vt, int Vp, int n_seg, int om_rows, int om_rs, int om_bs,
+                            size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      recon_segments_kernel<MAXE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      recon_segments_kernel<MAXE, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((B + TB4 - 1) / TB4, n_seg);
-  recon_segments_kernel<MAXE><<<grid, NT, smem, stream>>>(tgt, pj, x, sd, homog, w, verts,
-                                                          seg_offset, part, J, E, B, Vt, Vp);
+  recon_segments_kernel<MAXE, W><<<grid, NT, smem, stream>>>(
+      tgt, pj, x, sd, homog, w, om, verts, seg_offset, part, J, E, B, Vt, Vp, om_rows, om_rs,
+      om_bs);
   return cudaGetLastError();
+}
+
+template <int MAXE>
+cudaError_t launch_form(const float* tgt, const float* pj, const float* x, const float* sd,
+                        const float* homog, const float* w, const float* om, const int* verts,
+                        const int* seg_offset, float* part, int J, int E, int B, int Vt, int Vp,
+                        int n_seg, int om_rows, int om_rs, int om_bs, size_t smem,
+                        cudaStream_t stream) {
+  return om == nullptr
+             ? launch_segments<MAXE, false>(tgt, pj, x, sd, homog, w, om, verts, seg_offset,
+                                            part, J, E, B, Vt, Vp, n_seg, om_rows, om_rs, om_bs,
+                                            smem, stream)
+             : launch_segments<MAXE, true>(tgt, pj, x, sd, homog, w, om, verts, seg_offset,
+                                           part, J, E, B, Vt, Vp, n_seg, om_rows, om_rs, om_bs,
+                                           smem, stream);
 }
 
 }  // namespace
@@ -128,24 +160,26 @@ SMPL_API size_t recon_part_sums_smem_bytes(int J) {
 }
 
 // tgt (3, Vt, B), pj (12, J, B), x (E, B), sd (3, Vp, E), homog (3, Vp, B),
-// w (Vp, J); verts: the used vertices grouped by part; seg_offset (n_seg + 1):
-// segment bounds in verts; part_seg (J + 1): each part's segment range ->
-// raw (9, J, B), st (3, J, B), sa (3, J, B); part is scratch of n_seg * 15 * B floats.
-// Requires E <= 32.
+// w (Vp, J); om null, or the fit weights read as om[v * om_rs + b * om_bs]
+// for v < min(Vt, om_rows); verts: the used vertices grouped by part;
+// seg_offset (n_seg + 1): segment bounds in verts; part_seg (J + 1): each
+// part's segment range -> raw (9, J, B), st (3, J, B), sa (3, J, B); part is
+// scratch of n_seg * 15 * B floats. Requires E <= 32.
 SMPL_API int recon_part_sums_launch(const float* tgt, const float* pj, const float* x,
                                     const float* sd, const float* homog, const float* w,
-                                    const int* verts, const int* seg_offset,
+                                    const float* om, const int* verts, const int* seg_offset,
                                     const int* part_seg, float* raw, float* st, float* sa,
                                     float* part, int J, int E, int B, int Vt, int Vp,
-                                    int n_seg, cudaStream_t stream) {
+                                    int n_seg, int om_rows, int om_rs, int om_bs,
+                                    cudaStream_t stream) {
   if (E > 32) return (int)cudaErrorInvalidValue;
   if (n_seg > 0) {
     const size_t smem = recon_part_sums_smem_bytes(J);
     const cudaError_t err =
-        E <= 16 ? launch_segments<16>(tgt, pj, x, sd, homog, w, verts, seg_offset, part, J, E,
-                                      B, Vt, Vp, n_seg, smem, stream)
-                : launch_segments<32>(tgt, pj, x, sd, homog, w, verts, seg_offset, part, J, E,
-                                      B, Vt, Vp, n_seg, smem, stream);
+        E <= 16 ? launch_form<16>(tgt, pj, x, sd, homog, w, om, verts, seg_offset, part, J, E,
+                                  B, Vt, Vp, n_seg, om_rows, om_rs, om_bs, smem, stream)
+                : launch_form<32>(tgt, pj, x, sd, homog, w, om, verts, seg_offset, part, J, E,
+                                  B, Vt, Vp, n_seg, om_rows, om_rs, om_bs, smem, stream);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)launch_part_sum(part, part_seg, raw, st, sa, J, B, stream);

@@ -20,7 +20,11 @@
 //   - cached (CACHED, plain or with SCALE): reads homog (3, V_pad, B), the
 //     posed template that K7 (posed_template.cu) computed once per solve,
 //     instead of running the F-deep homog dot. The large-F models (SMPL-X
-//     F = 487, SMPL+H F = 460) take it.
+//     F = 487, SMPL+H F = 460) take it;
+//   - fit-weighted (W, with any of the above): a fitter's static fit weights,
+//     the column ω (V_pad, 1), multiply b, and in the scale form t and the
+//     three second moments, so every sum is ω-weighted (the JAX package's
+//     static-ω form; per-call weights take K9, wgram.cu).
 //
 // What bounds it on an H100: f32 arithmetic. Per (vertex, batch column): 3F
 // FMAs of homog dot (none in the cached form), 12J of position, 12J of the
@@ -156,13 +160,14 @@ __device__ inline void reduce_sd_rows(float* part, int row0, const float g[3][4]
   }
 }
 
-template <bool EMIT, bool SCALE, bool CACHED>
+template <bool EMIT, bool SCALE, bool CACHED, bool W>
 __global__ void __launch_bounds__(NT, 1)
 rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
                    const float* __restrict__ feat, const float* __restrict__ w,
                    const float* __restrict__ consts, const float* __restrict__ sd,
-                   float* __restrict__ homog, float* __restrict__ part, int J, int B,
-                   int F, int E, int Vt, int Vp, int tiles_per_block) {
+                   const float* __restrict__ om, float* __restrict__ homog,
+                   float* __restrict__ part, int J, int B, int F, int E, int Vt, int Vp,
+                   int tiles_per_block) {
   extern __shared__ float smem[];
   const int R = rhs_rows(J, E, SCALE);
   float* pj_s = smem;                   // [12][J][TB]
@@ -233,6 +238,7 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int v = v0 + ty + 16 * i;
+      const float wv = W ? (v < Vt ? om[v] : 0.f) : 1.f;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int b = b0 + tx + 16 * k;
@@ -242,12 +248,13 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
           const float tval = ok ? tgt[((size_t)a * Vt + v) * B + b] : 0.f;
           const float pval = ok ? res[a][i][k] : 0.f;
           if (SCALE) {
-            tv[a][i][k] = tval;
-            sc[0][k] = fmaf(tval, tval, sc[0][k]);
-            sc[1][k] = fmaf(tval, pval, sc[1][k]);
-            sc[2][k] = fmaf(pval, pval, sc[2][k]);
+            const float tw = W ? tval * wv : tval;
+            tv[a][i][k] = tw;
+            sc[0][k] = fmaf(tw, tval, sc[0][k]);
+            sc[1][k] = fmaf(tw, pval, sc[1][k]);
+            sc[2][k] = fmaf(W ? pval * wv : pval, pval, sc[2][k]);
           }
-          res[a][i][k] = tval - pval;
+          res[a][i][k] = W ? (tval - pval) * wv : tval - pval;
         }
       }
     }
@@ -299,20 +306,35 @@ __global__ void rhs_split_sum_kernel(const float* __restrict__ part, float* __re
   }
 }
 
-template <bool EMIT, bool SCALE, bool CACHED>
-cudaError_t launch_form(const float* tgt, const float* pj, const float* feat, const float* w,
-                        const float* consts, const float* sd, float* homog, float* part,
-                        int J, int B, int F, int E, int Vt, int Vp, int tiles_per_block,
-                        size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(rhs_moments_kernel<EMIT, SCALE, CACHED>,
+template <bool EMIT, bool SCALE, bool CACHED, bool W>
+cudaError_t launch_variant(const float* tgt, const float* pj, const float* feat, const float* w,
+                           const float* consts, const float* sd, const float* om, float* homog,
+                           float* part, int J, int B, int F, int E, int Vt, int Vp,
+                           int tiles_per_block, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(rhs_moments_kernel<EMIT, SCALE, CACHED, W>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_vtiles = (Vp + TV - 1) / TV;
   const int n_splits = (n_vtiles + tiles_per_block - 1) / tiles_per_block;
   dim3 grid((B + TB - 1) / TB, n_splits);
-  rhs_moments_kernel<EMIT, SCALE, CACHED><<<grid, NT, smem, stream>>>(
-      tgt, pj, feat, w, consts, sd, homog, part, J, B, F, E, Vt, Vp, tiles_per_block);
+  rhs_moments_kernel<EMIT, SCALE, CACHED, W><<<grid, NT, smem, stream>>>(
+      tgt, pj, feat, w, consts, sd, om, homog, part, J, B, F, E, Vt, Vp, tiles_per_block);
   return cudaGetLastError();
+}
+
+// One form, unweighted (om null) or fit-weighted.
+template <bool EMIT, bool SCALE, bool CACHED>
+cudaError_t launch_form(const float* tgt, const float* pj, const float* feat, const float* w,
+                        const float* consts, const float* sd, const float* om, float* homog,
+                        float* part, int J, int B, int F, int E, int Vt, int Vp,
+                        int tiles_per_block, size_t smem, cudaStream_t stream) {
+  if (om == nullptr)
+    return launch_variant<EMIT, SCALE, CACHED, false>(tgt, pj, feat, w, consts, sd, om, homog,
+                                                      part, J, B, F, E, Vt, Vp,
+                                                      tiles_per_block, smem, stream);
+  return launch_variant<EMIT, SCALE, CACHED, true>(tgt, pj, feat, w, consts, sd, om, homog,
+                                                   part, J, B, F, E, Vt, Vp, tiles_per_block,
+                                                   smem, stream);
 }
 
 }  // namespace
@@ -323,7 +345,8 @@ SMPL_API size_t rhs_moments_smem_bytes(int J, int E) {
 }
 
 // tgt (3, Vt, B), pj (12, J, B), feat (F, B), w (Vp, J), consts (>= 3, Vp, F),
-// sd (3, Vp, E) -> r (E, B), y (3, J, B); homog (3, Vp, B) is written when
+// sd (3, Vp, E), om null or the static fit weights (Vp, 1) -> r (E, B),
+// y (3, J, B); homog (3, Vp, B) is written when
 // emit_homog and read instead of feat and consts (which may be null) when
 // cached; rt (E, B), yt (3, J, B), sc (3, B) when scale. emit_homog excludes
 // scale and cached; unused outputs may be null. part is scratch of
@@ -331,28 +354,29 @@ SMPL_API size_t rhs_moments_smem_bytes(int J, int E) {
 // n_splits = ceil(ceil(Vp / 64) / tiles_per_block). Requires E <= 32.
 SMPL_API int rhs_moments_launch(const float* tgt, const float* pj, const float* feat,
                                 const float* w, const float* consts, const float* sd,
-                                float* r_out, float* y, float* homog, float* rt, float* yt,
-                                float* sc, float* part, int J, int B, int F, int E, int Vt,
-                                int Vp, int tiles_per_block, int emit_homog, int scale,
-                                int cached, cudaStream_t stream) {
+                                const float* om, float* r_out, float* y, float* homog,
+                                float* rt, float* yt, float* sc, float* part, int J, int B,
+                                int F, int E, int Vt, int Vp, int tiles_per_block,
+                                int emit_homog, int scale, int cached, cudaStream_t stream) {
   if ((emit_homog && (scale || cached)) || E > MAXE) return (int)cudaErrorInvalidValue;
   const size_t smem = rhs_moments_smem_bytes(J, E);
+  float* h = (emit_homog || cached) ? homog : nullptr;
   cudaError_t err;
   if (emit_homog)
-    err = launch_form<true, false, false>(tgt, pj, feat, w, consts, sd, homog, part, J, B, F,
-                                          E, Vt, Vp, tiles_per_block, smem, stream);
+    err = launch_form<true, false, false>(tgt, pj, feat, w, consts, sd, om, h, part, J, B, F, E,
+                                          Vt, Vp, tiles_per_block, smem, stream);
   else if (cached && scale)
-    err = launch_form<false, true, true>(tgt, pj, feat, w, consts, sd, homog, part, J, B, F,
-                                         E, Vt, Vp, tiles_per_block, smem, stream);
+    err = launch_form<false, true, true>(tgt, pj, feat, w, consts, sd, om, h, part, J, B, F, E,
+                                         Vt, Vp, tiles_per_block, smem, stream);
   else if (cached)
-    err = launch_form<false, false, true>(tgt, pj, feat, w, consts, sd, homog, part, J, B, F,
-                                          E, Vt, Vp, tiles_per_block, smem, stream);
+    err = launch_form<false, false, true>(tgt, pj, feat, w, consts, sd, om, h, part, J, B, F, E,
+                                          Vt, Vp, tiles_per_block, smem, stream);
   else if (scale)
-    err = launch_form<false, true, false>(tgt, pj, feat, w, consts, sd, nullptr, part, J, B, F,
-                                          E, Vt, Vp, tiles_per_block, smem, stream);
+    err = launch_form<false, true, false>(tgt, pj, feat, w, consts, sd, om, h, part, J, B, F, E,
+                                          Vt, Vp, tiles_per_block, smem, stream);
   else
-    err = launch_form<false, false, false>(tgt, pj, feat, w, consts, sd, nullptr, part, J, B,
-                                           F, E, Vt, Vp, tiles_per_block, smem, stream);
+    err = launch_form<false, false, false>(tgt, pj, feat, w, consts, sd, om, h, part, J, B, F,
+                                           E, Vt, Vp, tiles_per_block, smem, stream);
   if (err != cudaSuccess) return (int)err;
   const int n_vtiles = (Vp + TV - 1) / TV;
   const int n_splits = (n_vtiles + tiles_per_block - 1) / tiles_per_block;

@@ -9,12 +9,18 @@ arrays and 3-vectors as ``(3, J, B)``, the layouts the kernels use.
 
 Ported here, for SMPL, SMPL-X, SMPL+H and MANO: :meth:`BodyFitter.fit` with
 or without target joints, any number of iterations, optional final rotation
-adjustment, warm starts, the kid factor, ``scale_target`` / ``scale_fit`` and
-the ``'vertices'`` / ``'joints'`` outputs; :meth:`~BodyFitter.fit_with_known_pose`,
-:meth:`~BodyFitter.fit_with_known_shape` and
-:meth:`~BodyFitter.fit_scale_and_translation`. Fit weights (static or per
-call) and ``share_beta`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+adjustment, warm starts, the kid factor, ``scale_target`` / ``scale_fit``,
+the ``'vertices'`` / ``'joints'`` outputs and fit weights, static
+(``BodyFitter(vertex_weights=, joint_weights=)``) or per call;
+:meth:`~BodyFitter.fit_with_known_pose`, :meth:`~BodyFitter.fit_with_known_shape`
+and :meth:`~BodyFitter.fit_scale_and_translation`, weighted or not.
+``share_beta`` raises ``NotImplementedError`` naming its ROADMAP item.
+
+Fit weights follow the JAX package: the rotation fits are weighted whenever
+a weight exists (ω in the part sums, joint weights in the joint Kabsch and
+the final adjustment's joint term); the shape solve is weighted only under
+the both-or-neither rule (with target joints both kinds, without them
+vertex weights alone). Static and per-call weights do not mix.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from torch import nn
 from ..ops import lbs_kernels
 from ..ops import rotation as rot_ops
 from .bodymodel import BodyModel, fk_rotations, index_tensor, tree_levels
-from .shape_gram import GramData, build_gram_data, fit_shape_gram_lm, lbs_recon_spec_lm
+from .shape_gram import (SHARED_FIELDS, GramData, build_gram_data, fit_shape_gram_lm,
+                         fit_shape_wgram_lm, lbs_recon_spec_lm)
 
 # ---------------------------------------------------------------------------
 # Static fit plan
@@ -66,6 +73,9 @@ class FitterPlan:
     # level; each entry groups its adjustable parts into buckets of equal
     # joint count, so every bucket refines as one batched step.
     adj_level_buckets: tuple
+    # Static fit weights ω (None: unweighted): they weight every part sum.
+    omega_pad: Optional[torch.Tensor] = None  # (V_pad, 1), zero rows in the padding
+    part_counts_w: Optional[torch.Tensor] = None  # (1, J, 1) sum of ω per part
 
     @property
     def parts(self) -> lbs_kernels.PartIndex:
@@ -74,10 +84,11 @@ class FitterPlan:
 
 
 def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int] = None,
-               device='cpu') -> FitterPlan:
+               device='cpu', vertex_weights: Optional[np.ndarray] = None) -> FitterPlan:
     """Host-side (numpy) construction of the static fit plan, in canonical
     vertex order; ``enable_kid`` appends the kid column to the extended joint
-    template."""
+    template; static ``vertex_weights`` (V,) add ``omega_pad`` and the
+    weighted part counts."""
     data = bm.model_data
     weights = np.asarray(data.weights)
     parents = bm.kintree_parents
@@ -180,7 +191,11 @@ def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int]
         return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device)
 
     parts = lbs_kernels.PartIndex.from_membership(pm_t_pad, device)
+    omega = None if vertex_weights is None else np.asarray(vertex_weights, np.float64).reshape(V)
     return FitterPlan(
+        omega_pad=None if omega is None else f32(np.pad(omega.reshape(V, 1),
+                                                        ((0, v_pad - V), (0, 0)))),
+        part_counts_w=None if omega is None else f32((pm_t_pad[:, :V] @ omega).reshape(1, J, 1)),
         part_counts=f32(pm_t_pad.sum(axis=1).reshape(1, J, 1)),
         center_matrix=f32(center_matrix),
         mjp_joint_membership=f32(mjp_joint_membership),
@@ -236,22 +251,35 @@ def _regress_joints_lm(bm, vertices_vm):
 
 
 def fit_scale_and_translation(target_vertices, reference_vertices, target_joints=None,
-                              reference_joints=None, scale: bool = False):
-    """Procrustes scale and translation (no rotation) that align the reference
-    points (B, V, 3) [+ joints (B, J, 3)] onto the targets: (scale or None,
-    trans (B, 3)). Joints count only when both kinds are given."""
+                              reference_joints=None, vertex_weights=None, joint_weights=None,
+                              scale: bool = False):
+    """Weighted Procrustes scale and translation (no rotation) that align the
+    reference points (B, V, 3) [+ joints (B, J, 3)] onto the targets: (scale
+    or None, trans (B, 3)). Joints count only when both kinds of points are
+    given; with them, the weights (B, V) and (B, J) count only when both are
+    given, without them the vertex weights alone."""
     if target_joints is None or reference_joints is None:
         target_both, reference_both = target_vertices, reference_vertices
+        weights_both = vertex_weights
     else:
         target_both = torch.cat([target_vertices, target_joints], dim=1)
         reference_both = torch.cat([reference_vertices, reference_joints], dim=1)
-    mean_t = target_both.mean(dim=1)
-    mean_r = reference_both.mean(dim=1)
+        weights_both = (None if vertex_weights is None or joint_weights is None
+                        else torch.cat([vertex_weights, joint_weights], dim=1))
+    if weights_both is None:
+        mean_t = target_both.mean(dim=1)
+        mean_r = reference_both.mean(dim=1)
+    else:
+        weights_both = (weights_both / weights_both.sum(dim=1, keepdim=True))[..., None]
+        mean_t = (target_both * weights_both).sum(dim=1)
+        mean_r = (reference_both * weights_both).sum(dim=1)
     if not scale:
         return None, mean_t - mean_r
-    ssq_t = ((target_both - mean_t[:, None]) ** 2).sum(dim=(1, 2))
-    ssq_r = ((reference_both - mean_r[:, None]) ** 2).sum(dim=(1, 2))
-    scale_factor = torch.sqrt(ssq_t / ssq_r)
+    sq_t = (target_both - mean_t[:, None]) ** 2
+    sq_r = (reference_both - mean_r[:, None]) ** 2
+    if weights_both is not None:
+        sq_t, sq_r = sq_t * weights_both, sq_r * weights_both
+    scale_factor = torch.sqrt(sq_t.sum(dim=(1, 2)) / sq_r.sum(dim=(1, 2)))
     return scale_factor, mean_t - scale_factor[:, None] * mean_r
 
 
@@ -282,10 +310,13 @@ def _centered_cov_lm(raw9, s_t, s_a, s_w, c_t, c_a):
 def _part_sums_static_ref_lm(plan: FitterPlan, target_vm, reference_vm):
     """Per-part sums against a batch-constant reference (3, V_pad, 1) as ONE
     GEMM in full f32: raw[(c,d), j, b] = sum_v (pm_jv ref_dv) tgt_cvb and
-    s_t[c, j, b] = sum_v pm_jv tgt_cvb share a (4J, V) x (3, V, B) product."""
+    s_t[c, j, b] = sum_v pm_jv tgt_cvb share a (4J, V) x (3, V, B) product.
+    A static ω column folds into the membership rows."""
     J = plan.pm_t_pad.shape[0]
     v_t = target_vm.shape[1]
     pm = plan.pm_t_pad[:, :v_t]
+    if plan.omega_pad is not None:
+        pm = pm * plan.omega_pad[:v_t].T
     ref = reference_vm[:, :v_t, 0]  # (3, V)
     lhs = torch.cat([(pm[None] * ref[:, None]).reshape(3 * J, v_t), pm], dim=0)
     out = torch.matmul(lhs, target_vm)  # (3, 4J, B)
@@ -295,38 +326,48 @@ def _part_sums_static_ref_lm(plan: FitterPlan, target_vm, reference_vm):
     return raw, s_t, s_a
 
 
-def part_sums_lm(plan: FitterPlan, target_vm, reference_vm=None, reference_spec=None):
-    """Per-part sums raw (9, J, B), s_t (3, J, B), s_a (3, J, B|1), s_w (J, 1)
+def part_sums_lm(plan: FitterPlan, target_vm, reference_vm=None, reference_spec=None,
+                 omega=None):
+    """Per-part sums raw (9, J, B), s_t (3, J, B), s_a (3, J, B|1), s_w (J, 1|B)
     of the targets against one of: the operands of a fitted mesh
     (``reference_spec``: K4 from the posed-template cache when the shape solve
     made one, else K6), a batch-constant mesh (``reference_vm`` (3, V_pad, 1):
-    one GEMM) or a per-instance mesh (``reference_vm`` (3, V_pad, B): K5)."""
+    one GEMM, or K5 under per-call weights) or a per-instance mesh
+    (``reference_vm`` (3, V_pad, B): K5). A statically weighted plan weights
+    every sum by its ω column; per-call weights ``omega`` (V, B) take its
+    place and make s_w vary over the batch."""
+    om = plan.omega_pad if omega is None else omega
+    w = {} if om is None else dict(omega=om)
     if reference_spec is not None:
         if reference_spec['homog_vm'] is not None:
             raw, s_t, s_a = lbs_kernels.recon_part_sums_cached_lm(
                 target_vm, reference_spec['pj_cm'], reference_spec['x_cols'],
                 reference_spec['sd_cm'], reference_spec['homog_vm'], plan.parts,
-                reference_spec['weights_pad'])
+                reference_spec['weights_pad'], **w)
         else:
             raw, s_t, s_a = lbs_kernels.recon_part_sums_lm(
                 target_vm, reference_spec['pj_cm'], reference_spec['feat_cols'],
-                reference_spec['weights_pad'], reference_spec['consts_pad'], plan.parts)
-    elif reference_vm.shape[2] == 1:
+                reference_spec['weights_pad'], reference_spec['consts_pad'], plan.parts, **w)
+    elif reference_vm.shape[2] == 1 and omega is None:
         raw, s_t, s_a = _part_sums_static_ref_lm(plan, target_vm, reference_vm)
     else:
-        raw, s_t, s_a = lbs_kernels.part_sums_vm_lm(target_vm, reference_vm, plan.parts)
-    return raw, s_t, s_a, plan.part_counts[0]
+        raw, s_t, s_a = lbs_kernels.part_sums_vm_lm(target_vm, reference_vm, plan.parts, **w)
+    if omega is not None:
+        return raw, s_t, s_a, torch.matmul(plan.pm_t_pad[:, :omega.shape[0]], omega)
+    counts = plan.part_counts if plan.omega_pad is None else plan.part_counts_w
+    return raw, s_t, s_a, counts[0]
 
 
 def fit_global_rotations_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, reference_vm, rj_lm,
-                            reference_spec=None):
+                            reference_spec=None, jw_lm=None, omega=None):
     """Per-part orientation fit; tj_lm/rj_lm (3, J, B|1), or None to regress
-    both from the meshes."""
+    both from the meshes; joint weights ``jw_lm`` (J, B) and per-call vertex
+    weights ``omega`` (V, B), or None."""
     if tj_lm is None or rj_lm is None:
         tj_lm = _regress_joints_lm(bm, tgt_vm)
         rj_lm = _regress_joints_lm(bm, reference_vm)
-    raw, s_t, s_a, s_w = part_sums_lm(plan, tgt_vm, reference_vm, reference_spec)
-    return _fit_rotations_core_lm(plan, raw, s_t, s_a, s_w, tj_lm, rj_lm)
+    raw, s_t, s_a, s_w = part_sums_lm(plan, tgt_vm, reference_vm, reference_spec, omega)
+    return _fit_rotations_core_lm(plan, raw, s_t, s_a, s_w, tj_lm, rj_lm, jw_lm)
 
 
 def _spec_points(spec):
@@ -335,30 +376,39 @@ def _spec_points(spec):
                                   spec['consts_pad'])
 
 
-def fit_rotations_to_spec_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, spec, rj_lm):
+def fit_rotations_to_spec_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, spec, rj_lm, jw_lm=None,
+                             omega=None):
     """Orientation fit against a known shape's reconstruction spec (see
     ``shape_gram.lbs_recon_spec_lm``) with model joints rj_lm: through K6 with
     target joints; without, the mesh is made (K1) to regress joints from."""
     if tj_lm is not None:
         return fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, None, rj_lm,
-                                       reference_spec=spec)
-    return fit_global_rotations_lm(bm, plan, tgt_vm, None, _spec_points(spec), None)
+                                       reference_spec=spec, jw_lm=jw_lm, omega=omega)
+    return fit_global_rotations_lm(bm, plan, tgt_vm, None, _spec_points(spec), None,
+                                   jw_lm=jw_lm, omega=omega)
 
 
-def _fit_rotations_core_lm(plan: FitterPlan, raw, s_t, s_a, s_w, tj_lm, rj_lm):
-    """Covariance assembly and bucketed projections of the orientation fit."""
+def _fit_rotations_core_lm(plan: FitterPlan, raw, s_t, s_a, s_w, tj_lm, rj_lm, jw_lm=None):
+    """Covariance assembly and bucketed projections of the orientation fit;
+    joint weights ``jw_lm`` (J, B) weight the joint Kabsch of the
+    multi-joint parts."""
     dev = raw.device
     mt = torch.einsum('jk,ckb->cjb', plan.center_matrix, tj_lm)
     ma = torch.einsum('jk,ckb->cjb', plan.center_matrix, rj_lm)
     A_vert = _centered_cov_lm(raw, s_t, s_a, s_w, mt, ma)  # (9, J, B)
 
-    s_wj = plan.mjp_joint_counts[0]  # (n_multi, 1)
-    outer9 = torch.stack([tj_lm[c] * rj_lm[d] for c in range(3) for d in range(3)])
+    if jw_lm is None:
+        rj_w, tj_side = rj_lm, tj_lm
+        s_wj = plan.mjp_joint_counts[0]  # (n_multi, 1)
+    else:
+        rj_w, tj_side = rj_lm * jw_lm[None], tj_lm * jw_lm[None]
+        s_wj = torch.matmul(plan.mjp_joint_membership, jw_lm)  # (n_multi, B)
+    outer9 = torch.stack([tj_lm[c] * rj_w[d] for c in range(3) for d in range(3)])
     raw_j = torch.einsum('mj,xjb->xmb', plan.mjp_joint_membership, outer9)
     mtj = torch.einsum('mj,cjb->cmb', plan.mjp_center_matrix, tj_lm)
     maj = torch.einsum('mj,cjb->cmb', plan.mjp_center_matrix, rj_lm)
-    s_tj = torch.einsum('mj,cjb->cmb', plan.mjp_joint_membership, tj_lm)
-    s_aj = torch.einsum('mj,cjb->cmb', plan.mjp_joint_membership, rj_lm)
+    s_tj = torch.einsum('mj,cjb->cmb', plan.mjp_joint_membership, tj_side)
+    s_aj = torch.einsum('mj,cjb->cmb', plan.mjp_joint_membership, rj_w)
     A_multi = _centered_cov_lm(raw_j, s_tj, s_aj, s_wj, mtj, maj)
 
     A_kabsch = torch.cat([A_multi, A_vert[:, index_tensor(plan.leaf_parts, dev)]], dim=1)
@@ -413,30 +463,33 @@ def fk_positions_ext_lm(bm, plan: FitterPlan, glob_lm):
 
 def fit_global_rotations_dependent_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, reference_vm, rj_lm,
                                       glob9_prev, shape_betas, trans_lm, kid_factor=None,
-                                      reference_spec=None, scale_corr=None):
+                                      reference_spec=None, scale_corr=None, jw_lm=None,
+                                      omega=None):
     """Final rotation adjustment against the shape solve's reconstruction.
     The parts are re-anchored at the solved model joints ``rj_lm`` even where
     the working joints are regressed from the meshes (no target joints);
-    ``scale_corr`` (B,) scales the model joints of the tree walk."""
+    ``scale_corr`` (B,) scales the model joints of the tree walk; ``jw_lm``
+    and ``omega`` as in :func:`fit_global_rotations_lm`."""
     true_rj_lm = rj_lm
     if tj_lm is None or rj_lm is None:
         tj_lm = _regress_joints_lm(bm, tgt_vm)
         rj_lm = _regress_joints_lm(bm, reference_vm)
     if true_rj_lm is None:
         true_rj_lm = rj_lm
-    raw, s_t, s_a, s_w = part_sums_lm(plan, tgt_vm, reference_vm, reference_spec)
+    raw, s_t, s_a, s_w = part_sums_lm(plan, tgt_vm, reference_vm, reference_spec, omega)
     return _fit_rotations_dependent_core_lm(bm, plan, raw, s_t, s_a, s_w, tj_lm, rj_lm,
                                             true_rj_lm, glob9_prev, shape_betas, trans_lm,
-                                            kid_factor, scale_corr)
+                                            kid_factor, scale_corr, jw_lm)
 
 
 def _fit_rotations_dependent_core_lm(bm, plan: FitterPlan, raw, s_t, s_a, s_w, tj_lm, rj_lm,
                                      true_rj_lm, glob9_prev, shape_betas, trans_lm,
-                                     kid_factor=None, scale_corr=None):
+                                     kid_factor=None, scale_corr=None, jw_lm=None):
     """Bucket-batched tree walk of the final rotation adjustment: FK one tree
     level at a time from the solved shape's bones, then refine that level's
     adjustable parts in equal-joint-count buckets, each re-anchored at its
-    recomputed proximal joint, one batched projection per bucket."""
+    recomputed proximal joint, one batched projection per bucket. Joint
+    weights ``jw_lm`` (J, B) weight the joint term."""
     dev = raw.device
     n_betas = plan.n_betas
     batch = glob9_prev.shape[2]
@@ -466,6 +519,8 @@ def _fit_rotations_dependent_core_lm(bm, plan: FitterPlan, raw, s_t, s_a, s_w, t
         sel = index_tensor(joint_sel.reshape(-1), dev)
         estim = tj_lm[:, sel].reshape(3, n, k, batch) - c_t[:, :, None]
         default = rj_lm[:, sel].reshape(3, n, k, -1) - c_a[:, :, None]
+        if jw_lm is not None:
+            default = default * jw_lm[sel].reshape(n, k, -1)[None]
         A_joint = torch.stack([
             (estim[a] * default[c]).sum(dim=1) for a in range(3) for c in range(3)
         ])
@@ -509,37 +564,64 @@ class BodyFitter(nn.Module):
 
     The plan and the shape-solve operands are precomputed on the host at
     construction and kept as buffers on the body model's device.
+
+    ``vertex_weights`` (V,) and ``joint_weights`` (J,) are static fit
+    weights: the same as passing them, broadcast over the batch, to every
+    call, but baked into the moments, so the solve keeps the unweighted
+    kernels' route (K2's ω form, K3 / K8). A fitter with static weights
+    takes no per-call weights.
     """
 
     def __init__(self, body_model: BodyModel, enable_kid: bool = False,
                  num_betas: Optional[int] = None, vertex_weights=None, joint_weights=None):
         super().__init__()
-        if vertex_weights is not None or joint_weights is not None:
-            raise _not_ported('static fit weights', 5)
         self.body_model = body_model
         self.enable_kid = enable_kid
+        self.static_vw = (None if vertex_weights is None
+                          else np.asarray(vertex_weights, np.float32).reshape(-1))
+        self.static_jw = (None if joint_weights is None
+                          else np.asarray(joint_weights, np.float32).reshape(-1))
+        if self.static_vw is not None and self.static_vw.shape[0] != body_model.num_vertices:
+            raise ValueError(
+                f'static vertex_weights must have shape ({body_model.num_vertices},)')
+        if self.static_jw is not None and self.static_jw.shape[0] != body_model.num_joints:
+            raise ValueError(f'static joint_weights must have shape ({body_model.num_joints},)')
         dev = body_model.device
-        plan = build_plan(body_model, enable_kid, num_betas, device=dev)
+        plan = build_plan(body_model, enable_kid, num_betas, device=dev,
+                          vertex_weights=self.static_vw)
         data = body_model.model_data
-        gram = build_gram_data(data.weights, data.shapedirs,
-                               data.kid_shapedir if enable_kid else None, plan.n_betas,
-                               data.v_template, data.posedirs, device=dev)
+        gram_args = (data.weights, data.shapedirs, data.kid_shapedir if enable_kid else None,
+                     plan.n_betas, data.v_template, data.posedirs)
+        gram = build_gram_data(*gram_args, device=dev)
         self._static = {}
-        for prefix, obj in (('plan', plan), ('gram', gram)):
+        views = [('plan', plan), ('gram', gram)]
+        if self.static_vw is not None:
+            # The weighted moments; the per-vertex operands stay gram's buffers.
+            views.append(('gram_w', build_gram_data(*gram_args, device=dev,
+                                                    vertex_weights=self.static_vw,
+                                                    shared=gram)))
+        for prefix, obj in views:
             for f in dataclasses.fields(obj):
                 value = getattr(obj, f.name)
+                if prefix == 'gram_w' and f.name in SHARED_FIELDS:
+                    continue
                 if isinstance(value, torch.Tensor):
                     self.register_buffer(f'{prefix}_{f.name}', value, persistent=False)
                 else:
                     self._static[prefix, f.name] = value
+        if self.static_jw is not None:
+            self.register_buffer('static_jw_t', torch.as_tensor(self.static_jw, device=dev),
+                                 persistent=False)
         self.n_betas = plan.n_betas
 
     def _view(self, prefix, cls):
-        return cls(**{
-            f.name: self._static[prefix, f.name] if (prefix, f.name) in self._static
-            else getattr(self, f'{prefix}_{f.name}')
-            for f in dataclasses.fields(cls)
-        })
+        def field(name):
+            if (prefix, name) in self._static:
+                return self._static[prefix, name]
+            if prefix == 'gram_w' and name in SHARED_FIELDS:
+                return getattr(self, f'gram_{name}')
+            return getattr(self, f'{prefix}_{name}')
+        return cls(**{f.name: field(f.name) for f in dataclasses.fields(cls)})
 
     @property
     def plan(self) -> FitterPlan:
@@ -549,8 +631,55 @@ class BodyFitter(nn.Module):
     def gram(self) -> GramData:
         return self._view('gram', GramData)
 
+    @property
+    def gram_w(self) -> Optional[GramData]:
+        """The statically weighted moments, or None without static vertex weights."""
+        return None if self.static_vw is None else self._view('gram_w', GramData)
+
     def _optional(self, x):
         return None if x is None else self.body_model.as_f32(x)
+
+    @staticmethod
+    def _solve_weighted(has_joints: bool, vertex_weights, joint_weights) -> bool:
+        """The both-or-neither rule of the shape solve: with target joints it
+        is weighted only when both kinds of weights exist; without joints,
+        vertex weights alone weight it."""
+        return vertex_weights is not None and (not has_joints or joint_weights is not None)
+
+    def _lm_solve_weights(self, has_joints: bool):
+        """The GramData and static joint weights (J,) or None of an unweighted
+        call's shape solve under this fitter's static weights."""
+        use_w = self._solve_weighted(has_joints, self.static_vw, self.static_jw)
+        gram = self.gram_w if use_w else self.gram
+        return gram, (self.static_jw_t if use_w and has_joints else None)
+
+    def _call_weights(self, vertex_weights, joint_weights, batch: int):
+        """Per-call weights as lane-major operands: omega (V, B) and jw (J, B)
+        (each None when not given), checked against the model; a fitter's
+        static joint weights stand in for absent per-call ones in jw."""
+        if (self.static_vw is not None or self.static_jw is not None) and (
+                vertex_weights is not None or joint_weights is not None):
+            raise ValueError(
+                'this fitter was constructed with static vertex/joint weights; per-call '
+                'weights cannot be combined with them: construct an unweighted BodyFitter '
+                'for per-call weighting')
+        bm = self.body_model
+        omega_vm = jw_lm = None
+        if vertex_weights is not None:
+            vertex_weights = bm.as_f32(vertex_weights)
+            if tuple(vertex_weights.shape) != (batch, bm.num_vertices):
+                raise ValueError(f'vertex_weights must have shape ({batch}, {bm.num_vertices}), '
+                                 f'got {tuple(vertex_weights.shape)}')
+            omega_vm = vertex_weights.T.contiguous()
+        if joint_weights is not None:
+            joint_weights = bm.as_f32(joint_weights)
+            if tuple(joint_weights.shape) != (batch, bm.num_joints):
+                raise ValueError(f'joint_weights must have shape ({batch}, {bm.num_joints}), '
+                                 f'got {tuple(joint_weights.shape)}')
+            jw_lm = joint_weights.T.contiguous()
+        elif self.static_jw is not None:
+            jw_lm = self.static_jw_t[:, None].expand(bm.num_joints, batch)
+        return omega_vm, jw_lm
 
     def _glob9_from_pose(self, pose_rotvecs, batch: int) -> torch.Tensor:
         """Global rotations (9, J, B) of pose rotation vectors (B, 3J), or the
@@ -602,28 +731,29 @@ class BodyFitter(nn.Module):
         (B, 3), orientations and relative_orientations (B, J, 3, 3), kid_factor
         (B,) with the kid column, scale_corr (B,) under ``scale_target`` /
         ``scale_fit``, and on request pose_rotvecs (B, 3J), vertices (B, V, 3)
-        and joints (B, J, 3)."""
+        and joints (B, J, 3). ``vertex_weights`` (B, V) and ``joint_weights``
+        (B, J) weight the fit (see the module docstring)."""
         requested_keys = tuple(requested_keys)
-        if vertex_weights is not None or joint_weights is not None:
-            raise _not_ported('per-call fit weights', 7)
         if share_beta:
             raise _not_ported('share_beta', 5)
         if num_iter < 1:
             raise ValueError('num_iter must be at least 1')
         opt = self._optional
+        target_vertices = self.body_model.as_f32(target_vertices)
+        omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights,
+                                             target_vertices.shape[0])
         return self._fit_lm(
-            self.body_model.as_f32(target_vertices), opt(target_joints), num_iter,
+            target_vertices, opt(target_joints), omega_vm, jw_lm, num_iter,
             beta_regularizer, beta_regularizer2, scale_regularizer, kid_regularizer,
             final_adjust_rots, scale_target, scale_fit, opt(initial_pose_rotvecs),
             opt(initial_shape_betas), opt(initial_kid_factor), requested_keys)
 
-    def _fit_lm(self, target_vertices, target_joints, num_iter, beta_regularizer,
-                beta_regularizer2, scale_regularizer, kid_regularizer, final_adjust_rots,
-                scale_target, scale_fit, initial_pose_rotvecs, initial_shape_betas,
-                initial_kid_factor, requested_keys) -> dict:
+    def _fit_lm(self, target_vertices, target_joints, omega_vm, jw_lm, num_iter,
+                beta_regularizer, beta_regularizer2, scale_regularizer, kid_regularizer,
+                final_adjust_rots, scale_target, scale_fit, initial_pose_rotvecs,
+                initial_shape_betas, initial_kid_factor, requested_keys) -> dict:
         bm = self.body_model
         plan = self.plan
-        gram = self.gram
         scale_any = scale_target or scale_fit
         target_vertices, target_joints, target_mean = _center_targets(
             target_vertices, target_joints, full_mean=scale_any)
@@ -631,38 +761,48 @@ class BodyFitter(nn.Module):
         tj_lm = None if target_joints is None else target_joints.permute(2, 1, 0)
         has_joints = tj_lm is not None
         batch = tgt_vm.shape[2]
+        # Per-call ω: the solve is weighted per the both-or-neither rule (the
+        # fitter then has no static weights, so `gram` is unweighted).
+        gram, jw_solve = self._lm_solve_weights(has_joints)
+        wgram_solve = self._solve_weighted(has_joints, omega_vm, jw_lm)
+        wk = dict(jw_lm=jw_lm, omega=omega_vm)
 
         if initial_pose_rotvecs is None and initial_shape_betas is None:
             rj0 = bm.J_template.T[:, :, None] if has_joints else None
-            glob9 = fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, plan.default_mesh_vm, rj0)
+            glob9 = fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, plan.default_mesh_vm, rj0,
+                                            **wk)
         else:
             # Warm start: the first rotation fit runs against the initial
             # parameters' reconstruction and composes onto their rotations.
             glob9_0 = self._glob9_from_pose(initial_pose_rotvecs, batch)
             x0 = self._shape_cols(initial_shape_betas, initial_kid_factor, batch)
-            spec0, rj0, _ = lbs_recon_spec_lm(bm, plan, gram, glob9_0, x0.T.contiguous())
+            spec0, rj0, _ = lbs_recon_spec_lm(bm, plan, self.gram, glob9_0, x0.T.contiguous())
             glob9 = rot_ops.matmul3x3_lm(
-                fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec0, rj0), glob9_0)
+                fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec0, rj0, **wk), glob9_0)
 
         # With target joints the fitted mesh reaches the rotation fits as
         # kernel operands; without, it is made (K1) to regress joints from.
         recon_key = 'recon_spec' if has_joints else 'vertices_vm'
 
         def solve(g9, keys, scale=False):
-            return fit_shape_gram_lm(
-                bm, plan, gram, g9, tgt_vm, tj_lm, beta_regularizer, beta_regularizer2,
-                kid_regularizer=kid_regularizer,
-                beta_regularizer_reference=initial_shape_betas,
-                kid_regularizer_reference=initial_kid_factor, requested_keys=keys,
-                scale_target=scale and scale_target, scale_fit=scale and scale_fit,
-                scale_regularizer=scale_regularizer)
+            kw = dict(kid_regularizer=kid_regularizer,
+                      beta_regularizer_reference=initial_shape_betas,
+                      kid_regularizer_reference=initial_kid_factor, requested_keys=keys,
+                      scale_target=scale and scale_target, scale_fit=scale and scale_fit,
+                      scale_regularizer=scale_regularizer)
+            if wgram_solve:
+                return fit_shape_wgram_lm(bm, plan, gram, g9, tgt_vm, tj_lm, omega_vm,
+                                          jw_lm if has_joints else None, beta_regularizer,
+                                          beta_regularizer2, **kw)
+            return fit_shape_gram_lm(bm, plan, gram, g9, tgt_vm, tj_lm, beta_regularizer,
+                                     beta_regularizer2, jw_static=jw_solve, **kw)
 
         for _ in range(num_iter - 1):
             res = solve(glob9, (recon_key, 'joints_lm') if has_joints else (recon_key,))
             glob9 = rot_ops.matmul3x3_lm(
                 fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, res.get('vertices_vm'),
                                         res.get('joints_lm'),
-                                        reference_spec=res.get('recon_spec')),
+                                        reference_spec=res.get('recon_spec'), **wk),
                 glob9)
         res = solve(glob9, (recon_key, 'joints_lm') if (has_joints or final_adjust_rots)
                     else (recon_key,), scale=scale_any)
@@ -694,7 +834,7 @@ class BodyFitter(nn.Module):
             glob9 = fit_global_rotations_dependent_lm(
                 bm, plan, adj_tgt_vm, adj_tj, ref_vm, ref_j, glob9, res['shape_betas'],
                 res['trans_lm'], res['kid_factor'], reference_spec=ref_spec,
-                scale_corr=adj_scale_corr)
+                scale_corr=adj_scale_corr, **wk)
 
         if scale_target:
             trans_out = res['trans'] + target_mean * res['scale_corr'][:, None]
@@ -745,24 +885,33 @@ class BodyFitter(nn.Module):
         pose rotation vectors (B, 3J): one shape solve. Returns shape_betas,
         trans, orientations and relative_orientations (B, J, 3, 3), and
         kid_factor / scale_corr where they are fitted; the target mean is
-        restored unscaled."""
-        if vertex_weights is not None or joint_weights is not None:
-            raise _not_ported('per-call fit weights', 7)
+        restored unscaled. Weights as in :meth:`fit`; only the shape solve
+        sees them."""
         if share_beta:
             raise _not_ported('share_beta', 5)
         bm = self.body_model
-        target_vertices, target_joints, target_mean = _center_targets(
-            bm.as_f32(target_vertices), self._optional(target_joints),
-            full_mean=scale_target or scale_fit)
+        target_vertices = bm.as_f32(target_vertices)
         batch = target_vertices.shape[0]
+        omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights, batch)
+        target_vertices, target_joints, target_mean = _center_targets(
+            target_vertices, self._optional(target_joints), full_mean=scale_target or scale_fit)
         glob9 = self._glob9_from_pose(pose_rotvecs, batch)
-        res = fit_shape_gram_lm(
-            bm, self.plan, self.gram, glob9, lbs_kernels.to_vertex_major(target_vertices),
-            None if target_joints is None else target_joints.permute(2, 1, 0),
-            beta_regularizer, beta_regularizer2, kid_regularizer=kid_regularizer,
-            beta_regularizer_reference=self._optional(beta_regularizer_reference),
-            kid_regularizer_reference=self._optional(kid_regularizer_reference),
-            scale_target=scale_target, scale_fit=scale_fit, scale_regularizer=scale_regularizer)
+        tj_lm = None if target_joints is None else target_joints.permute(2, 1, 0)
+        has_joints = tj_lm is not None
+        tgt_vm = lbs_kernels.to_vertex_major(target_vertices)
+        kw = dict(kid_regularizer=kid_regularizer,
+                  beta_regularizer_reference=self._optional(beta_regularizer_reference),
+                  kid_regularizer_reference=self._optional(kid_regularizer_reference),
+                  scale_target=scale_target, scale_fit=scale_fit,
+                  scale_regularizer=scale_regularizer)
+        if self._solve_weighted(has_joints, omega_vm, jw_lm):
+            res = fit_shape_wgram_lm(bm, self.plan, self.gram, glob9, tgt_vm, tj_lm, omega_vm,
+                                     jw_lm if has_joints else None, beta_regularizer,
+                                     beta_regularizer2, **kw)
+        else:
+            gram, jw_solve = self._lm_solve_weights(has_joints)
+            res = fit_shape_gram_lm(bm, self.plan, gram, glob9, tgt_vm, tj_lm, beta_regularizer,
+                                    beta_regularizer2, jw_static=jw_solve, **kw)
         result = dict(
             shape_betas=res['shape_betas'],
             kid_factor=res['kid_factor'],
@@ -794,9 +943,9 @@ class BodyFitter(nn.Module):
         T-pose or ``initial_pose_rotvecs``, then the translation and the
         optional final adjustment. Returns shape_betas, trans, orientations,
         kid_factor when given, scale_corr under ``scale_fit``, and on request
-        pose_rotvecs / relative_orientations."""
-        if vertex_weights is not None or joint_weights is not None:
-            raise _not_ported('per-call fit weights', 7)
+        pose_rotvecs / relative_orientations. Weights as in :meth:`fit`; the
+        translation (and scale) is their weighted Procrustes mean under the
+        both-or-neither rule."""
         if kid_factor is not None and not self.enable_kid:
             raise _not_ported('fit_with_known_shape with a kid factor on a fitter built '
                               'without enable_kid', 5)
@@ -805,12 +954,15 @@ class BodyFitter(nn.Module):
         gram = self.gram
         J = bm.num_joints
         V = bm.num_vertices
+        target_vertices = bm.as_f32(target_vertices)
+        batch = target_vertices.shape[0]
+        omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights, batch)
+        wk = dict(jw_lm=jw_lm, omega=omega_vm)
         target_vertices, target_joints, target_mean = _center_targets(
-            bm.as_f32(target_vertices), self._optional(target_joints))
+            target_vertices, self._optional(target_joints))
         tgt_vm = lbs_kernels.to_vertex_major(target_vertices)
         tj_lm = None if target_joints is None else target_joints.permute(2, 1, 0)
         has_joints = tj_lm is not None
-        batch = tgt_vm.shape[2]
         kid_factor = self._optional(kid_factor)
         if kid_factor is not None:
             kid_factor = kid_factor.reshape(batch)
@@ -821,41 +973,71 @@ class BodyFitter(nn.Module):
         for _ in range(num_iter):
             spec, rj, _ = lbs_recon_spec_lm(bm, plan, gram, glob9, x_T)
             glob9 = rot_ops.matmul3x3_lm(
-                fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec, rj), glob9)
+                fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec, rj, **wk), glob9)
 
-        spec_f, rj_f, rec_sum = lbs_recon_spec_lm(bm, plan, gram, glob9, x_T)
+        # The translation is weighted per the both-or-neither rule: static
+        # weights through the weighted first moments, per-call ω through one
+        # materialized reconstruction (K1).
+        w_static = self._solve_weighted(has_joints, self.static_vw, self.static_jw)
+        w_runtime = self._solve_weighted(has_joints, omega_vm,
+                                         None if joint_weights is None else jw_lm)
+        spec_f, rj_f, rec_sum = lbs_recon_spec_lm(bm, plan, self.gram_w if w_static else gram,
+                                                  glob9, x_T)
         scale_corr = None
+        recon_f = None
         if scale_fit:
             # Procrustes scale and translation against the reconstruction itself.
-            rec = _spec_points(spec_f)
+            recon_f = _spec_points(spec_f)
+            vw_b = jw_b = None
+            if omega_vm is not None or w_static:
+                vw_b = (omega_vm.T if omega_vm is not None
+                        else self.plan.omega_pad[:V, 0][None].expand(batch, V))
+            if jw_lm is not None:
+                jw_b = jw_lm.T
             scale_corr, trans = fit_scale_and_translation(
-                target_vertices, lbs_kernels.from_vertex_major(rec, V), target_joints,
-                rj_f.permute(2, 1, 0), scale=True)
+                target_vertices, lbs_kernels.from_vertex_major(recon_f, V), target_joints,
+                rj_f.permute(2, 1, 0), vw_b, jw_b, scale=True)
             trans_lm = trans.T
-            ref_vm = rec * scale_corr + trans_lm[:, None, :]
+            ref_vm = recon_f * scale_corr + trans_lm[:, None, :]
             ref_j = rj_f * scale_corr + trans_lm[:, None, :]
             ref_spec = None
         else:
-            # Translation: the mean gap of vertices (and joints), with the
-            # reconstruction's sum from the first moments.
-            tgt_sum = tgt_vm[:, :V].sum(dim=1)
-            w_tot = float(V)
+            # Translation: the (weighted) mean gap of vertices (and joints),
+            # with the reconstruction's sum from the first moments.
+            if w_runtime:
+                recon_f = _spec_points(spec_f)
+                rec_sum = torch.einsum('vb,cvb->cb', omega_vm, recon_f[:, :V])
+                tgt_sum = torch.einsum('vb,cvb->cb', omega_vm, tgt_vm[:, :V])
+                w_tot = omega_vm.sum(dim=0)
+            elif w_static:
+                tgt_sum = torch.einsum('v,cvb->cb', self.plan.omega_pad[:V, 0], tgt_vm[:, :V])
+                w_tot = self.gram_w.w_total
+            else:
+                tgt_sum = tgt_vm[:, :V].sum(dim=1)
+                w_tot = float(V)
             if has_joints:
-                tgt_sum = tgt_sum + tj_lm.sum(dim=1)
-                rec_sum = rec_sum + rj_f.sum(dim=1)
-                w_tot += J
+                if w_runtime or w_static:
+                    tgt_sum = tgt_sum + torch.einsum('jb,cjb->cb', jw_lm, tj_lm)
+                    rec_sum = rec_sum + torch.einsum('jb,cjb->cb', jw_lm, rj_f)
+                    w_tot = w_tot + jw_lm.sum(dim=0)
+                else:
+                    tgt_sum = tgt_sum + tj_lm.sum(dim=1)
+                    rec_sum = rec_sum + rj_f.sum(dim=1)
+                    w_tot += J
             trans_lm = (tgt_sum - rec_sum) / w_tot  # (3, B)
             ref_j = rj_f + trans_lm[:, None, :]
             pj = spec_f['pj_cm'].clone()
             pj[3::4] += trans_lm[:, None, :]
             ref_spec, ref_vm = dict(spec_f, pj_cm=pj), None
             if not has_joints:
-                ref_spec, ref_vm = None, _spec_points(ref_spec)
+                ref_vm = (recon_f + trans_lm[:, None, :] if recon_f is not None
+                          else _spec_points(ref_spec))
+                ref_spec = None
 
         if final_adjust_rots:
             glob9 = fit_global_rotations_dependent_lm(
                 bm, plan, tgt_vm, tj_lm, ref_vm, ref_j, glob9, x[:, :self.n_betas], trans_lm,
-                kid_factor, reference_spec=ref_spec, scale_corr=scale_corr)
+                kid_factor, reference_spec=ref_spec, scale_corr=scale_corr, **wk)
 
         result = dict(
             shape_betas=x[:, :self.n_betas],
@@ -874,13 +1056,14 @@ class BodyFitter(nn.Module):
                                   scale: bool = False) -> dict:
         """Procrustes scale and translation between fixed point sets (no
         rotation or shape change), aligning the reference onto the target:
-        ``{'trans': (B, 3)}`` plus ``'scale_corr'`` (B,) when ``scale``."""
-        if vertex_weights is not None or joint_weights is not None:
-            raise _not_ported('per-call fit weights', 7)
+        ``{'trans': (B, 3)}`` plus ``'scale_corr'`` (B,) when ``scale``.
+        ``vertex_weights`` (B, V) and ``joint_weights`` (B, J) weight the
+        means and spreads (with joints only when both are given)."""
         bm = self.body_model
+        opt = self._optional
         scale_corr, trans = fit_scale_and_translation(
-            bm.as_f32(target_vertices), bm.as_f32(reference_vertices),
-            self._optional(target_joints), self._optional(reference_joints), scale=scale)
+            bm.as_f32(target_vertices), bm.as_f32(reference_vertices), opt(target_joints),
+            opt(reference_joints), opt(vertex_weights), opt(joint_weights), scale=scale)
         result = {'trans': trans}
         if scale_corr is not None:
             result['scale_corr'] = scale_corr

@@ -14,10 +14,18 @@ augmented SPD system. Models with a wide pose template (SMPL-X, SMPL+H) first
 compute the posed template as a kernel of its own (K7) and run K2's cached
 form on it.
 
-Ported here: the unweighted, non-shared solve, with or without target joints,
-with the kid column, warm-start regularizer references and the scale column
-of ``scale_target`` / ``scale_fit``; and the deferred reconstruction operands
-of a known shape (:func:`lbs_recon_spec_lm`).
+Fit weights take two routes. Static weights ω (V,) of a weighted fitter are
+baked into the moments (``build_gram_data(vertex_weights=)``): K2 weights
+the residual by the column ``omega_pad`` and K3 / K8 read the weighted
+moments unchanged; static joint weights weight the joints block in tensor
+ops. Per-call weights (V, B) break the static moments, so
+:func:`fit_shape_wgram_lm` rebuilds the normal equations per vertex (K9),
+centred by the exact ω-weighted Jacobian mean.
+
+Ported here: the non-shared solve, with or without target joints, with the
+kid column, warm-start regularizer references, the scale column of
+``scale_target`` / ``scale_fit`` and both kinds of fit weights; and the
+deferred reconstruction operands of a known shape (:func:`lbs_recon_spec_lm`).
 """
 
 from __future__ import annotations
@@ -50,63 +58,90 @@ class GramData:
     # First moments of the full template features (columns of consts_full:
     # [posedirs | v_template | SD]): sum_v rec_v follows from them without the mesh.
     Kc: torch.Tensor  # (J, 3, P + 1 + E)  sum_v w_vj consts_v
+    Msd: torch.Tensor  # (V, J*3*E)  w_vj SD_v[c, e], columns (j, c, e): the per-call ω mean
     n_ext: int  # E = number of betas (+1 with the kid column)
+    # Static fit weights ω (None: unweighted). With them every moment above
+    # except Msd is an ω-weighted vertex sum, and K2 weights the residual by
+    # this column; the per-vertex operands stay unweighted (and are shared
+    # with the fitter's unweighted GramData).
+    omega_pad: Optional[torch.Tensor] = None  # (V_pad, 1), zero rows in the padding
+    w_total: float = 0.0  # sum_v ω_v (V without weights)
+
+
+# The per-vertex operands, the same in the weighted and the unweighted GramData.
+SHARED_FIELDS = ('weights_pad', 'consts_pose', 'consts_full', 'sd_cm', 'Msd')
 
 
 def build_gram_data(weights: np.ndarray, shapedirs: np.ndarray,
                     kid_shapedir: Optional[np.ndarray], n_betas: int,
-                    v_template: np.ndarray, posedirs: np.ndarray, device='cpu') -> GramData:
+                    v_template: np.ndarray, posedirs: np.ndarray, device='cpu',
+                    vertex_weights: Optional[np.ndarray] = None,
+                    shared: Optional[GramData] = None) -> GramData:
     """Host-side (f64) moment precompute; ``weights`` (V, J), ``shapedirs``
     (V, 3, S), ``kid_shapedir`` (V, 3) appended as the last shape column when
     given, ``v_template`` (V, 3), ``posedirs`` (V, 3, P). Vertex order is
-    canonical; per-vertex operands are zero-row-padded to a multiple of 256."""
+    canonical; per-vertex operands are zero-row-padded to a multiple of 256.
+    ``vertex_weights`` (V,) bakes static fit weights into the moments;
+    ``shared`` (a GramData of the same model) lends its per-vertex operands
+    (:data:`SHARED_FIELDS`) instead of building them again."""
     w = np.asarray(weights, np.float64)
     SD = np.asarray(shapedirs, np.float64)[:, :, :n_betas]
     if kid_shapedir is not None:
         SD = np.concatenate([SD, np.asarray(kid_shapedir, np.float64)[:, :, None]], axis=2)
     V, J = w.shape
     E = SD.shape[2]
-
-    v_template4 = np.concatenate([np.asarray(v_template), np.ones((V, 1))], axis=1)
-    posedirs4 = np.concatenate(
-        [np.asarray(posedirs), np.zeros((V, 1, posedirs.shape[2]))], axis=1)
-    sd4 = np.concatenate([SD, np.zeros((V, 1, E))], axis=1)
+    omega = None if vertex_weights is None else np.asarray(vertex_weights, np.float64).reshape(V)
+    # ω enters every moment exactly once: it weights the vertex sum.
+    w_omega = w if omega is None else w * omega[:, None]
 
     v_pad = -(-V // lbs_kernels.VC) * lbs_kernels.VC
 
     def pad_rows(x):
         return np.concatenate([x, np.zeros((v_pad - V,) + x.shape[1:])], axis=0)
 
-    consts_pose = pad_rows(
-        np.concatenate([posedirs4, v_template4[:, :, None]], axis=2)).transpose(1, 0, 2)
-    consts_full = pad_rows(
-        np.concatenate([posedirs4, v_template4[:, :, None], sd4], axis=2)).transpose(1, 0, 2)
+    def f32(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device)
 
     # Msd[v, (j,c,e)] = w_vj SD_v[c,e]; Ksd regrouped to rows ((j,c),(k,d)) to
     # match X = sum_a R_a R_a^T with R rows (j,c).
     Msd = (w[:, :, None, None] * SD[:, None, :, :]).reshape(V, J * 3 * E)
-    K = (Msd.T @ Msd).reshape(J, 3, E, J, 3, E)
+    Msd_w = Msd if omega is None else Msd * omega[:, None]
+    K = (Msd.T @ Msd_w).reshape(J, 3, E, J, 3, E)
     Ksd = K.transpose(0, 1, 3, 4, 2, 5).reshape(J * 3 * J * 3, E * E)
-    Lsd = (Msd.T @ w).reshape(J, 3, E, J).transpose(0, 3, 1, 2)  # (j, k, c, e)
-    sd1 = np.einsum('vj,vce->jce', w, SD)
+    Lsd = (Msd.T @ w_omega).reshape(J, 3, E, J).transpose(0, 3, 1, 2)  # (j, k, c, e)
+    sd1 = np.einsum('vj,vce->jce', w_omega, SD)
     consts3 = np.concatenate([np.asarray(posedirs, np.float64),
                               np.asarray(v_template, np.float64)[:, :, None], SD], axis=2)
 
-    def f32(x):
-        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device)
+    if shared is not None:
+        per_vertex = {name: getattr(shared, name) for name in SHARED_FIELDS}
+    else:
+        v_template4 = np.concatenate([np.asarray(v_template), np.ones((V, 1))], axis=1)
+        posedirs4 = np.concatenate(
+            [np.asarray(posedirs), np.zeros((V, 1, posedirs.shape[2]))], axis=1)
+        sd4 = np.concatenate([SD, np.zeros((V, 1, E))], axis=1)
+        per_vertex = dict(
+            weights_pad=f32(pad_rows(w)),
+            consts_pose=f32(pad_rows(
+                np.concatenate([posedirs4, v_template4[:, :, None]], axis=2)).transpose(1, 0, 2)),
+            consts_full=f32(pad_rows(
+                np.concatenate([posedirs4, v_template4[:, :, None], sd4], axis=2)
+            ).transpose(1, 0, 2)),
+            sd_cm=f32(pad_rows(SD).transpose(1, 0, 2)),
+            Msd=f32(Msd),
+        )
 
     return GramData(
-        weights_pad=f32(pad_rows(w)),
-        consts_pose=f32(consts_pose),
-        consts_full=f32(consts_full),
-        sd_cm=f32(pad_rows(SD).transpose(1, 0, 2)),
+        **per_vertex,
         Ksd=f32(Ksd),
         Lz_e=f32(np.transpose(Lsd, (0, 2, 3, 1)).reshape(J * 3, E * J)),
         sd1_2d=f32(sd1.reshape(J * 3, E)),
-        q=f32(w.T @ w),
-        W1_col=f32(w.sum(axis=0).reshape(J, 1)),
-        Kc=f32((w.T @ consts3.reshape(V, -1)).reshape(J, 3, consts3.shape[2])),
+        q=f32(w.T @ w_omega),
+        W1_col=f32(w_omega.sum(axis=0).reshape(J, 1)),
+        Kc=f32((w_omega.T @ consts3.reshape(V, -1)).reshape(J, 3, consts3.shape[2])),
         n_ext=E,
+        omega_pad=None if omega is None else f32(pad_rows(omega.reshape(V, 1))),
+        w_total=float(V) if omega is None else float(omega.sum()),
     )
 
 
@@ -150,9 +185,11 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
                       kid_regularizer: Optional[float] = None,
                       beta_regularizer_reference=None, kid_regularizer_reference=None,
                       requested_keys=(), scale_target: bool = False, scale_fit: bool = False,
-                      scale_regularizer: float = 0.0) -> dict:
+                      scale_regularizer: float = 0.0, jw_static=None) -> dict:
     """Lane-major shape solve: rotations glob_lm (9, J, B), targets tgt_vm
-    (3, V, B) and tj_lm (3, J, B) or None. Returns shape_betas (B, n_betas),
+    (3, V, B) and tj_lm (3, J, B) or None. A statically weighted ``gram``
+    weights the vertex block; ``jw_static`` (J,) weights the joints block,
+    which is then assembled in tensor ops outside K3. Returns shape_betas (B, n_betas),
     kid_factor (B,) or None, scale_corr (B,) or None, trans (B, 3), trans_lm
     (3, B), relative_orientations_lm (9, J, B), and on request joints_lm
     (3, J, B), vertices_vm (3, V_pad, B) and recon_spec (the fitted mesh's
@@ -169,6 +206,11 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
     dev = glob_lm.device
     scale_col = scale_target or scale_fit
     has_joints = tj_lm is not None
+    # Static joint weights take the joints block out of K3 (which knows only
+    # the unweighted form) into the tensor ops below.
+    weighted_joints = has_joints and jw_static is not None
+    kernel_joints = has_joints and not weighted_joints
+    om = {} if gram.omega_pad is None else dict(omega=gram.omega_pad)
 
     pre = _fk_ext_prelude(bm, plan, glob_lm)
     p_j, P4, T4 = pre['p_j'], pre['P4'], pre['T4']
@@ -181,33 +223,43 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
         homog_vm = lbs_kernels.posed_template_lm(pre['feat_cols'], gram.consts_pose)
         cached_args = (tgt_vm, pre['pj_cm'], homog_vm, gram.weights_pad, gram.sd_cm)
         if scale_col:
-            rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments_cached(*cached_args, scale=True)
+            rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments_cached(*cached_args, scale=True,
+                                                                   **om)
         else:
-            rk, yk = lbs_kernels.rhs_moments_cached(*cached_args)
+            rk, yk = lbs_kernels.rhs_moments_cached(*cached_args, **om)
     elif scale_col:
-        rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments(*rhs_args, scale=True)
+        rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments(*rhs_args, scale=True, **om)
     elif 'recon_spec' in requested_keys:
-        rk, yk, homog_vm = lbs_kernels.rhs_moments_h(*rhs_args)
+        rk, yk, homog_vm = lbs_kernels.rhs_moments_h(*rhs_args, **om)
     else:
-        rk, yk = lbs_kernels.rhs_moments(*rhs_args)
+        rk, yk = lbs_kernels.rhs_moments(*rhs_args, **om)
 
     R_cm = torch.stack([
         torch.stack([glob_lm[a * 3 + c] for c in range(3)], dim=1).reshape(J * 3, batch)
         for a in range(3)
     ])  # (3, 3J, B), rows (j, c)
-    if has_joints:
+    if kernel_joints:
         P_cm = P4.reshape(3, E * J, batch).contiguous()
         bJ_cm = (tj_lm - p_j).contiguous()
     else:
         P_cm = bJ_cm = torch.zeros((3, 1, batch), device=dev)
     Gk, SAk, rbk, Sbk = lbs_kernels.gram_assembly(
         R_cm, T4.reshape(3, E * J, batch), yk, P_cm, bJ_cm, gram.Ksd, gram.Lz_e, gram.sd1_2d,
-        gram.q, gram.W1_col, has_joints=has_joints)
+        gram.q, gram.W1_col, has_joints=kernel_joints)
     G = Gk.T.reshape(batch, E, E)
     SA = SAk.T.reshape(batch, 3, E)
     r = rk.T + rbk.T
     Sb = Sbk.T
-    W = torch.full((batch,), float(bm.num_vertices + (J if has_joints else 0)), device=dev)
+    W = torch.full((batch,), gram.w_total + (J if kernel_joints else 0), device=dev)
+
+    if weighted_joints:
+        bJ = tj_lm - p_j  # (3, J, B)
+        P4w = P4 * jw_static[None, None, :, None]
+        G = G + torch.einsum('aejb,afjb->bef', P4w, P4)
+        r = r + torch.einsum('aejb,ajb->be', P4w, bJ)
+        SA = SA + torch.einsum('aejb,j->bae', P4, jw_static)
+        Sb = Sb + torch.einsum('ajb,j->ba', bJ, jw_static)
+        W = W + jw_static.sum()
 
     if scale_col:
         rt_full = rtk.T + torch.einsum('aejb,ajb->be', T4, ytk)
@@ -221,10 +273,11 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
             g_cross, col_sq, col_b, SA_col = rt_full - r_b_vert, s_pp, s_tp - s_pp, sum_t - sum_b
         if has_joints:
             col_joint = -tj_lm if scale_target else p_j
-            g_cross = g_cross + torch.einsum('aejb,ajb->be', P4, col_joint)
-            col_sq = col_sq + torch.einsum('ajb,ajb->b', col_joint, col_joint)
-            col_b = col_b + torch.einsum('ajb,ajb->b', tj_lm - p_j, col_joint)
-            SA_col = SA_col + col_joint.sum(dim=1).T
+            colw = col_joint if jw_static is None else col_joint * jw_static[None, :, None]
+            g_cross = g_cross + torch.einsum('aejb,ajb->be', P4, colw)
+            col_sq = col_sq + torch.einsum('ajb,ajb->b', col_joint, colw)
+            col_b = col_b + torch.einsum('ajb,ajb->b', tj_lm - p_j, colw)
+            SA_col = SA_col + colw.sum(dim=1).T
         G = torch.cat([torch.cat([G, g_cross[:, :, None]], dim=2),
                        torch.cat([g_cross[:, None, :], col_sq[:, None, None]], dim=2)], dim=1)
         SA = torch.cat([SA, SA_col[:, :, None]], dim=2)
@@ -237,10 +290,12 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
 
 def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regularizer2,
                 kid_regularizer, beta_regularizer_reference, kid_regularizer_reference,
-                requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer) -> dict:
+                requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer,
+                trans_shift_jac=None) -> dict:
     """Regularize and solve the augmented [betas (, kid) (, scale), trans]
     system (B, E1 + 3), E1 = E + 1 with a scale column, and build the
-    lane-major result dict."""
+    lane-major result dict. ``trans_shift_jac`` (B, 3, E1) undoes a centring
+    of the Jacobian by its mean mu: t = t' - mu x."""
     glob_lm, p_j, P4, t_lm, T4 = (pre[k] for k in ('glob_lm', 'p_j', 'P4', 't_lm', 'T4'))
     batch = glob_lm.shape[2]
     E = gram.n_ext
@@ -281,6 +336,8 @@ def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regular
     new_kid = sol[:, n_betas] if plan.enable_kid else None
     new_scale = sol[:, E] + 1 if scale_col else None
     new_trans = sol[:, E1:]
+    if trans_shift_jac is not None:
+        new_trans = new_trans - torch.einsum('bae,be->ba', trans_shift_jac, sol[:, :E1])
     if scale_fit:
         # scale_fit scales the model, so the published shape is divided by the scale.
         new_shape = new_shape / new_scale[:, None]
@@ -315,6 +372,97 @@ def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regular
             result['vertices_vm'] = lbs_kernels.lbs_points(
                 pj2_cm, f2_cols, gram.weights_pad, gram.consts_full)
     return result
+
+
+def weighted_jac_mean_lm(bm, gram: GramData, glob_lm, T4, omega_vm):
+    """The ω-weighted mean of the per-vertex beta-Jacobian, (3, E, B), and the
+    weight sums (B,), exact through one product Msd^T ω:
+
+        sum_v ω jac[a, e] = sum_{j,c} R[a, c, j] (sum_v ω w_vj SD_v[c, e]) + sum_j T4 m_j.
+
+    It centres the per-call weighted normal equations: the Jacobian's
+    translation columns share a large common mode over the vertices, and an
+    uncentred f32 Gramian loses about 3 digits to the cancellation when the
+    translation is eliminated."""
+    J = bm.num_joints
+    E = gram.n_ext
+    B = glob_lm.shape[2]
+    V = omega_vm.shape[0]
+    Lm = torch.matmul(gram.Msd.T, omega_vm).reshape(J, 3, E, B)
+    m_j = torch.matmul(gram.weights_pad[:V].T, omega_vm)  # (J, B)
+    w_tot = omega_vm.sum(dim=0)
+    mu = torch.stack([
+        sum(torch.einsum('jeb,jb->eb', Lm[:, c], glob_lm[a * 3 + c]) for c in range(3))
+        + torch.einsum('ejb,jb->eb', T4[a], m_j)
+        for a in range(3)
+    ])  # (3, E, B)
+    return mu / torch.clamp(w_tot, min=1e-12), w_tot
+
+
+def fit_shape_wgram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm, omega_vm, jw_lm,
+                       beta_regularizer: float, beta_regularizer2: float,
+                       kid_regularizer: Optional[float] = None,
+                       beta_regularizer_reference=None, kid_regularizer_reference=None,
+                       requested_keys=(), scale_target: bool = False, scale_fit: bool = False,
+                       scale_regularizer: float = 0.0) -> dict:
+    """Lane-major shape solve under per-call vertex weights ``omega_vm``
+    (V, B) and, with target joints, joint weights ``jw_lm`` (J, B) (None
+    without joints; the caller applies the both-or-neither rule). ``gram``
+    is the unweighted GramData: ω reaches the solve only through K9, which
+    rebuilds the centred normal equations per vertex (the scale column of
+    ``scale_target`` / ``scale_fit`` in-kernel). Returns what
+    :func:`fit_shape_gram_lm` returns."""
+    batch = glob_lm.shape[2]
+    E = gram.n_ext
+    scale_mode = 1 if scale_target else (2 if scale_fit else 0)
+
+    pre = _fk_ext_prelude(bm, plan, glob_lm)
+    T4 = pre['T4']
+    t4_cm = T4.reshape(3 * E, bm.num_joints, batch)  # rows (a, e)
+    mu, w_tot = weighted_jac_mean_lm(bm, gram, glob_lm, T4, omega_vm)  # (3, E, B)
+    mu_s = None
+    mu_full = mu
+    if scale_mode:
+        # The scale column's centring: minus or plus the ω-weighted target
+        # mean. Any per-column constant is exact here (it folds into the
+        # translation's change of variables); it only removes the common mode.
+        t_mean = (torch.einsum('avb,vb->ab', tgt_vm[:, :omega_vm.shape[0]], omega_vm)
+                  / torch.clamp(w_tot, min=1e-12))
+        mu_s = (-t_mean if scale_target else t_mean).contiguous()
+        mu_full = torch.cat([mu, mu_s[:, None, :]], dim=1)  # (3, E1, B)
+    # The posed template once per solve (K7): read by K9 here and by K4
+    # through recon_spec.
+    homog_vm = lbs_kernels.posed_template_lm(pre['feat_cols'], gram.consts_pose)
+    Gk, SAk, rk, Sbk, Wk = lbs_kernels.wgram_moments(
+        tgt_vm, pre['pj_cm'], homog_vm, t4_cm, gram.weights_pad, gram.sd_cm,
+        mu.reshape(3 * E, batch).contiguous(), omega_vm, mu_s=mu_s, scale_mode=scale_mode)
+    E1 = mu_full.shape[1]
+    G = Gk.T.reshape(batch, E1, E1)
+    SA = SAk.T.reshape(batch, 3, E1)
+    r = rk.T
+    Sb = Sbk.T
+    W = Wk[0]
+
+    if tj_lm is not None:
+        # The per-call joints block in the same centred variables (P4 - mu;
+        # the scale column -tj or p_j minus mu_s).
+        p_j, P4 = pre['p_j'], pre['P4']
+        bJ = tj_lm - p_j  # (3, J, B)
+        P4c = P4 - mu[:, :, None, :]
+        if scale_mode:
+            col_j = (-tj_lm if scale_target else p_j) - mu_s[:, None, :]
+            P4c = torch.cat([P4c, col_j[:, None]], dim=1)  # (3, E1, J, B)
+        P4w = P4c * jw_lm[None, None]
+        G = G + torch.einsum('aejb,afjb->bef', P4w, P4c)
+        r = r + torch.einsum('aejb,ajb->be', P4w, bJ)
+        SA = SA + torch.einsum('aejb,jb->bae', P4c, jw_lm)
+        Sb = Sb + torch.einsum('ajb,jb->ba', bJ, jw_lm)
+        W = W + jw_lm.sum(dim=0)
+
+    return _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regularizer2,
+                       kid_regularizer, beta_regularizer_reference, kid_regularizer_reference,
+                       requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer,
+                       trans_shift_jac=mu_full.permute(2, 0, 1))
 
 
 def lbs_recon_spec_lm(bm, plan, gram: GramData, glob_lm, x_T):

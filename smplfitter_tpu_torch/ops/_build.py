@@ -29,13 +29,14 @@ _I = ctypes.c_int
 # name -> argument types; every launcher returns a cudaError_t as int.
 _SIGNATURES = {
     'lbs_points_launch': [_P] * 5 + [_I] * 5 + [_P],
-    'rhs_moments_launch': [_P] * 13 + [_I] * 10 + [_P],
+    'rhs_moments_launch': [_P] * 14 + [_I] * 10 + [_P],
     'gram_assembly_launch': [_P] * 14 + [_I] * 4 + [_P],
-    'recon_part_sums_launch': [_P] * 13 + [_I] * 6 + [_P],
-    'part_sums_launch': [_P] * 9 + [_I] * 5 + [_P],
-    'recon_lbs_part_sums_launch': [_P] * 12 + [_I] * 6 + [_P],
+    'recon_part_sums_launch': [_P] * 14 + [_I] * 9 + [_P],
+    'part_sums_launch': [_P] * 10 + [_I] * 9 + [_P],
+    'recon_lbs_part_sums_launch': [_P] * 13 + [_I] * 9 + [_P],
     'posed_template_launch': [_P] * 3 + [_I] * 3 + [_P],
     'term1_launch': [_P] * 3 + [_I] * 3 + [_P],
+    'wgram_launch': [_P] * 15 + [_I] * 7 + [_P],
 }
 # name -> argument types of the shared-memory size queries (restype size_t).
 _SMEM_SIGNATURES = {
@@ -45,6 +46,7 @@ _SMEM_SIGNATURES = {
     'gram_assembly_smem_bytes': [_I, _I],
     'rhs_moments_smem_bytes': [_I, _I],
     'term1_smem_bytes': [_I],
+    'wgram_smem_bytes': [_I, _I, _I],
 }
 
 _lib = None

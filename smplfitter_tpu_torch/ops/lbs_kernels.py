@@ -9,7 +9,8 @@ kernel's plain twin (``*_ref``, written in PyTorch ops in this module): that
 is how the CPU tests hold the port to the JAX package. CUDA tensors go to the
 hand-written kernel in ``csrc/`` (built on first use, see ``_build.py``), or
 the wrapper raises; there is no fallback from one to the other. Each kernel
-launch adds one to ``LAUNCHES[<name>]``.
+launch adds one to ``LAUNCHES[<name>]``; a fit-weighted (ω) form counts
+under its own key, the unweighted key with ``_w`` appended.
 
 | wrapper                     | CUDA source                 | replaces (JAX package)           |
 |-----------------------------|-----------------------------|----------------------------------|
@@ -23,10 +24,15 @@ launch adds one to ``LAUNCHES[<name>]``.
 | recon_part_sums_lm          | csrc/recon_lbs_part_sums.cu | _recon_part_sums_kernel (K6)     |
 | posed_template_lm           | csrc/posed_template.cu      | _posed_template_kernel (K7)      |
 | term1                       | csrc/term1.cu               | _term1_kernel (K8)               |
+| wgram_moments               | csrc/wgram.cu               | _wgram_kernel (K9)               |
 
 ``gram_assembly`` runs K3 at small J and, where the JAX package streams
 term1 (SMPL-X, SMPL+H), K8 plus :func:`gram_mparts_ref` in PyTorch ops, as
 the JAX package leaves those pieces to XLA.
+
+Fit weights ω reach K2 as the static column (V_pad, 1) of a weighted fitter,
+and K4, K5 and K6 as that column or as per-call weights (V, B); K9 takes
+per-call weights only. Each form is a compile-time variant of its kernel.
 """
 
 from __future__ import annotations
@@ -52,6 +58,15 @@ LAUNCHES = {
     'recon_part_sums': 0,
     'posed_template': 0,
     'term1': 0,
+    'rhs_moments_h_w': 0,
+    'rhs_moments_w': 0,
+    'rhs_moments_scale_w': 0,
+    'rhs_moments_cached_w': 0,
+    'rhs_moments_cached_scale_w': 0,
+    'recon_part_sums_cached_w': 0,
+    'part_sums_w': 0,
+    'recon_part_sums_w': 0,
+    'wgram': 0,
 }
 
 # Row padding of the per-vertex constant operands (weights_pad, consts, sd_cm).
@@ -138,6 +153,26 @@ def _vertex_splits(Vp: int, B: int, device) -> tuple[int, int]:
     want = max(1, min(n_vtiles, math.ceil(4 * sms / grid_x)))
     tiles_per_block = -(-n_vtiles // want)
     return tiles_per_block, -(-n_vtiles // tiles_per_block)
+
+
+def _omega_strides(name: str, omega, v_t: int, B: int, Vp: int, static_only: bool = False):
+    """Check a fit-weight operand and give its kernel addressing: (rows,
+    row stride, batch stride). The static column is (V_pad, 1), read with a
+    batch stride of 0; per-call weights are (V_t, B), one per target row."""
+    if omega.dim() == 2 and omega.shape == (Vp, 1):
+        return Vp, 1, 0
+    if not static_only and omega.dim() == 2 and omega.shape == (v_t, B):
+        return v_t, B, 1
+    want = f'({Vp}, 1)' if static_only else f'({Vp}, 1) or ({v_t}, {B})'
+    raise ValueError(f'{name}: omega has shape {tuple(omega.shape)}, expected {want}')
+
+
+def _omega_rows(omega, v: int) -> torch.Tensor:
+    """The first v rows of a fit-weight operand (zero past its own rows):
+    (v, 1) static or (v, B) per call."""
+    if omega.shape[0] >= v:
+        return omega[:v]
+    return torch.cat([omega, omega.new_zeros((v - omega.shape[0], omega.shape[1]))])
 
 
 def _apply_blend(blend: torch.Tensor, homog: torch.Tensor) -> torch.Tensor:
@@ -227,9 +262,11 @@ def posed_template_lm(feat_cols, consts_pad):
 # ---------------------------------------------------------------------------
 
 
-def _rhs_twin(tgt_vm, pj_cm, homog, weights_pad, sd_cm, scale: bool):
+def _rhs_twin(tgt_vm, pj_cm, homog, weights_pad, sd_cm, scale: bool, omega=None):
     """The forms of K2 in plain PyTorch, from the posed template homog
-    (3, V_pad, B): (r, y[, rt, yt, sc])."""
+    (3, V_pad, B): (r, y[, rt, yt, sc]). A static ω column (V_pad, 1)
+    weights the residual, and in the scale form the targets and the three
+    second moments."""
     v_t = tgt_vm.shape[1]
     blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
     pos = _apply_blend(blend, homog)
@@ -238,6 +275,11 @@ def _rhs_twin(tgt_vm, pj_cm, homog, weights_pad, sd_cm, scale: bool):
     pos_t = torch.zeros_like(pos)
     pos_t[:, :v_t] = pos[:, :v_t]
     b = t - pos_t
+    om = None
+    if omega is not None:
+        om = torch.zeros((pos.shape[1], 1), dtype=pos.dtype, device=pos.device)
+        om[:v_t] = omega[:v_t]
+        b = b * om
 
     def moments(field):  # y (3, J, B) and r (E, B) of a per-vertex field
         y = torch.einsum('vj,avb->ajb', weights_pad, field)
@@ -247,42 +289,48 @@ def _rhs_twin(tgt_vm, pj_cm, homog, weights_pad, sd_cm, scale: bool):
     r, y = moments(b)
     out = (r, y)
     if scale:
-        rt, yt = moments(t)
-        sc = torch.stack([(t * t).sum(dim=(0, 1)), (t * pos_t).sum(dim=(0, 1)),
-                          (pos_t * pos_t).sum(dim=(0, 1))])
+        tw = t if om is None else t * om
+        rt, yt = moments(tw)
+        sc = torch.stack([(tw * t).sum(dim=(0, 1)), (tw * pos_t).sum(dim=(0, 1)),
+                          ((pos_t if om is None else pos_t * om) * pos_t).sum(dim=(0, 1))])
         out += (rt, yt, sc)
     return out
 
 
-def rhs_moments_h_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
+def rhs_moments_h_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, omega=None):
     """Plain twin of :func:`rhs_moments_h`."""
     homog = posed_template_ref(feat_cols, consts_pad)
-    return _rhs_twin(tgt_vm, pj_cm, homog, weights_pad, sd_cm, False) + (homog,)
+    return _rhs_twin(tgt_vm, pj_cm, homog, weights_pad, sd_cm, False, omega) + (homog,)
 
 
 def rhs_moments_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
-                    scale: bool = False):
+                    scale: bool = False, omega=None):
     """Plain twin of :func:`rhs_moments`."""
     return _rhs_twin(tgt_vm, pj_cm, posed_template_ref(feat_cols, consts_pad), weights_pad,
-                     sd_cm, scale)
+                     sd_cm, scale, omega)
 
 
-def rhs_moments_cached_ref(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: bool = False):
+def rhs_moments_cached_ref(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: bool = False,
+                           omega=None):
     """Plain twin of :func:`rhs_moments_cached`."""
-    return _rhs_twin(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale)
+    return _rhs_twin(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale, omega)
 
 
 def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
-              emit_homog: bool, scale: bool):
+              emit_homog: bool, scale: bool, omega=None):
     """Checks, then one K2 form: its kernel on CUDA tensors, its twin on CPU
-    ones. The cached form takes ``homog_vm`` in place of feat and consts."""
+    ones. The cached form takes ``homog_vm`` in place of feat and consts; a
+    static ω column selects the weighted form (its own launch count)."""
     cached = homog_vm is not None
+    if omega is not None:
+        name += '_w'
+    extra = {} if omega is None else dict(omega=omega)
     if cached:
         cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, homog_vm=homog_vm,
-                        weights_pad=weights_pad, sd_cm=sd_cm)
+                        weights_pad=weights_pad, sd_cm=sd_cm, **extra)
     else:
         cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
-                        weights_pad=weights_pad, consts_pad=consts_pad, sd_cm=sd_cm)
+                        weights_pad=weights_pad, consts_pad=consts_pad, sd_cm=sd_cm, **extra)
     _, J, B = pj_cm.shape
     Vp = weights_pad.shape[0]
     v_t = tgt_vm.shape[1]
@@ -302,11 +350,16 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, ho
             raise ValueError(f'{name}: consts_pad needs at least 3 channels')
     if v_t > Vp:
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
+    if omega is not None:
+        _omega_strides(name, omega, v_t, B, Vp, static_only=True)
     if not cuda:
         if cached:
-            return rhs_moments_cached_ref(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale)
+            return rhs_moments_cached_ref(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale,
+                                          **extra)
         args = (tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm)
-        return rhs_moments_h_ref(*args) if emit_homog else rhs_moments_ref(*args, scale=scale)
+        if emit_homog:
+            return rhs_moments_h_ref(*args, **extra)
+        return rhs_moments_ref(*args, scale=scale, **extra)
     if E > 32:
         raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
     lib = _build.library()
@@ -327,9 +380,9 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, ho
 
     err = lib.rhs_moments_launch(
         _ptr(tgt_vm), _ptr(pj_cm), ptr(feat_cols), _ptr(weights_pad), ptr(consts_pad),
-        _ptr(sd_cm), _ptr(r), _ptr(y), ptr(homog), ptr(rt), ptr(yt), ptr(sc), _ptr(part),
-        J, B, F, E, v_t, Vp, tiles_per_block, int(emit_homog), int(scale), int(cached),
-        _stream(r))
+        _ptr(sd_cm), ptr(omega), _ptr(r), _ptr(y), ptr(homog), ptr(rt), ptr(yt), ptr(sc),
+        _ptr(part), J, B, F, E, v_t, Vp, tiles_per_block, int(emit_homog), int(scale),
+        int(cached), _stream(r))
     _build.check(err, name)
     LAUNCHES[name] += 1
     if emit_homog:
@@ -337,33 +390,38 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, ho
     return (r, y, rt, yt, sc) if scale else (r, y)
 
 
-def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm):
+def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, omega=None):
     """Residual projection of the shape solve.
 
     With pos = the extended LBS of :func:`lbs_points` and b = tgt - pos (zero
     past the target's V rows): r (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T b_v)_c,
-    y (3, J, B) = sum_v w_vj b_v, and the posed template homog (3, V_pad, B)."""
+    y (3, J, B) = sum_v w_vj b_v, and the posed template homog (3, V_pad, B).
+    A static fit-weight column ``omega`` (V_pad, 1) multiplies b."""
     return _rhs_call('rhs_moments_h', tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
-                     None, emit_homog=True, scale=False)
+                     None, emit_homog=True, scale=False, omega=omega)
 
 
-def rhs_moments(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: bool = False):
+def rhs_moments(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: bool = False,
+                omega=None):
     """:func:`rhs_moments_h` without the posed template: (r, y). With
     ``scale=True`` also the target-side moments of the scale column,
     rt (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T t_v)_c, yt (3, J, B) =
     sum_v w_vj t_v and sc (3, B) = [sum |t|^2, sum t.pos, sum |pos|^2] over
-    the target's rows: (r, y, rt, yt, sc)."""
+    the target's rows: (r, y, rt, yt, sc). A static ``omega`` (V_pad, 1)
+    weights every vertex sum."""
     return _rhs_call('rhs_moments_scale' if scale else 'rhs_moments', tgt_vm, pj_cm, feat_cols,
-                     weights_pad, consts_pad, sd_cm, None, emit_homog=False, scale=scale)
+                     weights_pad, consts_pad, sd_cm, None, emit_homog=False, scale=scale,
+                     omega=omega)
 
 
-def rhs_moments_cached(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: bool = False):
+def rhs_moments_cached(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: bool = False,
+                       omega=None):
     """:func:`rhs_moments` from the cached posed template ``homog_vm``
     (3, V_pad, B) of :func:`posed_template_lm` instead of feat and consts:
     the same outputs, (r, y) or with ``scale=True`` (r, y, rt, yt, sc)."""
     return _rhs_call('rhs_moments_cached_scale' if scale else 'rhs_moments_cached', tgt_vm,
                      pj_cm, None, weights_pad, None, sd_cm, homog_vm, emit_homog=False,
-                     scale=scale)
+                     scale=scale, omega=omega)
 
 
 # ---------------------------------------------------------------------------
@@ -556,22 +614,35 @@ class PartIndex:
                    seg_offset=i32(seg_offset), part_seg=i32(part_seg))
 
 
-def recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, pm, weights_pad):
+def recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, pm, weights_pad,
+                               omega=None):
     """Plain twin of :func:`recon_part_sums_cached_lm` (``pm``: (J, V_pad))."""
     hfull = homog_vm + torch.einsum('cve,eb->cvb', sd_cm, x_cols)
     blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
-    return _part_sums_of(pm, tgt_vm, _apply_blend(blend, hfull))
+    return _part_sums_of(pm, tgt_vm, _apply_blend(blend, hfull), omega)
+
+
+def _omega_args(name, omega, v_t, B, Vp):
+    """The kernel's fit-weight arguments (pointer, rows, row and batch
+    strides), all zero without weights."""
+    if omega is None:
+        return None, 0, 0, 0
+    rows, rs, bs = _omega_strides(name, omega, v_t, B, Vp)
+    return _ptr(omega), rows, rs, bs
 
 
 def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: PartIndex,
-                              weights_pad):
+                              weights_pad, omega=None):
     """Per-part sums against the shape solve's reconstruction, rebuilt from
     the cached posed template: hfull = homog + SD x, pos = blended [R|t] hfull;
     raw (9, J, B) = sum_v pm_jv t_c pos_d (rows c*3+d), s_t (3, J, B) =
-    sum_v pm_jv t, s_a (3, J, B) = sum_v pm_jv pos."""
-    name = 'recon_part_sums_cached'
+    sum_v pm_jv t, s_a (3, J, B) = sum_v pm_jv pos. Fit weights ``omega``,
+    static (V_pad, 1) or per call (V_t, B), multiply pos in every sum and t
+    in s_t."""
+    name = 'recon_part_sums_cached' + ('' if omega is None else '_w')
+    extra = {} if omega is None else dict(omega=omega)
     cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, x_cols=x_cols, sd_cm=sd_cm,
-                    homog_vm=homog_vm, pm=parts.pm, weights_pad=weights_pad)
+                    homog_vm=homog_vm, pm=parts.pm, weights_pad=weights_pad, **extra)
     _, J, B = pj_cm.shape
     Vp = weights_pad.shape[0]
     v_t = tgt_vm.shape[1]
@@ -585,17 +656,18 @@ def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: Par
     _expect(name, 'weights_pad', weights_pad, (Vp, J))
     if v_t > Vp:
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
+    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
     if not cuda:
         return recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts.pm,
-                                          weights_pad)
+                                          weights_pad, **extra)
     if E > 32:
         raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
     err = _build.library().recon_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(x_cols), _ptr(sd_cm), _ptr(homog_vm),
-        _ptr(weights_pad), _ptr(parts.verts), _ptr(parts.seg_offset), _ptr(parts.part_seg),
-        _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, E, B, v_t, Vp, parts.n_seg,
-        _stream(raw))
+        _ptr(weights_pad), om_ptr, _ptr(parts.verts), _ptr(parts.seg_offset),
+        _ptr(parts.part_seg), _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, E, B, v_t, Vp,
+        parts.n_seg, om_rows, om_rs, om_bs, _stream(raw))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return raw, s_t, s_a
@@ -617,14 +689,26 @@ def _part_sums_outputs(name: str, parts: PartIndex, J: int, B: int, device):
     return empty(9, J, B), empty(3, J, B), empty(3, J, B), empty(max(parts.n_seg, 1), 15, B)
 
 
-def _part_sums_of(pm, t, a):
+def _part_sums_of(pm, t, a, omega=None):
     """raw (9, J, B), s_t, s_a (3, J, B) of a target t (3, V_t, B) and a
-    reference a (3, V_a, B) over the membership pm (J, >= max(V_t, V_a))."""
+    reference a (3, V_a, B|1) over the membership pm (J, >= max(V_t, V_a)).
+    Fit weights ``omega`` ((V_pad, 1) or (V_t, B)) multiply a in every sum and
+    t in s_t; rows past the target's are then left out of all three."""
+    if omega is None:
+        v = min(t.shape[1], a.shape[1])
+        pm_ta = pm[:, :v]
+        raw = torch.stack([pm_ta @ (t[c, :v] * a[d, :v]) for c in range(3) for d in range(3)])
+        s_t = torch.stack([pm[:, :t.shape[1]] @ t[c] for c in range(3)])
+        s_a = torch.stack([pm[:, :a.shape[1]] @ a[d] for d in range(3)])
+        return raw, s_t, s_a
+    B = t.shape[2]
     v = min(t.shape[1], a.shape[1])
-    pm_ta = pm[:, :v]
-    raw = torch.stack([pm_ta @ (t[c, :v] * a[d, :v]) for c in range(3) for d in range(3)])
-    s_t = torch.stack([pm[:, :t.shape[1]] @ t[c] for c in range(3)])
-    s_a = torch.stack([pm[:, :a.shape[1]] @ a[d] for d in range(3)])
+    om = _omega_rows(omega, t.shape[1])
+    pm_v = pm[:, :v]
+    aw = [a[d, :v] * om[:v] for d in range(3)]
+    raw = torch.stack([pm_v @ (t[c, :v] * aw[d]) for c in range(3) for d in range(3)])
+    s_t = torch.stack([pm[:, :t.shape[1]] @ (t[c] * om) for c in range(3)])
+    s_a = torch.stack([pm_v @ aw[d].expand(v, B) for d in range(3)])
     return raw, s_t, s_a
 
 
@@ -633,31 +717,40 @@ def _part_sums_of(pm, t, a):
 # ---------------------------------------------------------------------------
 
 
-def part_sums_ref(t_vm, a_vm, pm):
+def part_sums_ref(t_vm, a_vm, pm, omega=None):
     """Plain twin of :func:`part_sums_vm_lm` (``pm``: (J, V_pad))."""
-    return _part_sums_of(pm, t_vm, a_vm)
+    return _part_sums_of(pm, t_vm, a_vm, omega)
 
 
-def part_sums_vm_lm(t_vm, a_vm, parts: PartIndex):
+def part_sums_vm_lm(t_vm, a_vm, parts: PartIndex, omega=None):
     """Per-part sums of a target t (3, V_t, B) against a reference a
     (3, V_a, B) that varies over the batch: raw (9, J, B) = sum_v pm_jv t_c a_d
-    (rows c*3+d), s_t (3, J, B) = sum_v pm_jv t, s_a (3, J, B) = sum_v pm_jv a."""
-    name = 'part_sums'
-    cuda = _on_cuda(name, t_vm=t_vm, a_vm=a_vm, pm=parts.pm)
+    (rows c*3+d), s_t (3, J, B) = sum_v pm_jv t, s_a (3, J, B) = sum_v pm_jv a.
+
+    Fit weights ``omega``, static (V_pad, 1) or per call (V_t, B), multiply a
+    in every sum and t in s_t. With per-call weights the reference may be
+    batch-constant, (3, V_a, 1), read with a batch stride of 0 (the
+    unweighted and statically weighted forms of that case are one GEMM,
+    ``models/bodyfitter.py:_part_sums_static_ref_lm``)."""
+    name = 'part_sums' + ('' if omega is None else '_w')
+    extra = {} if omega is None else dict(omega=omega)
+    cuda = _on_cuda(name, t_vm=t_vm, a_vm=a_vm, pm=parts.pm, **extra)
     J, Vp = parts.pm.shape
     _, v_t, B = t_vm.shape
     v_a = a_vm.shape[1]
     _expect(name, 't_vm', t_vm, (3, v_t, B))
-    _expect(name, 'a_vm', a_vm, (3, v_a, B))
+    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
+    broadcast = om_bs == 1 and a_vm.dim() == 3 and a_vm.shape[2] == 1 and B > 1
+    _expect(name, 'a_vm', a_vm, (3, v_a, 1 if broadcast else B))
     if max(v_t, v_a) > Vp:
         raise ValueError(f'{name}: point rows {max(v_t, v_a)} exceed V_pad {Vp}')
     if not cuda:
-        return part_sums_ref(t_vm, a_vm, parts.pm)
+        return part_sums_ref(t_vm, a_vm, parts.pm, **extra)
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, t_vm.device)
     err = _build.library().part_sums_launch(
-        _ptr(t_vm), _ptr(a_vm), _ptr(parts.verts), _ptr(parts.seg_offset),
+        _ptr(t_vm), _ptr(a_vm), om_ptr, _ptr(parts.verts), _ptr(parts.seg_offset),
         _ptr(parts.part_seg), _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, B, v_t, v_a,
-        parts.n_seg, _stream(raw))
+        parts.n_seg, int(broadcast), om_rows, om_rs, om_bs, _stream(raw))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return raw, s_t, s_a
@@ -668,17 +761,21 @@ def part_sums_vm_lm(t_vm, a_vm, parts: PartIndex):
 # ---------------------------------------------------------------------------
 
 
-def recon_part_sums_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, pm):
+def recon_part_sums_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, pm, omega=None):
     """Plain twin of :func:`recon_part_sums_lm` (``pm``: (J, V_pad))."""
-    return _part_sums_of(pm, tgt_vm, lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad))
+    return _part_sums_of(pm, tgt_vm, lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad),
+                         omega)
 
 
-def recon_part_sums_lm(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts: PartIndex):
-    """Per-part sums (as :func:`part_sums_vm_lm`) of the targets against the
-    extended LBS of :func:`lbs_points`, which the kernel never writes out."""
-    name = 'recon_part_sums'
+def recon_part_sums_lm(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts: PartIndex,
+                       omega=None):
+    """Per-part sums (as :func:`part_sums_vm_lm`, with its ``omega``) of the
+    targets against the extended LBS of :func:`lbs_points`, which the kernel
+    never writes out."""
+    name = 'recon_part_sums' + ('' if omega is None else '_w')
+    extra = {} if omega is None else dict(omega=omega)
     cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
-                    weights_pad=weights_pad, consts_pad=consts_pad, pm=parts.pm)
+                    weights_pad=weights_pad, consts_pad=consts_pad, pm=parts.pm, **extra)
     _, J, B = pj_cm.shape
     F = feat_cols.shape[0]
     Vp = weights_pad.shape[0]
@@ -692,16 +789,146 @@ def recon_part_sums_lm(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts:
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
     if consts_pad.shape[0] < 3:
         raise ValueError(f'{name}: consts_pad needs at least 3 channels')
+    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
     if not cuda:
-        return recon_part_sums_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts.pm)
+        return recon_part_sums_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts.pm,
+                                   **extra)
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
     err = _build.library().recon_lbs_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
-        _ptr(parts.verts), _ptr(parts.seg_offset), _ptr(parts.part_seg), _ptr(raw), _ptr(s_t),
-        _ptr(s_a), _ptr(part), J, B, F, v_t, Vp, parts.n_seg, _stream(raw))
+        om_ptr, _ptr(parts.verts), _ptr(parts.seg_offset), _ptr(parts.part_seg), _ptr(raw),
+        _ptr(s_t), _ptr(s_a), _ptr(part), J, B, F, v_t, Vp, parts.n_seg, om_rows, om_rs, om_bs,
+        _stream(raw))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return raw, s_t, s_a
+
+
+# ---------------------------------------------------------------------------
+# K9: centred normal equations of the shape solve under per-call fit weights
+# ---------------------------------------------------------------------------
+
+_WGRAM_VCHUNK = 1024  # vertices per step of the plain twin (bounds its memory)
+
+
+def wgram_moments_ref(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_vm,
+                      mu_s=None, scale_mode: int = 0):
+    """Plain twin of :func:`wgram_moments`, in steps of vertices."""
+    V, B = omega_vm.shape
+    E = sd_cm.shape[2]
+    E1 = E + (1 if scale_mode else 0)
+    dev = tgt_vm.device
+    G = torch.zeros((E1, E1, B), device=dev)
+    SA = torch.zeros((3, E1, B), device=dev)
+    r = torch.zeros((E1, B), device=dev)
+    Sb = torch.zeros((3, B), device=dev)
+    mu = mu_cm.reshape(3, E, 1, B)
+    for v0 in range(0, V, _WGRAM_VCHUNK):
+        v1 = min(V, v0 + _WGRAM_VCHUNK)
+        w = weights_pad[v0:v1]
+        blend = torch.einsum('vj,xjb->xvb', w, pj_cm)
+        pos = _apply_blend(blend, homog_vm[:, v0:v1])
+        t = tgt_vm[:, v0:v1]
+        b = t - pos
+        om = omega_vm[v0:v1]
+        tbar = torch.einsum('vj,xjb->xvb', w, t4_cm).reshape(3, E, v1 - v0, B)
+        sd = sd_cm[:, v0:v1]  # (3, n, E)
+        rsd = torch.stack([
+            sum(blend[a * 4 + c][None] * sd[c].T[:, :, None] for c in range(3))
+            for a in range(3)])  # (3, E, n, B)
+        jac = tbar + rsd - mu
+        if scale_mode:
+            col = -t if scale_mode == 1 else pos
+            jac = torch.cat([jac, (col - mu_s[:, None, :])[:, None]], dim=1)
+        jw = jac * om
+        G += torch.einsum('aevb,afvb->efb', jw, jac)
+        SA += jw.sum(dim=2)
+        r += torch.einsum('aevb,avb->eb', jw, b)
+        Sb += (b * om).sum(dim=1)
+    W = omega_vm.sum(dim=0, keepdim=True)
+    return (G.reshape(E1 * E1, B), SA.reshape(3 * E1, B), r, Sb, W)
+
+
+def wgram_moments(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_vm,
+                  mu_s=None, scale_mode: int = 0):
+    """The shape solve's normal equations under per-call fit weights ω.
+
+    For each vertex v < V (the rows of ``omega_vm`` (V, B)) and column b: the
+    blended [R|t] of the skinning weights applied to the posed template
+    ``homog_vm`` (3, V_pad, B) gives pos; the residual is b = tgt - pos
+    (``tgt_vm`` (3, V, B)); the beta-Jacobian is jac[a, e] = sum_j w_vj
+    T4[a*E+e, j] + sum_c Rbar[a, c] SD_v[c, e] - mu[a*E+e] (``t4_cm``
+    (3E, J, B), ``sd_cm`` (3, V_pad, E), the centring mean ``mu_cm``
+    (3E, B)); ``scale_mode`` 1 (scale_target) or 2 (scale_fit) appends the
+    column -tgt or pos minus ``mu_s`` (3, B). Returns G (E1^2, B) = sum ω
+    jac^T jac, SA (3E1, B) = sum ω jac, r (E1, B) = sum ω jac^T b, Sb (3, B) =
+    sum ω b and W (1, B) = sum ω, E1 = E (+1 with the scale column)."""
+    name = 'wgram'
+    tensors = dict(tgt_vm=tgt_vm, pj_cm=pj_cm, homog_vm=homog_vm, t4_cm=t4_cm,
+                   weights_pad=weights_pad, sd_cm=sd_cm, mu_cm=mu_cm, omega_vm=omega_vm)
+    if scale_mode not in (0, 1, 2):
+        raise ValueError(f'{name}: scale_mode must be 0, 1 or 2, got {scale_mode}')
+    if (mu_s is not None) != bool(scale_mode):
+        raise ValueError(f'{name}: mu_s is required exactly when scale_mode is set')
+    if mu_s is not None:
+        tensors['mu_s'] = mu_s
+    cuda = _on_cuda(name, **tensors)
+    _, J, B = pj_cm.shape
+    Vp = weights_pad.shape[0]
+    V = omega_vm.shape[0]
+    E = sd_cm.shape[2]
+    _expect(name, 'omega_vm', omega_vm, (V, B))
+    _expect(name, 'tgt_vm', tgt_vm, (3, V, B))
+    _expect(name, 'pj_cm', pj_cm, (12, J, B))
+    _expect(name, 'homog_vm', homog_vm, (3, Vp, B))
+    _expect(name, 't4_cm', t4_cm, (3 * E, J, B))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    _expect(name, 'sd_cm', sd_cm, (3, Vp, E))
+    _expect(name, 'mu_cm', mu_cm, (3 * E, B))
+    if mu_s is not None:
+        _expect(name, 'mu_s', mu_s, (3, B))
+    if V > Vp:
+        raise ValueError(f'{name}: weight rows {V} exceed V_pad {Vp}')
+    if not cuda:
+        return wgram_moments_ref(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm,
+                                 omega_vm, mu_s, scale_mode)
+    if E > _WGRAM_MAXE:
+        raise ValueError(f'{name}: the kernel takes E <= {_WGRAM_MAXE}, got {E}')
+    lib = _build.library()
+    E1 = E + (1 if scale_mode else 0)
+    dev = tgt_vm.device
+    tiles_per_block, n_splits = _wgram_splits(V, B, dev)
+    n_out = E1 * (E1 + 1) // 2 + 4 * E1 + 4
+    part = torch.empty((n_splits, n_out, B), dtype=torch.float32, device=dev)
+    G = torch.empty((E1 * E1, B), dtype=torch.float32, device=dev)
+    SA = torch.empty((3 * E1, B), dtype=torch.float32, device=dev)
+    r = torch.empty((E1, B), dtype=torch.float32, device=dev)
+    Sb = torch.empty((3, B), dtype=torch.float32, device=dev)
+    W = torch.empty((1, B), dtype=torch.float32, device=dev)
+    err = lib.wgram_launch(
+        _ptr(tgt_vm), _ptr(pj_cm), _ptr(homog_vm), _ptr(t4_cm), _ptr(weights_pad), _ptr(sd_cm),
+        _ptr(mu_cm), _ptr(omega_vm), None if mu_s is None else _ptr(mu_s), _ptr(part), _ptr(G),
+        _ptr(SA), _ptr(r), _ptr(Sb), _ptr(W), J, E, B, V, Vp, scale_mode, tiles_per_block,
+        _stream(G))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return G, SA, r, Sb, W
+
+
+_WGRAM_MAXE = 17  # csrc/wgram.cu's largest instance
+_WGRAM_TB = 8  # batch columns per block of csrc/wgram.cu
+_WGRAM_TV = 32  # vertices per pass of csrc/wgram.cu
+
+
+def _wgram_splits(V: int, B: int, device) -> tuple[int, int]:
+    """(vertex passes per block, number of vertex splits) of K9: enough
+    splits that the grid holds about two blocks per SM (one fits at a time)."""
+    n_tiles = -(-V // _WGRAM_TV)
+    grid_x = -(-B // _WGRAM_TB)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(n_tiles, math.ceil(2 * sms / grid_x)))
+    tiles_per_block = -(-n_tiles // want)
+    return tiles_per_block, -(-n_tiles // tiles_per_block)
 
 
 # wrapper -> its plain twin
@@ -716,6 +943,7 @@ TWINS = {
     'recon_part_sums_lm': recon_part_sums_ref,
     'posed_template_lm': posed_template_ref,
     'term1': term1_ref,
+    'wgram_moments': wgram_moments_ref,
 }
 
 

@@ -1,7 +1,8 @@
 """Card tests of the PyTorch port: each CUDA kernel against its plain twin on
 the operands of the fitting paths (SMPL and SMPL-X), the launch counts of a
 fit with and without target joints and of an SMPL-X fit, and fits on the card
-against the same fits on the CPU.
+against the same fits on the CPU, unweighted and with fit weights (per call
+and static: K9 and the ω forms of K2, K4, K5 and K6).
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
 no JAX, so on a machine without JAX run it without the suite's conftest:
@@ -22,7 +23,7 @@ from smplfitter_tpu_torch.utils import synthetic
 
 pytestmark = pytest.mark.cuda
 
-REL_TOL = 1e-5  # max |kernel - twin| / max |twin|: f32 sums in another order
+REL_TOL = 1e-5  # max |kernel - twin| / its scale (_error_scales): f32 sums in another order
 FIT_KW = dict(num_iter=3, beta_regularizer=1.0, final_adjust_rots=True,
               requested_keys=('pose_rotvecs', 'shape_betas', 'trans'))
 WRAPPERS = ('lbs_points', 'rhs_moments_h', 'gram_assembly', 'recon_part_sums_cached_lm')
@@ -72,17 +73,37 @@ def _capture(bm, fitter, batch):
     return calls
 
 
+def _error_scales(name, args, want):
+    """max|twin| per output, except K9's SA and r, which cancel by
+    construction (a Jacobian centred by its own weighted mean; residuals of
+    either sign): they are held to the Cauchy-Schwarz bounds of their terms,
+    max sqrt(W G_ee) and max sqrt(G_ee sum ω |b|^2)."""
+    scales = [t.abs().max().item() for t in want]
+    if name == 'wgram_moments':
+        G, _, r, _, W = want
+        E1 = r.shape[0]
+        diag = G.reshape(E1, E1, -1).diagonal(dim1=0, dim2=1)  # (B, E1)
+        tgt, pj, homog, _, w, _, _, om = args[:8]
+        V = om.shape[0]
+        blend = torch.einsum('vj,xjb->xvb', w[:V], pj)
+        pos = lbs_kernels._apply_blend(blend, homog[:, :V])
+        bb = (((tgt - pos) ** 2).sum(dim=0) * om).sum(dim=0)
+        scales[1] = (W[0][:, None] * diag).sqrt().max().item()
+        scales[2] = (diag * bb[:, None]).sqrt().max().item()
+    return scales
+
+
 def _check_against_twin(name, calls):
     for args, kwargs in calls:
         got = getattr(lbs_kernels, name)(*args, **kwargs)
         got = got if isinstance(got, tuple) else (got,)
         want = lbs_kernels.twin_call(name, args, kwargs)
         assert len(got) == len(want)
-        for g, t in zip(got, want):
+        for g, t, scale in zip(got, want, _error_scales(name, args, want)):
             torch.cuda.synchronize()
             assert g.shape == t.shape and g.is_cuda
             assert torch.isfinite(g).all()
-            assert (g - t).abs().max().item() <= REL_TOL * t.abs().max().item()
+            assert (g - t).abs().max().item() <= REL_TOL * scale
 
 
 @pytest.mark.parametrize('batch', [64, 37])
@@ -284,3 +305,113 @@ def test_smplx_card_fit_matches_cpu_fit(smplx_models):
     spread = max(_own_spread(lambda a, b: cpu_fitter.fit(a, b, **FIT_KW), tv.cpu(), tj.cpu(), cpu),
                  _own_spread(lambda a, b: fitter.fit(a, b, **FIT_KW), tv, tj, card))
     assert _max_dbetas(card, cpu) <= max(1e-3, 4 * spread)
+
+
+# ---------------------------------------------------------------------------
+# Fit weights: K9 and the ω forms of K2, K4, K5 and K6
+# ---------------------------------------------------------------------------
+
+W_WRAPPERS = ('wgram_moments', 'rhs_moments_h', 'rhs_moments', 'part_sums_vm_lm',
+              'recon_part_sums_lm', 'recon_part_sums_cached_lm')
+
+
+def _fit_weights(batch, n, seed):
+    return np.random.default_rng(seed).uniform(0.1, 2.0, (batch, n)).astype(np.float32)
+
+
+@pytest.fixture(scope='module')
+def static_fitter(card_models):
+    bm = card_models[0]
+    return BodyFitter(bm, vertex_weights=_fit_weights(1, bm.num_vertices, 7)[0],
+                      joint_weights=_fit_weights(1, bm.num_joints, 8)[0])
+
+
+def _capture_weighted(bm, fitter, static_fitter, batch):
+    """The wrappers' arguments from per-call and static weighted fits: with
+    and without joints, with a scale column, and the known-shape fit."""
+    calls = {name: [] for name in W_WRAPPERS}
+    originals = {name: getattr(lbs_kernels, name) for name in W_WRAPPERS}
+
+    def recorder(name):
+        def wrapped(*args, **kwargs):
+            calls[name].append((args, kwargs))
+            return originals[name](*args, **kwargs)
+        return wrapped
+
+    pose, betas, trans = _params(batch, batch + 2)
+    out = bm(pose, betas, trans)
+    tv, tj = out['vertices'], out['joints']
+    vw = _fit_weights(batch, bm.num_vertices, batch)
+    jw = _fit_weights(batch, bm.num_joints, batch + 1)
+    try:
+        for name in W_WRAPPERS:
+            setattr(lbs_kernels, name, recorder(name))
+        fitter.fit(tv, tj, vertex_weights=vw, joint_weights=jw, num_iter=2)
+        fitter.fit(tv, vertex_weights=vw, num_iter=2, scale_fit=True)
+        fitter.fit_with_known_shape(betas, tv, tj, vertex_weights=vw, joint_weights=jw)
+        static_fitter.fit(tv, tj, num_iter=2)
+        static_fitter.fit(tv, num_iter=2, scale_target=True)
+        static_fitter.fit_with_known_shape(betas, tv, tj)
+    finally:
+        for name in W_WRAPPERS:
+            setattr(lbs_kernels, name, originals[name])
+    return {name: [c for c in cs if 'omega' in c[1] or name == 'wgram_moments']
+            for name, cs in calls.items()}
+
+
+@pytest.mark.parametrize('batch', [64, 37])
+@pytest.mark.parametrize('name', W_WRAPPERS + ('rhs_moments_cached',))
+def test_weighted_kernel_matches_twin(card_models, static_fitter, name, batch):
+    """Each ω form against its twin; K2's cached forms on the emit form's
+    operands with their posed template."""
+    calls = _capture_weighted(*card_models, static_fitter, batch)
+    if name == 'rhs_moments_cached':
+        calls = []
+        for args, kwargs in _capture_weighted(*card_models, static_fitter, batch)[
+                'rhs_moments_h']:
+            tgt, pj, feat, w, consts, sd = args
+            homog = lbs_kernels.posed_template_ref(feat, consts)
+            calls += [((tgt, pj, homog, w, sd), dict(kwargs, scale=s)) for s in (False, True)]
+    else:
+        calls = calls[name]
+    assert calls, f'{name} saw no weighted call'
+    _check_against_twin(name, calls)
+
+
+def test_weighted_fit_launch_counts(card_models, static_fitter):
+    """Per call (weights of both kinds, joints): K5ω once on the T-pose, then
+    per solve K7 and K9 and per later rotation fit K4ω. Static: K2 emit ω,
+    K3 and K4ω per solve; the first rotation fit is one GEMM."""
+    bm, fitter = card_models
+    out = bm(*_params(40, 9))
+    vw = _fit_weights(40, bm.num_vertices, 1)
+    jw = _fit_weights(40, bm.num_joints, 2)
+    lbs_kernels.reset_launch_counts()
+    fitter.fit(out['vertices'], out['joints'], vertex_weights=vw, joint_weights=jw, **FIT_KW)
+    assert lbs_kernels.LAUNCHES == dict(NO_LAUNCHES, part_sums_w=1, posed_template=3, wgram=3,
+                                        recon_part_sums_cached_w=3)
+    lbs_kernels.reset_launch_counts()
+    static_fitter.fit(out['vertices'], out['joints'], **FIT_KW)
+    assert lbs_kernels.LAUNCHES == dict(NO_LAUNCHES, rhs_moments_h_w=3, gram_assembly=3,
+                                        recon_part_sums_cached_w=3)
+
+
+@pytest.mark.parametrize('kind', ['per_call', 'static'])
+def test_weighted_card_fit_matches_cpu_fit(card_models, static_fitter, kind):
+    bm, fitter = card_models
+    out = bm(*_params(16, 4))
+    tv, tj = out['vertices'], out['joints']
+    cpu_bm = port_model_from(bm)
+    if kind == 'per_call':
+        kw = dict(FIT_KW, vertex_weights=_fit_weights(16, bm.num_vertices, 3),
+                  joint_weights=_fit_weights(16, bm.num_joints, 4))
+        card, cpu_fitter = fitter.fit(tv, tj, **kw), BodyFitter(cpu_bm)
+    else:
+        kw = FIT_KW
+        card = static_fitter.fit(tv, tj, **kw)
+        cpu_fitter = BodyFitter(cpu_bm, vertex_weights=static_fitter.static_vw,
+                                joint_weights=static_fitter.static_jw)
+    cpu = cpu_fitter.fit(tv.cpu(), tj.cpu(), **kw)
+    assert (card['shape_betas'].cpu() - cpu['shape_betas']).abs().max().item() <= 1e-3
+    for key in ('pose_rotvecs', 'trans'):
+        assert torch.allclose(card[key].cpu(), cpu[key], atol=1e-3), key
