@@ -3,10 +3,14 @@
 
 Usage, from the repository root on a machine with a CUDA device:
 
-    python3 chip_profile.py [--model smplx] [--path headline] [--gram-routes]
+    python3 chip_profile.py [--model smplx] [--path headline] [--grad] [--gram-routes]
 
 ``--path`` takes the headline, ``chip_smoke.PATHS`` (a-e) or the fit-weight
 paths ``chip_smoke.WPATHS`` (f-l, with ``chip_smoke``'s seeded weights).
+``--grad`` profiles the path's value and gradient instead: the summed squares
+of its pose rotation vectors, betas and translation (the default loss of
+``get_fit_grad_fn``) differentiated with respect to the targets, for the
+paths that return them (the headline, h).
 
 It builds the kernels, loads the synthetic model at full width (as
 ``chip_smoke.py`` does), makes one target set of ``chip_smoke.BATCH`` (4096)
@@ -43,6 +47,7 @@ def main() -> int:
     parser.add_argument('--model', default='smplx', choices=sorted(chip_smoke.MODELS))
     parser.add_argument('--path', default='headline',
                         choices=['headline', *chip_smoke.PATHS, *chip_smoke.WPATHS])
+    parser.add_argument('--grad', action='store_true')
     parser.add_argument('--gram-routes', action='store_true')
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -74,15 +79,21 @@ def main() -> int:
         p += tuple(chip_smoke.fit_weights(torch, rng, chip_smoke.BATCH, n, dev)
                    for n in (bm.num_vertices, bm.num_joints))
 
-        def run():
+        def call(tv, tj):
             return path['run'](fs, tv, tj, p)
     else:
         path = chip_smoke.HEADLINE if args.path == 'headline' else chip_smoke.PATHS[args.path]
 
-        def run():
+        def call(tv, tj):
             return path['run'](fitter, fitter_kid, tv, tj, p)
 
-    what = f'{args.model} {args.path} B={chip_smoke.BATCH}'
+    def run():
+        if not args.grad:
+            return call(tv, tj)
+        tv_g, tj_g = tv.detach().requires_grad_(), tj.detach().requires_grad_()
+        return torch.autograd.grad(port.api.default_loss(call(tv_g, tj_g)), (tv_g, tj_g))
+
+    what = f'{args.model} {args.path}{" value+grad" if args.grad else ""} B={chip_smoke.BATCH}'
     run()
     torch.cuda.synchronize()
     times = []

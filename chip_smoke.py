@@ -50,7 +50,27 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     per-call weights and joints; (l) static vertex weights without joints
     and ``scale_fit``, on SMPL and SMPL-X;
 12. each of paths f-l at B=32 on the card and on the CPU under the gate of
-    phase 10 (its own-spread limit on SMPL-X and SMPL+H).
+    phase 10 (its own-spread limit on SMPL-X and SMPL+H);
+13. runs every backward kernel (K10-K13 and the ω forms of K11-K13) against
+    its plain twin on the operands of real backward passes (the gradient of
+    the forward pass, and of the headline and known-pose fits of the plain
+    and the static-weight fitters, on SMPL, SMPL-X and MANO V=778) at B=4096
+    and B=1000, asserting
+    which kernels each model's gradients reach (BWD_CAPTURED), with times,
+    twin times and bounds at B=4096;
+14. the value and gradient of ``get_fit_grad_fn`` on the SMPL and SMPL-X
+    headline and static-weight fits at B=4096, with the forward fit's ms in
+    the same call and the launches per gradient asserted (K11 or K12 = 3,
+    K13 = 3 besides the forward kernels), of SMPL's known-pose fit (plain and
+    static weights: K11's plain form once), and the forward pass's gradient;
+15. the gradients at B=32 on the card against the CPU: the forward pass's
+    within 1e-5 x max|g|, the SMPL headline fit's and the SMPL-X known-pose
+    fit's (one solve through K7's, K12's and the streamed Gramian term's
+    backward) within 1e-3 x max|g|, the static-weight, SMPL-X (also with one
+    iteration) and SMPL+H fits' within the larger of that and 4x the
+    gradient's own spread (as phase 10: the rotation fits amplify rounding on
+    the hand models); and a per-call weighted fit under a gradient must
+    raise NotImplementedError (no backward kernel yet).
 
 It prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -59,6 +79,7 @@ exits non-zero; without a CUDA device it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import statistics
@@ -144,6 +165,42 @@ SMPL_ONLY = {'rhs_moments_h', 'rhs_moments', 'rhs_moments_scale', 'rhs_moments_h
 CAPTURED = {'smpl': set(KERNELS) - SMPLX_ONLY, 'smplx': set(KERNELS) - SMPL_ONLY}
 SCALE_FORM = {'rhs_moments': 'rhs_moments_scale',
               'rhs_moments_cached': 'rhs_moments_cached_scale'}
+
+# The backward kernels (phases 13-15), as KERNELS: LAUNCHES key -> (wrapper,
+# CUDA source, TPU kernel replaced, output names). K11 serves K2's emit-homog
+# form (with the emitted template's cotangent); the ω forms count under '_w'.
+BWD_KERNELS = {
+    'lbs_points_bwd': ('lbs_points_bwd', SRC + 'lbs_points_bwd.cu', TPU + '1017',
+                       ('dpj', 'dfeat')),
+    'rhs_moments_h_bwd': ('rhs_moments_bwd', SRC + 'rhs_bwd.cu', TPU + '1140',
+                          ('dtgt', 'dpj', 'dfeat')),
+    'rhs_moments_bwd': ('rhs_moments_bwd', SRC + 'rhs_bwd.cu', TPU + '1140',
+                        ('dtgt', 'dpj', 'dfeat')),
+    'rhs_moments_cached_bwd': ('rhs_moments_cached_bwd', SRC + 'rhs_bwd.cu', TPU + '2593',
+                               ('dtgt', 'dpj', 'dh')),
+    'recon_part_sums_cached_bwd': ('recon_part_sums_cached_bwd', SRC + 'recon_bwd.cu',
+                                   TPU + '2910', ('dtgt', 'dpj', 'dx', 'dh')),
+}
+BWD_KERNELS.update({key + '_w': BWD_KERNELS[key] for key in
+                    ('rhs_moments_h_bwd', 'rhs_moments_bwd', 'rhs_moments_cached_bwd',
+                     'recon_part_sums_cached_bwd')})
+BWD_WRAPPERS = sorted({spec[0] for spec in BWD_KERNELS.values()})
+SPECS = {**KERNELS, **BWD_KERNELS}
+# The backward keys each model's gradients reach (phase 13 asserts them):
+# the forward pass (K10), the headline fit, the known-pose fit (K11's plain
+# form on the small-F models) and the static-weight fitter's two (ω forms).
+BWD_CAPTURED = {
+    'smpl': {'lbs_points_bwd', 'rhs_moments_h_bwd', 'rhs_moments_bwd',
+             'recon_part_sums_cached_bwd', 'rhs_moments_h_bwd_w', 'rhs_moments_bwd_w',
+             'recon_part_sums_cached_bwd_w'},
+    'smplx': {'lbs_points_bwd', 'rhs_moments_cached_bwd', 'recon_part_sums_cached_bwd',
+              'rhs_moments_cached_bwd_w', 'recon_part_sums_cached_bwd_w'},
+    'mano': {'lbs_points_bwd', 'rhs_moments_h_bwd', 'rhs_moments_bwd',
+             'recon_part_sums_cached_bwd'},
+}
+N_GRAD_TARGETS = 4  # distinct target sets per value-and-gradient timing (phase 14)
+GRAD_PARITY_REL = 1e-3  # card vs CPU, x max|g_cpu| (tests/test_tpu_grad.py's limit)
+FWD_GRAD_PARITY_REL = 1e-5
 
 # The other fitting paths (phases 7-10): the call on (fitter, fitter_kid,
 # targets, params) and the kernel launches of one call, from the code, on SMPL
@@ -295,20 +352,16 @@ def kid_factors(rng, batch):
     return rng.normal(0, 0.5, (batch,)).astype(np.float32)
 
 
-def capture_kernel_calls(lbs_kernels, run) -> dict:
-    """Run ``run()`` with every kernel wrapper recording its arguments, by
-    LAUNCHES key."""
-    calls = {key: [] for key in KERNELS}
-    originals = {name: getattr(lbs_kernels, name) for name in WRAPPERS}
-    key_of = {spec[0]: key for key, spec in KERNELS.items()
-              if key not in SCALE_FORM.values() and not key.endswith('_w')}
+def record_calls(lbs_kernels, wrappers, run, key_of=lambda name, kwargs: name) -> dict:
+    """Run ``run()`` with the named wrappers of ``lbs_kernels`` recording their
+    arguments: {key_of(wrapper, kwargs): [(args, kwargs), ...]} (empty lists
+    for keys never called)."""
+    calls = collections.defaultdict(list)
+    originals = {name: getattr(lbs_kernels, name) for name in wrappers}
 
     def recorder(name, fn):
         def wrapped(*args, **kwargs):
-            key = SCALE_FORM[name] if kwargs.get('scale') else key_of[name]
-            if kwargs.get('omega') is not None:
-                key += '_w'
-            calls[key].append((args, kwargs))
+            calls[key_of(name, kwargs)].append((args, kwargs))
             return fn(*args, **kwargs)
         return wrapped
 
@@ -320,6 +373,16 @@ def capture_kernel_calls(lbs_kernels, run) -> dict:
         for name, fn in originals.items():
             setattr(lbs_kernels, name, fn)
     return calls
+
+
+FWD_KEY = {spec[0]: key for key, spec in KERNELS.items()
+           if key not in SCALE_FORM.values() and not key.endswith('_w')}
+
+
+def kernel_key(wrapper: str, kwargs) -> str:
+    """The LAUNCHES key of a forward wrapper's call."""
+    key = SCALE_FORM[wrapper] if kwargs.get('scale') else FWD_KEY[wrapper]
+    return key + ('_w' if kwargs.get('omega') is not None else '')
 
 
 def same_configuration(kw_a, kw_b) -> bool:
@@ -351,12 +414,12 @@ def error_scales(torch, lbs_kernels, key, args, want) -> list:
 
 
 def kernel_call(lbs_kernels, key, args, kwargs):
-    out = getattr(lbs_kernels, KERNELS[key][0])(*args, **kwargs)
+    out = getattr(lbs_kernels, SPECS[key][0])(*args, **kwargs)
     return out if isinstance(out, tuple) else (out,)
 
 
 def twin_call(lbs_kernels, key, args, kwargs):
-    return lbs_kernels.twin_call(KERNELS[key][0], args, kwargs)
+    return lbs_kernels.twin_call(SPECS[key][0], args, kwargs)
 
 
 def library_call(torch, key):
@@ -376,6 +439,8 @@ def kernel_work(key, args, kwargs=None) -> tuple[float, float]:
     its weights' bytes and one multiply per weighted term."""
     n = lambda t: float(t.numel())  # noqa: E731
     kwargs = kwargs or {}
+    if key in BWD_KERNELS:
+        return backward_work(key, args, kwargs)
     if key.endswith('_w'):
         flops, nbytes = kernel_work(key[:-2], args)
         om = kwargs['omega']
@@ -452,6 +517,56 @@ def kernel_work(key, args, kwargs=None) -> tuple[float, float]:
     return 2.0 * Vu * B * per, 4 * (3 * Vu * B + n(pj) + n(feat) + Vu * (J + 3 * F) + 15 * J * B)
 
 
+def backward_work(key, args, kwargs) -> tuple[float, float]:
+    """(operations, bytes) of a backward kernel's function on these operands:
+    the least work its formula needs, not the kernel's own recomputation. Per
+    (vertex, column), in FMAs: the blended [R|t] formed once (12J, or 9J where
+    only its rotation is used), the 12 dpj fields reduced over the joints
+    (12J), K11/K12's gy term (3J), the posed template and the feature
+    reduction (3F each, K10/K11), G = SD gr or SD x and the shape reduction
+    (3E each), and per-vertex constants: each 3 x 3 product with the formed
+    blend (9: the position, blend . G, Rbar^T of a field), K13's two 3 x 3
+    products with the part's cotangents (18), the 9 dpj field products (9)
+    and the residual (3). K13 counts the vertices that belong to a part (the
+    others add nothing). Inputs read once, outputs written once; ω adds its
+    column and 6 multiplies (3 FMAs' worth)."""
+    n = lambda t: float(t.numel())  # noqa: E731
+    omega = kwargs.get('omega')
+    if key.startswith('lbs_points_bwd'):
+        g, pj, feat, w, consts = args
+        _, J, B = pj.shape
+        F, Vp = feat.shape[0], w.shape[0]
+        per = 6 * F + 21 * J + 9
+        return (2.0 * Vp * B * per,
+                4 * (n(g) + n(pj) + n(feat) + n(w) + 3 * Vp * F + (12 * J + F) * B))
+    if key.startswith('recon_part_sums_cached_bwd'):
+        graw, gst, gsa, tgt, pj, x, sd, homog, parts, w = args
+        _, J, B = pj.shape
+        E, Vp = x.shape[0], w.shape[0]
+        Vu = float(parts.verts.numel())
+        # blend 12J, dpj 12J, SD x and dx 6E, position and Rbar^T dpos 18,
+        # dtgt and dpos from the part's cotangents 18, dpj products 9
+        per = 6 * E + 24 * J + 45 + (3 if omega is not None else 0)
+        ins = n(graw) + n(gst) + n(gsa) + 3 * min(Vu, tgt.shape[1]) * B + n(pj) + n(x)
+        ins += Vu * (3 * E + J) + 3 * Vu * B + (Vp if omega is not None else 0)
+        outs = n(tgt) + (12 * J + E) * B + 3 * Vp * B
+        return 2.0 * Vu * B * per, 4 * (ins + outs)
+    cached = key.startswith('rhs_moments_cached_bwd')
+    gr, gy, tgt, pj = args[:4]
+    w, sd = (args[5], args[6]) if cached else (args[5], args[7])
+    _, J, B = pj.shape
+    Vp, E = w.shape[0], sd.shape[2]
+    F = 0 if cached else args[4].shape[0]
+    # blend 12J, gy term 3J, dpj 12J, template and dfeat 6F, G 3E, position,
+    # blend . G and Rbar^T db 27, dpj products 9, residual 3
+    per = 6 * F + 27 * J + 3 * E + 39 + (3 if omega is not None else 0)
+    ins = n(gr) + n(gy) + n(tgt) + n(pj) + n(w) + n(sd) + (Vp if omega is not None else 0)
+    ins += 3 * Vp * B if cached else n(args[4]) + 3 * Vp * F
+    ins += 3 * Vp * B if kwargs.get('gh') is not None else 0
+    outs = n(tgt) + 12 * J * B + (3 * Vp * B if cached else F * B)
+    return 2.0 * Vp * B * per, 4 * (ins + outs)
+
+
 def bound(key, args, kwargs=None) -> tuple[float, str]:
     flops, nbytes = kernel_work(key, args, kwargs)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -500,7 +615,7 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
         params = [random_params(rng, batch, model) for _ in range(3)]
         kid = torch.as_tensor(kid_factors(kid_rng, batch), device=dev)
         lbs_kernels.reset_launch_counts()
-        calls = capture_kernel_calls(lbs_kernels, make_run(params, kid))
+        calls = record_calls(lbs_kernels, WRAPPERS, make_run(params, kid), kernel_key)
         captured = {key for key, arg_sets in calls.items() if arg_sets}
         if captured != CAPTURED[model]:
             raise AssertionError(f'{label} at B={batch}: the paths reached {sorted(captured)}, '
@@ -515,47 +630,150 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
                                            calls['recon_part_sums_cached']}:
             raise AssertionError(f'{label} at B={batch}: K4 saw no operands with E = 17')
         for key in [k for k in KERNELS if k in captured]:
-            arg_sets = calls[key]
-            res = results.setdefault(key, dict(max_abs_err=0.0, rel_err={}))
-            outputs = KERNELS[key][3]
-            for args, kwargs in arg_sets:
-                got = kernel_call(lbs_kernels, key, args, kwargs)
-                want = twin_call(lbs_kernels, key, args, kwargs)
-                torch.cuda.synchronize()
-                scales = error_scales(torch, lbs_kernels, key, args, want)
-                for out_name, g, w, scale in zip(outputs, got, want, scales, strict=True):
-                    abs_err = (g - w).abs().max().item()
-                    rel = abs_err / scale if scale > 0 else abs_err
-                    if not (rel <= KERNEL_REL_TOL and torch.isfinite(g).all().item()):
-                        raise AssertionError(
-                            f'{label} {key}.{out_name} at B={batch}: max|kernel - twin| = '
-                            f'{abs_err:.3e} = {rel:.3e} x its scale > {KERNEL_REL_TOL}')
-                    res['max_abs_err'] = max(res['max_abs_err'], abs_err)
-                    res['rel_err'][out_name] = max(res['rel_err'].get(out_name, 0.0), rel)
-                del got, want
-            # Timed over the calls of the first call's configuration (same
-            # keyword arguments and operand shapes).
-            args0, kw = arg_sets[0]
-            shapes0 = [getattr(a, 'shape', None) for a in args0]
-            sets = [args for args, kwargs in arg_sets
-                    if same_configuration(kwargs, kw)
-                    and [getattr(a, 'shape', None) for a in args] == shapes0]
-            errs = ' '.join(f'{k} {v:.2e}' for k, v in res['rel_err'].items())
-            line = f'{label:6s} {key:24s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
-            if batch == BATCH:
-                res['ms'] = time_ms(torch, lambda *a: kernel_call(lbs_kernels, key, a, kw), sets)
-                res['plain_ms'] = time_ms(torch, lambda *a: twin_call(lbs_kernels, key, a, kw),
-                                          sets)
-                lib = library_call(torch, key)
-                res['library_ms'] = None if lib is None else time_ms(torch, lib, sets)
-                res['bound_ms'], res['bound_by'] = bound(key, args0, kw)
-                lib_txt = '' if lib is None else f'  library {res["library_ms"]:.3f} ms'
-                line += (f'  kernel {res["ms"]:.3f} ms  twin {res["plain_ms"]:.3f} ms{lib_txt}'
-                         f'  bound {res["bound_ms"]:.3f} ms ({res["bound_by"]})')
-            log(line)
+            hold_to_twin(torch, lbs_kernels, label, key, calls[key], batch, results)
         del calls
         torch.cuda.empty_cache()
     return results
+
+
+def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results) -> None:
+    """Hold every captured call of one kernel to its twin (KERNEL_REL_TOL of
+    its error scale per output); at B=4096 also time kernel, twin and library
+    call over the calls of the first call's configuration and reckon the
+    bound. Without autograd: captured backward operands may carry history."""
+    with torch.no_grad():
+        res = results.setdefault(key, dict(max_abs_err=0.0, rel_err={}))
+        outputs = SPECS[key][3]
+        for args, kwargs in arg_sets:
+            got = kernel_call(lbs_kernels, key, args, kwargs)
+            want = twin_call(lbs_kernels, key, args, kwargs)
+            torch.cuda.synchronize()
+            scales = error_scales(torch, lbs_kernels, key, args, want)
+            for out_name, g, w, scale in zip(outputs, got, want, scales, strict=True):
+                abs_err = (g - w).abs().max().item()
+                rel = abs_err / scale if scale > 0 else abs_err
+                if not (rel <= KERNEL_REL_TOL and torch.isfinite(g).all().item()):
+                    raise AssertionError(
+                        f'{label} {key}.{out_name} at B={batch}: max|kernel - twin| = '
+                        f'{abs_err:.3e} = {rel:.3e} x its scale > {KERNEL_REL_TOL}')
+                res['max_abs_err'] = max(res['max_abs_err'], abs_err)
+                res['rel_err'][out_name] = max(res['rel_err'].get(out_name, 0.0), rel)
+            del got, want
+        args0, kw = arg_sets[0]
+        shapes0 = [getattr(a, 'shape', None) for a in args0]
+        sets = [args for args, kwargs in arg_sets if same_configuration(kwargs, kw)
+                and [getattr(a, 'shape', None) for a in args] == shapes0]
+        errs = ' '.join(f'{k} {v:.2e}' for k, v in res['rel_err'].items())
+        line = f'{label:6s} {key:28s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
+        if batch == BATCH:
+            res['ms'] = time_ms(torch, lambda *a: kernel_call(lbs_kernels, key, a, kw), sets)
+            res['plain_ms'] = time_ms(torch, lambda *a: twin_call(lbs_kernels, key, a, kw), sets)
+            lib = library_call(torch, key)
+            res['library_ms'] = None if lib is None else time_ms(torch, lib, sets)
+            res['bound_ms'], res['bound_by'] = bound(key, args0, kw)
+            lib_txt = '' if lib is None else f'  library {res["library_ms"]:.3f} ms'
+            line += (f'  kernel {res["ms"]:.3f} ms  twin {res["plain_ms"]:.3f} ms{lib_txt}'
+                     f'  bound {res["bound_ms"]:.3f} ms ({res["bound_by"]})')
+        log(line)
+
+
+def bwd_key(wrapper: str, kwargs) -> str:
+    """The LAUNCHES key of a backward wrapper's call."""
+    key = {'lbs_points_bwd': 'lbs_points_bwd',
+           'rhs_moments_bwd': ('rhs_moments_h_bwd' if kwargs.get('gh') is not None
+                               else 'rhs_moments_bwd'),
+           'rhs_moments_cached_bwd': 'rhs_moments_cached_bwd',
+           'recon_part_sums_cached_bwd': 'recon_part_sums_cached_bwd'}[wrapper]
+    return key + ('_w' if kwargs.get('omega') is not None else '')
+
+
+def known_pose_loss(res):
+    """The loss of the known-pose gradient: summed squares of betas and
+    translation."""
+    return (res['shape_betas'] ** 2).sum() + (res['trans'] ** 2).sum()
+
+
+def known_pose_vg(torch, fitter, pose):
+    """``vg(tv, tj) -> (value, (g_tv,))``: known_pose_loss of the known-pose
+    fit and its gradient in the target vertices (tj unused)."""
+    def vg(tv, tj):
+        tv = tv.detach().requires_grad_()
+        loss = known_pose_loss(fitter.fit_with_known_pose(pose.to(tv.device), tv))
+        return loss.detach(), torch.autograd.grad(loss, tv)
+    return vg
+
+
+def backward_pass(torch, bm, fitters, params) -> None:
+    """The gradients of a forward pass (sum of sin(vertices) in pose, betas and
+    translation), of each fitter's headline fit (the default loss in the
+    targets) and of its known-pose fit (known_pose_loss in the vertices)."""
+    from smplfitter_tpu_torch.api import default_loss
+
+    p = [x.detach().requires_grad_() for x in params]
+    out = bm(*p)
+    torch.autograd.grad(torch.sin(out['vertices']).sum(), p)
+    tv = out['vertices'].detach().requires_grad_()
+    tj = out['joints'].detach().requires_grad_()
+    for fitter in fitters:
+        torch.autograd.grad(default_loss(fitter.fit(tv, tj, **FIT_KW)), (tv, tj))
+        torch.autograd.grad(known_pose_loss(fitter.fit_with_known_pose(params[0], tv)), tv)
+
+
+def check_backward_kernels(torch, lbs_kernels, label, bm, fitters, dev, rng, model) -> dict:
+    """Phase 13 for one model: capture the backward kernels' operands from the
+    backward passes at B=4096 and B=1000, assert which kernels they reach,
+    hold each to its twin and at B=4096 time it."""
+    results = {}
+    for batch in (BATCH, RAGGED_BATCH):
+        params = [torch.as_tensor(x, device=dev) for x in random_params(rng, batch, model)]
+        calls = record_calls(lbs_kernels, BWD_WRAPPERS,
+                             lambda: backward_pass(torch, bm, fitters, params), bwd_key)
+        captured = {key for key, arg_sets in calls.items() if arg_sets}
+        if captured != BWD_CAPTURED[model]:
+            raise AssertionError(f'{label} at B={batch}: the gradients reached {sorted(captured)},'
+                                 f' expected {sorted(BWD_CAPTURED[model])}')
+        for key in [k for k in BWD_KERNELS if k in captured]:
+            hold_to_twin(torch, lbs_kernels, label, key, calls[key], batch, results)
+        del calls
+        torch.cuda.empty_cache()
+    return results
+
+
+def grad_parity(name, vg_card, vg_cpu, tv, tj, failures, noise_floor=False) -> None:
+    """A value-and-gradient function on the card and on the CPU: each
+    gradient within GRAD_PARITY_REL x max|g_cpu|, with ``noise_floor`` within
+    the larger of that and SPREAD_MULT x the gradient's own spread (its largest
+    change, relative to max|g|, over NOISE_SEEDS seeded changes of tv and tj
+    by a factor 1 + NOISE_REL N(0, 1), on the CPU and on the card)."""
+    import torch
+
+    tv_c, tj_c = tv.cpu(), tj.cpu()
+    card = vg_card(tv, tj)[1]
+    cpu = vg_cpu(tv_c, tj_c)[1]
+
+    def rel(a, b):
+        return max(((x.cpu() - y.cpu()).abs().max() / y.abs().max().cpu()).item()
+                   for x, y in zip(a, b))
+
+    err = rel(card, cpu)
+    limit, spread = GRAD_PARITY_REL, ''
+    if noise_floor:
+        own = dict(cpu=0.0, card=0.0)
+        for seed in range(NOISE_SEEDS):
+            g = torch.Generator().manual_seed(SEED + seed)
+            tv_n, tj_n = (t * (1 + NOISE_REL * torch.randn(t.shape, generator=g))
+                          for t in (tv_c, tj_c))
+            own['cpu'] = max(own['cpu'], rel(vg_cpu(tv_n, tj_n)[1], cpu))
+            own['card'] = max(own['card'], rel(vg_card(tv_n.to(tv.device),
+                                                       tj_n.to(tv.device))[1], card))
+        limit = max(limit, SPREAD_MULT * max(own.values()))
+        spread = (f'; own spread over {NOISE_SEEDS} target changes x (1 + {NOISE_REL:g} N): '
+                  f'cpu {own["cpu"]:.3e} card {own["card"]:.3e}, limit {SPREAD_MULT}x')
+    ok = err <= limit and all(torch.isfinite(g).all().item() for g in card)
+    log(f'{name}: ok={ok} max|g_card - g_cpu| / max|g_cpu| = {err:.3e} (limit {limit:.3e}; '
+        f'{GRAD_PARITY_REL:g} {"held" if err <= GRAD_PARITY_REL else "missed"}){spread}')
+    if not ok:
+        failures.append(name)
 
 
 def time_path(torch, lbs_kernels, run, fitter, fitter_kid, targets, inputs, kids):
@@ -919,18 +1137,176 @@ def main() -> int:
             if model in path['models']:
                 parity(f'{model} {name}', path['run'], (fs,), (cpu_fs,), bm_w, tv, tj, params,
                        failures, noise_floor=model != 'smpl')
+    # 13. The backward kernels against their twins on real backward passes.
+    log('== phase 13: backward kernels vs plain twins (SMPL, SMPL-X, MANO V=778; forward '
+        'pass, headline and known-pose fits, static weights on SMPL and SMPL-X)')
+    bm_m, fitter_m, _ = load('mano')
+    bwd_results = {
+        'smpl': check_backward_kernels(torch, lbs_kernels, 'smpl', bm,
+                                       (fitter, wfitters['smpl']['static']), dev, rng, 'smpl'),
+        'smplx': check_backward_kernels(torch, lbs_kernels, 'smplx', bm_x,
+                                        (fitter_x, wfitters['smplx']['static']), dev, rng,
+                                        'smplx'),
+        'mano': check_backward_kernels(torch, lbs_kernels, 'mano', bm_m, (fitter_m,), dev, rng,
+                                       'mano')}
+    torch.cuda.empty_cache()
+
+    # 14. This slice's path: value and gradient at full width, launches asserted.
+    log(f'== phase 14: value and gradient, B={BATCH}, {N_GRAD_TARGETS} distinct target sets')
+    def headline(f):
+        vg = port.get_fit_grad_fn(f)
+        return (lambda tv, tj, pose: f.fit(tv, tj, **FIT_KW),
+                lambda tv, tj, pose: vg(tv, tj))
+
+    def known_pose(f):
+        return (lambda tv, tj, pose: f.fit_with_known_pose(pose, tv),
+                lambda tv, tj, pose: known_pose_vg(torch, f, pose)(tv, tj))
+
+    static, static_x = wfitters['smpl']['static'], wfitters['smplx']['static']
+    # name -> (model, (fit call, value-and-gradient call), launches per value+grad)
+    grad_paths = {
+        'smpl headline': (bm, headline(fitter), dict(
+            rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=3, rhs_moments_h_bwd=3,
+            recon_part_sums_cached_bwd=3)),
+        'smpl h_static_weights': (bm, headline(static), dict(
+            rhs_moments_h_w=3, gram_assembly=3, recon_part_sums_cached_w=3,
+            rhs_moments_h_bwd_w=3, recon_part_sums_cached_bwd_w=3)),
+        'smpl d_known_pose': (bm, known_pose(fitter), dict(
+            rhs_moments=1, gram_assembly=1, rhs_moments_bwd=1)),
+        'smpl d_known_pose static weights': (bm, known_pose(static), dict(
+            rhs_moments_w=1, gram_assembly=1, rhs_moments_bwd_w=1)),
+        'smplx headline': (bm_x, headline(fitter_x), dict(
+            _per_solve(3, recon_part_sums_cached=3), rhs_moments_cached_bwd=3,
+            recon_part_sums_cached_bwd=3)),
+        'smplx h_static_weights': (bm_x, headline(static_x), dict(
+            posed_template=3, rhs_moments_cached_w=3, term1=3, recon_part_sums_cached_w=3,
+            rhs_moments_cached_bwd_w=3, recon_part_sums_cached_bwd_w=3)),
+    }
+    for name, (bm_g, (fit_fn, vg), per_grad) in grad_paths.items():
+        model = name.split()[0]
+        targets = []
+        for _ in range(N_GRAD_TARGETS):
+            p = [torch.as_tensor(x, device=dev) for x in random_params(rng, BATCH, model)]
+            out = bm_g(*p)
+            targets.append((out['vertices'], out['joints'], p[0]))
+        times = {}
+        for what, fn in (('fit', fit_fn), ('value+grad', vg)):
+            fn(*targets[0])  # warm-up
+            torch.cuda.synchronize()
+            lbs_kernels.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            outs = [fn(*t) for t in targets]
+            end.record()
+            torch.cuda.synchronize()
+            times[what] = start.elapsed_time(end) / N_GRAD_TARGETS
+            if what == 'value+grad':
+                check_launches(dict(lbs_kernels.LAUNCHES), per_grad, N_GRAD_TARGETS,
+                               f'phase 14 {name}')
+                for key in total_launches:
+                    total_launches[key] += lbs_kernels.LAUNCHES[key]
+                for value, grads in outs:
+                    if not (torch.isfinite(value) and all(torch.isfinite(g).all() for g in grads)
+                            and grads[0].abs().max() > 0):
+                        raise AssertionError(f'phase 14 {name}: a gradient is not finite or zero')
+            del outs
+        log(f'{name}: value+grad {times["value+grad"]:.2f} ms per B={BATCH} call against the '
+            f'fit {times["fit"]:.2f} ms ({times["value+grad"] / times["fit"]:.2f}x; CUDA '
+            f'events, mean of {N_GRAD_TARGETS}), launches per value+grad {json.dumps(per_grad)} '
+            f'on {smi}')
+        del targets
+        torch.cuda.empty_cache()
+    p = [torch.as_tensor(x, device=dev).requires_grad_() for x in random_params(rng, BATCH)]
+
+    def forward_grad(p=p):
+        return torch.autograd.grad(torch.sin(bm(*p)['vertices']).sum(), p)
+
+    forward_grad()
+    torch.cuda.synchronize()
+    lbs_kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(N_GRAD_TARGETS):
+        forward_grad()
+    end.record()
+    torch.cuda.synchronize()
+    check_launches(dict(lbs_kernels.LAUNCHES), dict(lbs_points=1, lbs_points_bwd=1),
+                   N_GRAD_TARGETS, 'phase 14 forward gradient')
+    for key in total_launches:
+        total_launches[key] += lbs_kernels.LAUNCHES[key]
+    log(f'smpl forward gradient: {start.elapsed_time(end) / N_GRAD_TARGETS:.2f} ms per B={BATCH}'
+        f' call (CUDA events), launches lbs_points 1, lbs_points_bwd 1 on {smi}')
+    del p
+    torch.cuda.empty_cache()
+
+    # 15. Gradients on the card against the CPU at B=32, and the guard.
+    log(f'== phase 15: gradients, B={PARITY_BATCH}, card vs CPU')
+    rng = np.random.default_rng(SEED + 15)  # targets independent of earlier phases' draws
+    params = [torch.as_tensor(x, device=dev) for x in random_params(rng, PARITY_BATCH)]
+    cpu_fitter = cpu_fitters('smpl', bm, True)[0]
+    cpu_bm = cpu_fitter.body_model
+    grads = []
+    for model_f, ps in ((bm, params), (cpu_bm, [x.cpu() for x in params])):
+        ps = [x.detach().requires_grad_() for x in ps]
+        grads.append(torch.autograd.grad(torch.sin(model_f(*ps)['vertices']).sum(), ps))
+    err = max(((g.cpu() - c).abs().max() / c.abs().max()).item() for g, c in zip(*grads))
+    ok = err <= FWD_GRAD_PARITY_REL
+    log(f'smpl forward gradient: ok={ok} max|g_card - g_cpu| / max|g_cpu| = {err:.3e} '
+        f'(limit {FWD_GRAD_PARITY_REL:g})')
+    if not ok:
+        failures.append('smpl forward gradient')
+    out = bm(*params)
+    tv, tj = out['vertices'].detach(), out['joints'].detach()
+    grad_parity('smpl headline gradient', port.get_fit_grad_fn(fitter),
+                port.get_fit_grad_fn(cpu_fitter), tv, tj, failures)
+    cpu_static = port.BodyFitter(cpu_bm,
+                                 vertex_weights=static.static_vw, joint_weights=static.static_jw)
+    grad_parity('smpl h_static_weights gradient', port.get_fit_grad_fn(static),
+                port.get_fit_grad_fn(cpu_static), tv, tj, failures, noise_floor=True)
+    for name, bm_o, fitter_o in (('smplx', bm_x, fitter_x), ('smplh16', bm_h, fitter_h)):
+        p = [torch.as_tensor(x, device=dev) for x in random_params(rng, PARITY_BATCH, name)]
+        out = bm_o(*p)
+        tv, tj = out['vertices'].detach(), out['joints'].detach()
+        cpu_f = cpu_fitters(name, bm_o)[0]
+        grad_parity(f'{name} headline gradient', port.get_fit_grad_fn(fitter_o),
+                    port.get_fit_grad_fn(cpu_f), tv, tj, failures, noise_floor=True)
+        if name == 'smplx':
+            # The large-model route's backward (K7's GEMM, the streamed term's
+            # VJP, K12's dh) through one solve, with no rotation fit to
+            # amplify rounding: the plain limit. One iteration with the final
+            # adjustment for comparison, under the spread rule.
+            grad_parity('smplx d_known_pose gradient', known_pose_vg(torch, fitter_o, p[0]),
+                        known_pose_vg(torch, cpu_f, p[0]), tv, tj, failures)
+            grad_parity('smplx num_iter=1 gradient', port.get_fit_grad_fn(fitter_o, num_iter=1),
+                        port.get_fit_grad_fn(cpu_f, num_iter=1), tv, tj, failures,
+                        noise_floor=True)
+    out = bm(*params)
+    tv = out['vertices'].detach().requires_grad_()
+    try:
+        fitter.fit(tv, out['joints'], vertex_weights=fit_weights(torch, w_rng, PARITY_BATCH,
+                                                                 bm.num_vertices, dev),
+                   joint_weights=fit_weights(torch, w_rng, PARITY_BATCH, bm.num_joints, dev),
+                   **FIT_KW)
+    except NotImplementedError as e:
+        log(f'guard: a per-call weighted fit under a gradient raised NotImplementedError: {e}')
+    else:
+        raise AssertionError('a per-call weighted fit under a gradient did not raise')
+
     if failures:
         raise AssertionError(f'the card disagrees with the CPU on: {failures}')
 
-    unlaunched = [key for key, n in total_launches.items() if n == 0]
+    unlaunched = [key for key in SPECS if total_launches[key] == 0]
     if unlaunched:
         raise AssertionError(f'kernels never launched on the fitting paths: {unlaunched}')
 
     kernels = []
-    for key, (_, source, replaces, _) in KERNELS.items():
+    for key, (_, source, replaces, _) in SPECS.items():
         # This slice's measurements where the kernel runs on SMPL-X, else SMPL's.
-        model = 'smplx' if key in results['smplx'] else 'smpl'
-        r = results[model][key]
+        by_model = results if key in KERNELS else bwd_results
+        model = 'smplx' if key in by_model['smplx'] else 'smpl'
+        r = by_model[model][key]
         kernels.append(dict(name=key, route='cuda', source=source, replaces=replaces,
                             launches=total_launches[key], max_abs_err=r['max_abs_err'],
                             ms=r['ms'], plain_ms=r['plain_ms'], bound_ms=r['bound_ms'],

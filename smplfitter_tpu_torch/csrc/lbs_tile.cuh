@@ -153,4 +153,49 @@ __device__ inline void pos_tile(float pos[3][4][4], const float h[3][4][4],
   }
 }
 
+// g_c = (Rbar^T field)_c = sum_j w[v, j] sum_a pj[a*4+c, j, b] field_a: a
+// per-vertex field projected on the blended rotation's columns.
+__device__ inline void project_rbar(float g[3][4][4], const float field[3][4][4],
+                                    const float* pj_s, const float* w_s, int J) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) g[c][i][k] = 0.f;
+  for (int j = 0; j < J; ++j) {
+    float wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = w_s[j * TVP + ty + 16 * i];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float p[9];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) p[a * 3 + c] = pj_s[((a * 4 + c) * J + j) * TB + tx + 16 * k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const float s = fmaf(p[c], field[0][i][k],
+                               fmaf(p[3 + c], field[1][i][k], p[6 + c] * field[2][i][k]));
+          g[c][i][k] = fmaf(wv[i], s, g[c][i][k]);
+        }
+    }
+  }
+}
+
+// work[row * TB + col] = one coordinate of a field on this thread's
+// micro-tile, then a barrier.
+__device__ inline void stage_coord(float* work, const float f[4][4]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) work[(ty + 16 * i) * TB + tx + 16 * k] = f[i][k];
+  __syncthreads();
+}
+
 }  // namespace lbs

@@ -60,6 +60,7 @@ class FitterPlan:
     part_verts: torch.Tensor  # int32: used vertices grouped by part (see PartIndex)
     part_seg_offset: torch.Tensor  # int32 (n_seg + 1,)
     part_seg: torch.Tensor  # int32 (J + 1,)
+    part_of_vertex: torch.Tensor  # int32 (V_pad,): each vertex's part, -1 for none
 
     bone_parts: tuple
     leaf_parts: tuple
@@ -80,7 +81,8 @@ class FitterPlan:
     @property
     def parts(self) -> lbs_kernels.PartIndex:
         return lbs_kernels.PartIndex(pm=self.pm_t_pad, verts=self.part_verts,
-                                     seg_offset=self.part_seg_offset, part_seg=self.part_seg)
+                                     seg_offset=self.part_seg_offset, part_seg=self.part_seg,
+                                     vpart=self.part_of_vertex)
 
 
 def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int] = None,
@@ -209,6 +211,7 @@ def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int]
         part_verts=parts.verts,
         part_seg_offset=parts.seg_offset,
         part_seg=parts.part_seg,
+        part_of_vertex=parts.vpart,
         bone_parts=tuple(bone_parts),
         leaf_parts=tuple(leaf_parts),
         bone_pairs=bone_pairs,

@@ -37,6 +37,9 @@ _SIGNATURES = {
     'posed_template_launch': [_P] * 3 + [_I] * 3 + [_P],
     'term1_launch': [_P] * 3 + [_I] * 3 + [_P],
     'wgram_launch': [_P] * 15 + [_I] * 7 + [_P],
+    'lbs_points_bwd_launch': [_P] * 7 + [_I] * 5 + [_P],
+    'rhs_bwd_launch': [_P] * 15 + [_I] * 8 + [_P],
+    'recon_bwd_launch': [_P] * 15 + [_I] * 6 + [_P],
 }
 # name -> argument types of the shared-memory size queries (restype size_t).
 _SMEM_SIGNATURES = {
@@ -47,6 +50,9 @@ _SMEM_SIGNATURES = {
     'rhs_moments_smem_bytes': [_I, _I],
     'term1_smem_bytes': [_I],
     'wgram_smem_bytes': [_I, _I, _I],
+    'lbs_points_bwd_smem_bytes': [_I],
+    'rhs_bwd_smem_bytes': [_I, _I, _I],
+    'recon_bwd_smem_bytes': [_I, _I],
 }
 
 _lib = None

@@ -33,6 +33,31 @@ the JAX package leaves those pieces to XLA.
 Fit weights ω reach K2 as the static column (V_pad, 1) of a weighted fitter,
 and K4, K5 and K6 as that column or as per-call weights (V, B); K9 takes
 per-call weights only. Each form is a compile-time variant of its kernel.
+
+Gradients follow the JAX package's custom VJPs. Where it has one, the wrapper
+is a ``torch.autograd.Function`` whose backward is a kernel too:
+
+| wrapper (forms)                         | backward wrapper           | replaces (JAX package)         |
+|-----------------------------------------|----------------------------|--------------------------------|
+| lbs_points                              | lbs_points_bwd             | _lbs_points_bwd_kernel (K10)   |
+| rhs_moments_h, rhs_moments (static ω)   | rhs_moments_bwd            | _rhs_bwd_kernel (K11)          |
+| rhs_moments_cached (static ω)           | rhs_moments_cached_bwd     | _rhs_cached_bwd_kernel (K12)   |
+| recon_part_sums_cached_lm (static ω)    | recon_part_sums_cached_bwd | _recon_cached_bwd_kernel (K13) |
+| gram_assembly (K3), term1, posed_t.     | PyTorch ops                | the JAX package's XLA VJPs     |
+
+The backward kernels are in csrc/lbs_points_bwd.cu (K10), csrc/rhs_bwd.cu
+(K11, K12) and csrc/recon_bwd.cu (K13); "(static ω)" means the unweighted
+form and the static-ω one; posed_t. is posed_template_lm.
+
+Each backward wrapper, like a forward one, runs its plain twin (``*_bwd_ref``,
+the explicit formula) on CPU tensors and its kernel on CUDA tensors, counting
+launches under its own key. The other forms (K2's scale forms, per-call ω,
+K5, K6, K9) have no backward kernel yet: on the card they raise
+``NotImplementedError`` when autograd would need their gradient, on the CPU
+their twins stay autograd-transparent. Operands the JAX VJPs treat as
+constants (skinning weights, template projectors, shape directions, moments,
+ω, the part index) get no gradient; should one require grad, the CPU runs the
+twin and the card raises.
 """
 
 from __future__ import annotations
@@ -42,6 +67,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
@@ -67,7 +93,19 @@ LAUNCHES = {
     'part_sums_w': 0,
     'recon_part_sums_w': 0,
     'wgram': 0,
+    'lbs_points_bwd': 0,
+    'rhs_moments_h_bwd': 0,
+    'rhs_moments_bwd': 0,
+    'rhs_moments_cached_bwd': 0,
+    'recon_part_sums_cached_bwd': 0,
+    'rhs_moments_h_bwd_w': 0,
+    'rhs_moments_bwd_w': 0,
+    'rhs_moments_cached_bwd_w': 0,
+    'recon_part_sums_cached_bwd_w': 0,
 }
+
+# The item of ROADMAP.md's first queue that holds the gradients still to port.
+_GRAD_ITEM = 'ROADMAP Queue 1, item 8'
 
 # Row padding of the per-vertex constant operands (weights_pad, consts, sd_cm).
 # The kernels mask by row index and need none; it is kept equal to the JAX
@@ -77,6 +115,7 @@ VC = 256
 _TV = 64  # vertex tile of the LBS kernels (csrc/lbs_tile.cuh)
 _TB = 64  # batch tile of the LBS kernels
 _SEG = 512  # max vertices per part segment of the recon kernel
+_BWD_MAXJ = 64  # joints of one reduction pass of the backward kernels (csrc/lbs_bwd.cuh)
 
 # The JAX package's route for the shape solve of models whose pose template
 # has more features than this (SMPL-X F=487, SMPL+H F=460): the posed template
@@ -184,6 +223,35 @@ def _apply_blend(blend: torch.Tensor, homog: torch.Tensor) -> torch.Tensor:
     ])
 
 
+def _project_rbar(blend: torch.Tensor, field: torch.Tensor) -> torch.Tensor:
+    """(Rbar^T field)_c = sum_a blend[a*4+c] field_a -> (3, V, B)."""
+    return torch.stack([sum(blend[a * 4 + c] * field[a] for a in range(3)) for c in range(3)])
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """On the card, a kernel form without a backward kernel refuses to run
+    where autograd would need its gradient (instead of dropping its share)."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f'{name}: gradients through this kernel form on the card are not ported yet '
+            f'({_GRAD_ITEM})')
+
+
+def _twin_for_constant_grads(name: str, cuda: bool, *constants) -> bool:
+    """True where an operand that the backward kernel treats as a constant
+    requires grad: on the CPU the wrapper then runs its autograd-transparent
+    twin instead of its Function; on the card it raises."""
+    if not _needs_grad(*constants):
+        return False
+    if cuda:
+        _refuse_grad(f'{name} (gradient of a constant operand)', *constants)
+    return True
+
+
 # ---------------------------------------------------------------------------
 # K1: extended LBS -> points
 # ---------------------------------------------------------------------------
@@ -212,16 +280,85 @@ def lbs_points(pj_cm, feat_cols, weights_pad, consts_pad):
     _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
     if consts_pad.shape[0] < 3:
         raise ValueError(f'{name}: consts_pad needs at least 3 channels')
-    if not cuda:
+    if _twin_for_constant_grads(name, cuda, weights_pad, consts_pad):
         return lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad)
-    lib = _build.library()
+    return _LbsPoints.apply(pj_cm, feat_cols, weights_pad, consts_pad)
+
+
+def _lbs_points_run(pj_cm, feat_cols, weights_pad, consts_pad):
+    """K1 on CUDA tensors, its twin on CPU ones (operands checked)."""
+    if not pj_cm.is_cuda:
+        return lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad)
+    _, J, B = pj_cm.shape
+    F, Vp = feat_cols.shape[0], weights_pad.shape[0]
     out = torch.empty((3, Vp, B), dtype=torch.float32, device=pj_cm.device)
-    err = lib.lbs_points_launch(
+    err = _build.library().lbs_points_launch(
         _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad), _ptr(out),
         J, B, F, Vp, 4, _stream(out))
+    _build.check(err, 'lbs_points')
+    LAUNCHES['lbs_points'] += 1
+    return out
+
+
+class _LbsPoints(torch.autograd.Function):
+    """K1 with K10 as its backward (the JAX package's _lbs_points_diff)."""
+
+    @staticmethod
+    def forward(ctx, pj_cm, feat_cols, weights_pad, consts_pad):
+        ctx.save_for_backward(pj_cm, feat_cols, weights_pad, consts_pad)
+        return _lbs_points_run(pj_cm, feat_cols, weights_pad, consts_pad)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dpj, dfeat = lbs_points_bwd(g.contiguous(), *ctx.saved_tensors)
+        return dpj, dfeat, None, None
+
+
+# ---------------------------------------------------------------------------
+# K10: backward of the extended LBS
+# ---------------------------------------------------------------------------
+
+
+def lbs_points_bwd_ref(g, pj_cm, feat_cols, weights_pad, consts_pad):
+    """Plain twin of :func:`lbs_points_bwd`."""
+    homog = posed_template_ref(feat_cols, consts_pad)
+    blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
+    dblend = torch.stack([g[a] * homog[c] if c < 3 else g[a] for a in range(3) for c in range(4)])
+    dpj = torch.einsum('vj,xvb->xjb', weights_pad, dblend)
+    dfeat = torch.einsum('cvf,cvb->fb', consts_pad[:3], _project_rbar(blend, g))
+    return dpj.contiguous(), dfeat.contiguous()
+
+
+def lbs_points_bwd(g, pj_cm, feat_cols, weights_pad, consts_pad):
+    """The VJP of :func:`lbs_points` for the cotangent g (3, V_pad, B) of the
+    points: dpj (12, J, B) = sum_v w_vj g_a h_c (h_3 = 1; rows a*4+c) and
+    dfeat (F, B) = sum_c consts_c^T (Rbar^T g)_c, h = the posed template and
+    Rbar the blended rotation. The homogeneous channel 3 is the constant 1 of
+    the forward and adds nothing to dfeat."""
+    name = 'lbs_points_bwd'
+    cuda = _on_cuda(name, g=g, pj_cm=pj_cm, feat_cols=feat_cols, weights_pad=weights_pad,
+                    consts_pad=consts_pad)
+    _, J, B = pj_cm.shape
+    F = feat_cols.shape[0]
+    Vp = weights_pad.shape[0]
+    _expect(name, 'g', g, (3, Vp, B))
+    _expect(name, 'feat_cols', feat_cols, (F, B))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    if not cuda:
+        return lbs_points_bwd_ref(g, pj_cm, feat_cols, weights_pad, consts_pad)
+    if J > _BWD_MAXJ:
+        raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ}, got {J}')
+    tiles_per_block, n_splits = _vertex_splits(Vp, B, g.device)
+    out = torch.empty((12 * J + F, B), dtype=torch.float32, device=g.device)
+    part = torch.empty((n_splits, 12 * J + F, B), dtype=torch.float32, device=g.device)
+    err = _build.library().lbs_points_bwd_launch(
+        _ptr(g), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad), _ptr(out),
+        _ptr(part), J, B, F, Vp, tiles_per_block, _stream(out))
     _build.check(err, name)
     LAUNCHES[name] += 1
-    return out
+    return out[:12 * J].view(12, J, B), out[12 * J:]
 
 
 # ---------------------------------------------------------------------------
@@ -247,14 +384,37 @@ def posed_template_lm(feat_cols, consts_pad):
     _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
     if consts_pad.shape[0] < 3:
         raise ValueError(f'{name}: consts_pad needs at least 3 channels')
-    if not cuda:
+    if _twin_for_constant_grads(name, cuda, consts_pad):
         return posed_template_ref(feat_cols, consts_pad)
-    out = torch.empty((3, Vp, B), dtype=torch.float32, device=feat_cols.device)
-    err = _build.library().posed_template_launch(
-        _ptr(feat_cols), _ptr(consts_pad), _ptr(out), F, B, Vp, _stream(out))
-    _build.check(err, name)
-    LAUNCHES[name] += 1
-    return out
+    return _PosedTemplate.apply(feat_cols, consts_pad)
+
+
+class _PosedTemplate(torch.autograd.Function):
+    """K7; its backward is linear in the cotangent, dfeat = sum_c consts_c^T
+    dh_c: one GEMM over the (channel, vertex) rows, as the JAX package leaves
+    it to XLA (_posed_template_bwd)."""
+
+    @staticmethod
+    def forward(ctx, feat_cols, consts_pad):
+        ctx.save_for_backward(consts_pad)
+        if not feat_cols.is_cuda:
+            return posed_template_ref(feat_cols, consts_pad)
+        F, B = feat_cols.shape
+        Vp = consts_pad.shape[1]
+        out = torch.empty((3, Vp, B), dtype=torch.float32, device=feat_cols.device)
+        err = _build.library().posed_template_launch(
+            _ptr(feat_cols), _ptr(consts_pad), _ptr(out), F, B, Vp, _stream(out))
+        _build.check(err, 'posed_template')
+        LAUNCHES['posed_template'] += 1
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dh):
+        (consts_pad,) = ctx.saved_tensors
+        _, Vp, F = consts_pad.shape
+        consts3 = consts_pad[:3].reshape(3 * Vp, F)
+        return consts3.T @ dh.reshape(3 * Vp, -1), None
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +512,56 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, ho
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
     if omega is not None:
         _omega_strides(name, omega, v_t, B, Vp, static_only=True)
-    if not cuda:
+    if cuda and E > 32:
+        raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
+    args = (name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm, emit_homog,
+            scale, omega)
+    if scale:  # no backward kernel
+        if cuda:
+            _refuse_grad(name, tgt_vm, pj_cm, feat_cols, homog_vm, weights_pad, consts_pad, sd_cm,
+                         omega)
+        return _rhs_run(*args)
+    if _twin_for_constant_grads(name, cuda, weights_pad, consts_pad, sd_cm, omega):
+        return _rhs_run(*args)
+    return _RhsMoments.apply(*args)
+
+
+class _RhsMoments(torch.autograd.Function):
+    """K2's emit-homog, plain and cached forms (unweighted or static ω) with
+    K11 (emit-homog, plain) or K12 (cached) as their backward: the JAX
+    package's _rhs_h_diff, _rhs_moments_diff, _rhs_c_diff and their _w forms."""
+
+    @staticmethod
+    def forward(ctx, name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
+                emit_homog, scale, omega):
+        ctx.emit_homog = emit_homog
+        ctx.save_for_backward(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
+                              omega)
+        return _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
+                        emit_homog, scale, omega)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gr, gy, gh=None):
+        tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm, omega = (
+            ctx.saved_tensors)
+        gr, gy = gr.contiguous(), gy.contiguous()
+        if homog_vm is not None:
+            dtgt, dpj, dh = rhs_moments_cached_bwd(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad,
+                                                   sd_cm, omega=omega)
+            return (None, dtgt, dpj, None, None, None, None, dh, None, None, None)
+        dtgt, dpj, dfeat = rhs_moments_bwd(
+            gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
+            gh=gh.contiguous() if ctx.emit_homog else None, omega=omega)
+        return (None, dtgt, dpj, dfeat, None, None, None, None, None, None, None)
+
+
+def _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
+             emit_homog: bool, scale: bool, omega):
+    """One checked K2 form: its kernel on CUDA tensors, its twin on CPU ones."""
+    cached = homog_vm is not None
+    extra = {} if omega is None else dict(omega=omega)
+    if not tgt_vm.is_cuda:
         if cached:
             return rhs_moments_cached_ref(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale,
                                           **extra)
@@ -360,8 +569,11 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, ho
         if emit_homog:
             return rhs_moments_h_ref(*args, **extra)
         return rhs_moments_ref(*args, scale=scale, **extra)
-    if E > 32:
-        raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
+    _, J, B = pj_cm.shape
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    E = sd_cm.shape[2]
+    F = 0 if cached else feat_cols.shape[0]
     lib = _build.library()
     dev = tgt_vm.device
 
@@ -422,6 +634,147 @@ def rhs_moments_cached(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: bool 
     return _rhs_call('rhs_moments_cached_scale' if scale else 'rhs_moments_cached', tgt_vm,
                      pj_cm, None, weights_pad, None, sd_cm, homog_vm, emit_homog=False,
                      scale=scale, omega=omega)
+
+
+# ---------------------------------------------------------------------------
+# K11 and K12: backward of the residual moments (emit-homog / plain, cached)
+# ---------------------------------------------------------------------------
+
+
+def _rhs_bwd_twin(gr, gy, tgt_vm, pj_cm, homog, weights_pad, sd_cm, omega):
+    """K2's VJP in plain PyTorch from the posed template homog (3, V_pad, B):
+    (dtgt (3, V_t, B), dpj (12, J, B), dh (3, V_pad, B))."""
+    v_t = tgt_vm.shape[1]
+    Vp = weights_pad.shape[0]
+    blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
+    pos = _apply_blend(blend, homog)
+    om = torch.zeros((Vp, 1), dtype=pos.dtype, device=pos.device)
+    om[:v_t] = 1.0 if omega is None else omega[:v_t]  # zero past the targets' rows
+    t = torch.zeros_like(pos)
+    t[:, :v_t] = tgt_vm
+    b = (t - pos) * om
+    G = torch.einsum('cve,eb->cvb', sd_cm, gr)
+    db = (torch.einsum('vj,ajb->avb', weights_pad, gy)
+          + torch.stack([sum(blend[a * 4 + c] * G[c] for c in range(3)) for a in range(3)])) * om
+    dblend = torch.stack([-db[a] * homog[c] + G[c] * b[a] if c < 3 else -db[a]
+                          for a in range(3) for c in range(4)])
+    dpj = torch.einsum('vj,xvb->xjb', weights_pad, dblend)
+    return db[:, :v_t].contiguous(), dpj.contiguous(), -_project_rbar(blend, db)
+
+
+def rhs_moments_bwd_ref(gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
+                        gh=None, omega=None):
+    """Plain twin of :func:`rhs_moments_bwd`."""
+    homog = posed_template_ref(feat_cols, consts_pad)
+    dtgt, dpj, dh = _rhs_bwd_twin(gr, gy, tgt_vm, pj_cm, homog, weights_pad, sd_cm, omega)
+    if gh is not None:
+        dh = dh + gh
+    return dtgt, dpj, torch.einsum('cvf,cvb->fb', consts_pad[:3], dh).contiguous()
+
+
+def rhs_moments_cached_bwd_ref(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, omega=None):
+    """Plain twin of :func:`rhs_moments_cached_bwd`."""
+    dtgt, dpj, dh = _rhs_bwd_twin(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, omega)
+    return dtgt, dpj, dh.contiguous()
+
+
+def rhs_moments_bwd(gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, gh=None,
+                    omega=None):
+    """The VJP of :func:`rhs_moments` and, with the cotangent ``gh``
+    (3, V_pad, B) of the emitted template, of :func:`rhs_moments_h` (K11),
+    for the cotangents gr (E, B) of r and gy (3, J, B) of y; a static
+    ``omega`` (V_pad, 1) selects the weighted form. With G_c = SD_c gr and
+    db_a = ω (sum_j w_vj gy[a, j] + sum_c blend_ac G_c): dtgt = db (3, V_t, B),
+    dpj (12, J, B) = sum_v w_vj (-db_a h_c + G_c b_a) (c < 3; -db_a for c = 3,
+    b the weighted residual) and dfeat (F, B) = sum_c consts_c^T dh_c with
+    dh = -Rbar^T db [+ gh]. Returns (dtgt, dpj, dfeat)."""
+    name = ('rhs_moments_bwd' if gh is None else 'rhs_moments_h_bwd') + (
+        '' if omega is None else '_w')
+    tensors = dict(gr=gr, gy=gy, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
+                   weights_pad=weights_pad, consts_pad=consts_pad, sd_cm=sd_cm)
+    tensors.update({k: v for k, v in (('gh', gh), ('omega', omega)) if v is not None})
+    cuda = _on_cuda(name, **tensors)
+    J, B, E, Vp, v_t = _rhs_bwd_dims(name, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm, omega)
+    F = feat_cols.shape[0]
+    _expect(name, 'feat_cols', feat_cols, (F, B))
+    _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    if gh is not None:
+        _expect(name, 'gh', gh, (3, Vp, B))
+    if not cuda:
+        return rhs_moments_bwd_ref(gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad,
+                                   sd_cm, gh, omega)
+    dev = gr.device
+    dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
+    out = _rhs_bwd_launch(name, gr, gy, gh, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad,
+                          sd_cm, omega, None, dtgt, None, F)
+    return dtgt, out[:12 * J].view(12, J, B), out[12 * J:]
+
+
+def rhs_moments_cached_bwd(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, omega=None):
+    """The VJP of :func:`rhs_moments_cached` (K12): as :func:`rhs_moments_bwd`,
+    with the per-vertex template cotangent dh = -Rbar^T db (3, V_pad, B)
+    returned in place of dfeat (the posed template's backward folds it onto
+    feat). Returns (dtgt, dpj, dh)."""
+    name = 'rhs_moments_cached_bwd' + ('' if omega is None else '_w')
+    extra = {} if omega is None else dict(omega=omega)
+    cuda = _on_cuda(name, gr=gr, gy=gy, tgt_vm=tgt_vm, pj_cm=pj_cm, homog_vm=homog_vm,
+                    weights_pad=weights_pad, sd_cm=sd_cm, **extra)
+    J, B, E, Vp, v_t = _rhs_bwd_dims(name, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm, omega)
+    _expect(name, 'homog_vm', homog_vm, (3, Vp, B))
+    if not cuda:
+        return rhs_moments_cached_bwd_ref(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm,
+                                          omega)
+    dev = gr.device
+    dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
+    dh = torch.empty((3, Vp, B), dtype=torch.float32, device=dev)
+    out = _rhs_bwd_launch(name, gr, gy, None, tgt_vm, pj_cm, None, weights_pad, None, sd_cm,
+                          omega, homog_vm, dtgt, dh, 0)
+    return dtgt, out.view(12, J, B), dh
+
+
+def _rhs_bwd_dims(name, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm, omega):
+    """Shape checks shared by K11 and K12: (J, B, E, V_pad, V_t)."""
+    _, J, B = pj_cm.shape
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    E = sd_cm.shape[2]
+    _expect(name, 'gr', gr, (E, B))
+    _expect(name, 'gy', gy, (3, J, B))
+    _expect(name, 'tgt_vm', tgt_vm, (3, v_t, B))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    _expect(name, 'sd_cm', sd_cm, (3, Vp, E))
+    if v_t > Vp:
+        raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
+    if omega is not None:
+        _omega_strides(name, omega, v_t, B, Vp, static_only=True)
+    if gr.is_cuda and (J > _BWD_MAXJ or E > 32):
+        raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ} and E <= 32, got {J}, {E}')
+    return J, B, E, Vp, v_t
+
+
+def _rhs_bwd_launch(name, gr, gy, gh, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
+                    omega, homog_vm, dtgt, dh, F):
+    """Launch K11 (``homog_vm`` None) or K12 into ``dtgt`` (and ``dh``);
+    returns the per-column outputs (12 J [+ F], B)."""
+    _, J, B = pj_cm.shape
+    Vp = weights_pad.shape[0]
+    E = sd_cm.shape[2]
+    dev = gr.device
+    tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
+    out = torch.empty((12 * J + F, B), dtype=torch.float32, device=dev)
+    part = torch.empty((n_splits, 12 * J + F, B), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else _ptr(t)
+
+    err = _build.library().rhs_bwd_launch(
+        _ptr(gr), _ptr(gy), ptr(gh), _ptr(tgt_vm), _ptr(pj_cm), ptr(feat_cols), _ptr(weights_pad),
+        ptr(consts_pad), _ptr(sd_cm), ptr(omega), ptr(homog_vm), _ptr(dtgt), ptr(dh), _ptr(out),
+        _ptr(part), J, B, F, E, tgt_vm.shape[1], Vp, tiles_per_block, int(homog_vm is not None),
+        _stream(out))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -489,24 +842,49 @@ def gram_assembly(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
         G2, SA, rb, Sb = gram_mparts_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, lz, sd1_2d, q, w1,
                                          has_joints)
         return (term1(R_cm, ksd) + G2).contiguous(), SA, rb, Sb
-    if not cuda:
-        return gram_assembly_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
-                                 has_joints)
-    if E > 16:
+    if cuda and E > 16:
         raise ValueError(f'{name}: the kernel takes E <= 16, got {E}')
-    lib = _build.library()
-    dev = R_cm.device
-    G = torch.empty((E * E, B), dtype=torch.float32, device=dev)
-    SA = torch.empty((3 * E, B), dtype=torch.float32, device=dev)
-    rb = torch.empty((E, B), dtype=torch.float32, device=dev)
-    Sb = torch.empty((3, B), dtype=torch.float32, device=dev)
-    err = lib.gram_assembly_launch(
-        _ptr(R_cm), _ptr(T_cm), _ptr(y_cm), _ptr(P_cm), _ptr(bJ_cm), _ptr(ksd), _ptr(lz),
-        _ptr(sd1_2d), _ptr(q), _ptr(w1), _ptr(G), _ptr(SA), _ptr(rb), _ptr(Sb),
-        J, E, B, int(has_joints), _stream(G))
-    _build.check(err, name)
-    LAUNCHES[name] += 1
-    return G, SA, rb, Sb
+    args = (R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1, has_joints)
+    if _twin_for_constant_grads(name, cuda, ksd, lz, sd1_2d, q, w1):
+        return gram_assembly_ref(*args)
+    return _GramAssembly.apply(*args)
+
+
+class _GramAssembly(torch.autograd.Function):
+    """K3; its backward is the VJP of :func:`gram_assembly_ref`, recomputed
+    under autograd (the JAX package's _gram_assembly_bwd is that XLA VJP)."""
+
+    @staticmethod
+    def forward(ctx, R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1, has_joints):
+        ctx.has_joints = has_joints
+        ctx.save_for_backward(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1)
+        if not R_cm.is_cuda:
+            return gram_assembly_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
+                                     has_joints)
+        _, J3, B = R_cm.shape
+        E = sd1_2d.shape[1]
+        dev = R_cm.device
+        G = torch.empty((E * E, B), dtype=torch.float32, device=dev)
+        SA = torch.empty((3 * E, B), dtype=torch.float32, device=dev)
+        rb = torch.empty((E, B), dtype=torch.float32, device=dev)
+        Sb = torch.empty((3, B), dtype=torch.float32, device=dev)
+        err = _build.library().gram_assembly_launch(
+            _ptr(R_cm), _ptr(T_cm), _ptr(y_cm), _ptr(P_cm), _ptr(bJ_cm), _ptr(ksd), _ptr(lz),
+            _ptr(sd1_2d), _ptr(q), _ptr(w1), _ptr(G), _ptr(SA), _ptr(rb), _ptr(Sb),
+            J3 // 3, E, B, int(has_joints), _stream(G))
+        _build.check(err, 'gram_assembly')
+        LAUNCHES['gram_assembly'] += 1
+        return G, SA, rb, Sb
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gG, gSA, grb, gSb):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_() for t in saved[:5]]
+            outs = gram_assembly_ref(*xs, *saved[5:], has_joints=ctx.has_joints)
+            grads = torch.autograd.grad(outs, xs, (gG, gSA, grb, gSb), allow_unused=True)
+        return grads + (None,) * 6
 
 
 def streams_term1(J3: int, E: int) -> bool:
@@ -561,15 +939,42 @@ def term1(R_cm, ksd):
     EE = ksd.shape[1]
     _expect(name, 'R_cm', R_cm, (3, J3, B))
     _expect(name, 'ksd', ksd, (J3 * J3, EE))
-    if not cuda:
-        return term1_ref(R_cm, ksd)
-    if EE > 32 * 32:
+    if cuda and EE > 32 * 32:
         raise ValueError(f'{name}: the kernel takes E <= 32, got E^2 = {EE}')
-    G = torch.empty((EE, B), dtype=torch.float32, device=R_cm.device)
-    err = _build.library().term1_launch(_ptr(R_cm), _ptr(ksd), _ptr(G), J3, EE, B, _stream(G))
-    _build.check(err, name)
-    LAUNCHES[name] += 1
-    return G
+    if _twin_for_constant_grads(name, cuda, ksd):
+        return term1_ref(R_cm, ksd)
+    return _Term1.apply(R_cm, ksd)
+
+
+class _Term1(torch.autograd.Function):
+    """K8; its backward in PyTorch ops (the JAX package folds term1 into the
+    XLA VJP of the Gramian): dX = Ksd g, formed once, batch-major as
+    (B, J3, J3), then dR_a[j] = sum_k (dX[j, k] + dX[k, j]) R_a[k] as two
+    batched products."""
+
+    @staticmethod
+    def forward(ctx, R_cm, ksd):
+        ctx.save_for_backward(R_cm, ksd)
+        if not R_cm.is_cuda:
+            return term1_ref(R_cm, ksd)
+        _, J3, B = R_cm.shape
+        EE = ksd.shape[1]
+        G = torch.empty((EE, B), dtype=torch.float32, device=R_cm.device)
+        err = _build.library().term1_launch(_ptr(R_cm), _ptr(ksd), _ptr(G), J3, EE, B,
+                                            _stream(G))
+        _build.check(err, 'term1')
+        LAUNCHES['term1'] += 1
+        return G
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gG):
+        R_cm, ksd = ctx.saved_tensors
+        _, J3, B = R_cm.shape
+        dX = (gG.T @ ksd.T).view(B, J3, J3)
+        Rb = R_cm.permute(2, 1, 0)  # (B, J3, 3)
+        dR = torch.bmm(dX, Rb) + torch.bmm(dX.transpose(1, 2), Rb)
+        return dR.permute(2, 1, 0).contiguous(), None
 
 
 # ---------------------------------------------------------------------------
@@ -583,12 +988,15 @@ class PartIndex:
     the same matrix: ``pm`` (J, V_pad) for the plain twin, and the per-part
     vertex lists cut into segments of at most 512 for the kernel
     (``verts``: used vertices grouped by part; ``seg_offset`` (n_seg + 1):
-    segment bounds in ``verts``; ``part_seg`` (J + 1): each part's segments)."""
+    segment bounds in ``verts``; ``part_seg`` (J + 1): each part's segments),
+    and for the backward kernel each vertex's part (``vpart`` (V_pad,), -1
+    for none)."""
 
     pm: torch.Tensor
     verts: torch.Tensor
     seg_offset: torch.Tensor
     part_seg: torch.Tensor
+    vpart: torch.Tensor
 
     @property
     def n_seg(self) -> int:
@@ -610,8 +1018,9 @@ class PartIndex:
         def i32(x):
             return torch.as_tensor(np.asarray(x, np.int32), device=device)
 
+        vpart = np.where(pm.any(axis=0), pm.argmax(axis=0), -1)
         return cls(pm=torch.as_tensor(pm, device=device), verts=i32(verts),
-                   seg_offset=i32(seg_offset), part_seg=i32(part_seg))
+                   seg_offset=i32(seg_offset), part_seg=i32(part_seg), vpart=i32(vpart))
 
 
 def recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, pm, weights_pad,
@@ -656,12 +1065,30 @@ def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: Par
     _expect(name, 'weights_pad', weights_pad, (Vp, J))
     if v_t > Vp:
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
-    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
-    if not cuda:
+    _omega_args(name, omega, v_t, B, Vp)
+    if cuda and E > 32:
+        raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
+    args = (name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts, weights_pad, omega)
+    if omega is not None and omega.shape != (Vp, 1):  # per-call ω: no backward kernel
+        if cuda:
+            _refuse_grad(name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, weights_pad, omega)
+        return _recon_cached_run(*args)
+    if _twin_for_constant_grads(name, cuda, sd_cm, parts.pm, weights_pad, omega):
+        return _recon_cached_run(*args)
+    return _ReconCached.apply(*args)
+
+
+def _recon_cached_run(name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts, weights_pad, omega):
+    """Checked K4: its kernel on CUDA tensors, its twin on CPU ones."""
+    if not tgt_vm.is_cuda:
+        extra = {} if omega is None else dict(omega=omega)
         return recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts.pm,
                                           weights_pad, **extra)
-    if E > 32:
-        raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
+    _, J, B = pj_cm.shape
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    E = x_cols.shape[0]
+    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
     err = _build.library().recon_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(x_cols), _ptr(sd_cm), _ptr(homog_vm),
@@ -671,6 +1098,112 @@ def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: Par
     _build.check(err, name)
     LAUNCHES[name] += 1
     return raw, s_t, s_a
+
+
+class _ReconCached(torch.autograd.Function):
+    """K4 (unweighted or static ω) with K13 as its backward: the JAX
+    package's _recon_cached_diff and _recon_cached_w_diff."""
+
+    @staticmethod
+    def forward(ctx, name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts, weights_pad, omega):
+        ctx.parts = parts
+        ctx.save_for_backward(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, weights_pad, omega)
+        return _recon_cached_run(name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts,
+                                 weights_pad, omega)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, graw, gst, gsa):
+        tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, weights_pad, omega = ctx.saved_tensors
+        dtgt, dpj, dx, dh = recon_part_sums_cached_bwd(
+            graw.contiguous(), gst.contiguous(), gsa.contiguous(), tgt_vm, pj_cm, x_cols, sd_cm,
+            homog_vm, ctx.parts, weights_pad, omega=omega)
+        return None, dtgt, dpj, dx, None, dh, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# K13: backward of the cached reconstruction's part sums
+# ---------------------------------------------------------------------------
+
+
+def recon_part_sums_cached_bwd_ref(graw, gst, gsa, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, pm,
+                                   weights_pad, omega=None):
+    """Plain twin of :func:`recon_part_sums_cached_bwd` (``pm``: (J, V_pad))."""
+    v_t = tgt_vm.shape[1]
+    Vp = weights_pad.shape[0]
+    hfull = homog_vm + torch.einsum('cve,eb->cvb', sd_cm, x_cols)
+    blend = torch.einsum('vj,xjb->xvb', weights_pad, pj_cm)
+    pos = _apply_blend(blend, hfull)
+    om = torch.ones((Vp, 1), dtype=pos.dtype, device=pos.device)
+    if omega is not None:
+        om = torch.zeros_like(om)
+        om[:v_t] = omega[:v_t]
+    t = torch.zeros_like(pos)
+    t[:, :v_t] = tgt_vm
+    W = torch.einsum('jv,xjb->xvb', pm, graw)  # each vertex's part row
+    dtgt = (torch.einsum('jv,cjb->cvb', pm, gst)
+            + torch.stack([sum(W[c * 3 + d] * pos[d] for d in range(3)) for c in range(3)])) * om
+    dpos = (torch.einsum('jv,djb->dvb', pm, gsa)
+            + torch.stack([sum(W[c * 3 + d] * t[c] for c in range(3)) for d in range(3)])) * om
+    dh = _project_rbar(blend, dpos)
+    dx = torch.einsum('cve,cvb->eb', sd_cm, dh)
+    dblend = torch.stack([dpos[a] * hfull[c] if c < 3 else dpos[a]
+                          for a in range(3) for c in range(4)])
+    dpj = torch.einsum('vj,xvb->xjb', weights_pad, dblend)
+    return dtgt[:, :v_t].contiguous(), dpj.contiguous(), dx.contiguous(), dh.contiguous()
+
+
+def recon_part_sums_cached_bwd(graw, gst, gsa, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm,
+                               parts: PartIndex, weights_pad, omega=None):
+    """The VJP of :func:`recon_part_sums_cached_lm` (unweighted or a static
+    ``omega`` (V_pad, 1)) for the cotangents graw (9, J, B), gst and gsa
+    (3, J, B): with W = graw at the vertex's own part, dtgt_c = ω (gst + sum_d
+    W[c*3+d] pos_d) (3, V_t, B), dpos_d = ω (gsa + sum_c W[c*3+d] t_c), the
+    template cotangent dh = Rbar^T dpos (3, V_pad, B), dx (E, B) = sum_c
+    SD_c^T dh_c and dpj (12, J, B) = sum_v w_vj dpos_a hfull_c (hfull_3 = 1).
+    Returns (dtgt, dpj, dx, dh)."""
+    name = 'recon_part_sums_cached_bwd' + ('' if omega is None else '_w')
+    extra = {} if omega is None else dict(omega=omega)
+    cuda = _on_cuda(name, graw=graw, gst=gst, gsa=gsa, tgt_vm=tgt_vm, pj_cm=pj_cm, x_cols=x_cols,
+                    sd_cm=sd_cm, homog_vm=homog_vm, pm=parts.pm, weights_pad=weights_pad,
+                    **extra)
+    _, J, B = pj_cm.shape
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    E = x_cols.shape[0]
+    _expect(name, 'graw', graw, (9, J, B))
+    _expect(name, 'gst', gst, (3, J, B))
+    _expect(name, 'gsa', gsa, (3, J, B))
+    _expect(name, 'tgt_vm', tgt_vm, (3, v_t, B))
+    _expect(name, 'x_cols', x_cols, (E, B))
+    _expect(name, 'sd_cm', sd_cm, (3, Vp, E))
+    _expect(name, 'homog_vm', homog_vm, (3, Vp, B))
+    _expect(name, 'pm', parts.pm, (J, Vp))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    if omega is not None:
+        _omega_strides(name, omega, v_t, B, Vp, static_only=True)
+    if not cuda:
+        return recon_part_sums_cached_bwd_ref(graw, gst, gsa, tgt_vm, pj_cm, x_cols, sd_cm,
+                                              homog_vm, parts.pm, weights_pad, **extra)
+    if J > _BWD_MAXJ or E > 32:
+        raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ} and E <= 32, got {J}, {E}')
+    vp = parts.vpart
+    if vp.dtype != torch.int32 or vp.device != graw.device or vp.shape != (Vp,):
+        raise ValueError(f'{name}: parts.vpart must be int32 ({Vp},) on {graw.device}')
+    dev = graw.device
+    tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
+    dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
+    dh = torch.empty((3, Vp, B), dtype=torch.float32, device=dev)
+    out = torch.empty((12 * J + E, B), dtype=torch.float32, device=dev)
+    part = torch.empty((n_splits, 12 * J + E, B), dtype=torch.float32, device=dev)
+    err = _build.library().recon_bwd_launch(
+        _ptr(graw), _ptr(gst), _ptr(gsa), _ptr(tgt_vm), _ptr(pj_cm), _ptr(x_cols), _ptr(sd_cm),
+        _ptr(homog_vm), _ptr(weights_pad), None if omega is None else _ptr(omega), _ptr(vp),
+        _ptr(dtgt), _ptr(dh), _ptr(out), _ptr(part), J, E, B, v_t, Vp, tiles_per_block,
+        _stream(out))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return dtgt, out[:12 * J].view(12, J, B), out[12 * J:], dh
 
 
 def _part_sums_outputs(name: str, parts: PartIndex, J: int, B: int, device):
@@ -746,6 +1279,7 @@ def part_sums_vm_lm(t_vm, a_vm, parts: PartIndex, omega=None):
         raise ValueError(f'{name}: point rows {max(v_t, v_a)} exceed V_pad {Vp}')
     if not cuda:
         return part_sums_ref(t_vm, a_vm, parts.pm, **extra)
+    _refuse_grad(name, t_vm, a_vm, omega)
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, t_vm.device)
     err = _build.library().part_sums_launch(
         _ptr(t_vm), _ptr(a_vm), om_ptr, _ptr(parts.verts), _ptr(parts.seg_offset),
@@ -793,6 +1327,7 @@ def recon_part_sums_lm(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts:
     if not cuda:
         return recon_part_sums_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts.pm,
                                    **extra)
+    _refuse_grad(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, omega)
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
     err = _build.library().recon_lbs_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
@@ -892,6 +1427,7 @@ def wgram_moments(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, ome
     if not cuda:
         return wgram_moments_ref(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm,
                                  omega_vm, mu_s, scale_mode)
+    _refuse_grad(name, *tensors.values())
     if E > _WGRAM_MAXE:
         raise ValueError(f'{name}: the kernel takes E <= {_WGRAM_MAXE}, got {E}')
     lib = _build.library()
@@ -944,6 +1480,10 @@ TWINS = {
     'posed_template_lm': posed_template_ref,
     'term1': term1_ref,
     'wgram_moments': wgram_moments_ref,
+    'lbs_points_bwd': lbs_points_bwd_ref,
+    'rhs_moments_bwd': rhs_moments_bwd_ref,
+    'rhs_moments_cached_bwd': rhs_moments_cached_bwd_ref,
+    'recon_part_sums_cached_bwd': recon_part_sums_cached_bwd_ref,
 }
 
 

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 
 def solve_spd_unrolled(G: torch.Tensor, rhs: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:
@@ -10,8 +11,44 @@ def solve_spd_unrolled(G: torch.Tensor, rhs: torch.Tensor, eps: float = 1e-30) -
 
     ``G``: (..., n, n), ``rhs``: (..., n) or (..., n, k). Only the lower
     triangle of ``G`` is read. Each pivot is clamped at ``eps`` before its
-    square root, as in the JAX package. Forward only.
+    square root, as in the JAX package. Carries the JAX package's closed-form
+    VJP (one more unrolled solve and an outer product) instead of autograd
+    through the factorization: the cotangent of ``G`` lives on its lower
+    triangle, the off-diagonal entries holding both symmetric partners.
     """
+    return _SolveSPD.apply(G, rhs, eps)
+
+
+class _SolveSPD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, G, rhs, eps):
+        x = _solve_spd_impl(G, rhs, eps)
+        ctx.eps = eps
+        ctx.save_for_backward(G, x)
+        return x
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        # x = A^-1 b with A the symmetric matrix of G's lower triangle:
+        # b_bar = A^-1 x_bar, A_bar = -b_bar x^T (summed over rhs columns),
+        # folded onto the lower triangle: G_bar[i, j] = A_bar[i, j] + A_bar[j, i]
+        # (i > j), G_bar[j, j] = A_bar[j, j].
+        G, x = ctx.saved_tensors
+        rhs_bar = _solve_spd_impl(G, g, ctx.eps)
+        if x.dim() == G.dim() - 1:
+            A_bar = -rhs_bar[..., :, None] * x[..., None, :]
+        else:
+            A_bar = -torch.einsum('...ik,...jk->...ij', rhs_bar, x)
+        n = G.shape[-1]
+        lower = torch.tril(torch.ones((n, n), dtype=torch.bool, device=G.device), -1)
+        eye = torch.eye(n, dtype=A_bar.dtype, device=G.device)
+        G_bar = A_bar * eye + torch.where(lower, A_bar + A_bar.transpose(-1, -2),
+                                          torch.zeros_like(A_bar))
+        return G_bar, rhs_bar, None
+
+
+def _solve_spd_impl(G: torch.Tensor, rhs: torch.Tensor, eps: float) -> torch.Tensor:
     n = G.shape[-1]
     vec_rhs = rhs.dim() == G.dim() - 1
     if vec_rhs:

@@ -1,8 +1,9 @@
 """Batched SO(3) numerics, ported from ``smplfitter_tpu.ops.rotation``.
 
-Forward only. Everything is branch-free elementwise math (``torch.where``,
-never data-dependent Python control flow), so one code path serves every
-batch. Rotations in the fit pipeline are "lane-major": ``(9, N, B)`` entry
+Everything is branch-free elementwise math (``torch.where``, never
+data-dependent Python control flow), so one code path serves every batch.
+The SO(3) projection carries the JAX package's closed-form VJP; the rest is
+differentiated by autograd. Rotations in the fit pipeline are "lane-major": ``(9, N, B)`` entry
 arrays (row-major entries leading) and ``(3, N, B)`` vectors, matching the
 layouts the kernels read and write.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 __all__ = [
     'divide_no_nan',
@@ -219,9 +221,71 @@ def _proj_SO3_core(ent):
     return [torch.where(ok, x, torch.full_like(x, ident)) for x, ident in zip(entries, eye_flat)]
 
 
+def _proj_SO3_bwd_entries(A, R, G):
+    """Closed-form VJP of the SO(3) projection on 9-entry lists (the JAX
+    package's ``_proj_SO3_bwd_entries``).
+
+    R is the orthogonal factor of the polar decomposition A = R S, S =
+    sym(R^T A). The cotangent pullback is A_bar = R hat(u) with
+    u = (tr(S) I - S)^-1 vee2(R^T G), vee2(M) = (M21 - M12, M02 - M20,
+    M10 - M01); the 3x3 solve is by adjugate, damped by 1e-6 |tr S| so that
+    the gradient stays finite where singular values coalesce under a
+    reflection (autograd of the eigensolver gives NaN there).
+    """
+    def rt_m(M):  # (R^T M) entries, row-major
+        return [R[i] * M[j] + R[3 + i] * M[3 + j] + R[6 + i] * M[6 + j]
+                for i in range(3) for j in range(3)]
+
+    RtA = rt_m(A)
+    s00, s11, s22 = RtA[0], RtA[4], RtA[8]
+    s01 = 0.5 * (RtA[1] + RtA[3])
+    s02 = 0.5 * (RtA[2] + RtA[6])
+    s12 = 0.5 * (RtA[5] + RtA[7])
+    trS = s00 + s11 + s22
+    lam = 1e-6 * torch.abs(trS) + 1e-20
+    l00, l11, l22 = trS - s00 + lam, trS - s11 + lam, trS - s22 + lam
+    l01, l02, l12 = -s01, -s02, -s12
+
+    M = rt_m(G)
+    r1, r2, r3 = M[7] - M[5], M[2] - M[6], M[3] - M[1]
+
+    c00 = l11 * l22 - l12 * l12
+    c01 = l02 * l12 - l01 * l22
+    c02 = l01 * l12 - l02 * l11
+    c11 = l00 * l22 - l02 * l02
+    c12 = l01 * l02 - l00 * l12
+    c22 = l00 * l11 - l01 * l01
+    det = l00 * c00 + l01 * c01 + l02 * c02
+    inv_det = divide_no_nan(torch.ones_like(det), det)
+    u1 = (c00 * r1 + c01 * r2 + c02 * r3) * inv_det
+    u2 = (c01 * r1 + c11 * r2 + c12 * r3) * inv_det
+    u3 = (c02 * r1 + c12 * r2 + c22 * r3) * inv_det
+
+    out = []  # R hat(u): hat(u) columns (0, u3, -u2), (-u3, 0, u1), (u2, -u1, 0)
+    for i in range(3):
+        ri0, ri1, ri2 = R[i * 3], R[i * 3 + 1], R[i * 3 + 2]
+        out += [ri1 * u3 - ri2 * u2, ri2 * u1 - ri0 * u3, ri0 * u2 - ri1 * u1]
+    return out
+
+
+class _ProjSO3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, A9):
+        R9 = torch.stack(_proj_SO3_core(list(A9.unbind(0))), dim=0)
+        ctx.save_for_backward(A9, R9)
+        return R9
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, G9):
+        A9, R9 = ctx.saved_tensors
+        return torch.stack(_proj_SO3_bwd_entries(A9.unbind(0), R9.unbind(0), G9.unbind(0)), dim=0)
+
+
 def proj_SO3_lm(A9: torch.Tensor) -> torch.Tensor:
-    """Closest rotation (Frobenius norm) to each (9, ...) entry matrix."""
-    return torch.stack(_proj_SO3_core(list(A9.unbind(0))), dim=0)
+    """Closest rotation (Frobenius norm) to each (9, ...) entry matrix, with
+    the closed-form polar-differential VJP (:func:`_proj_SO3_bwd_entries`)."""
+    return _ProjSO3.apply(A9)
 
 
 def matmul3x3_lm(a9, b9, transpose_a: bool = False, transpose_b: bool = False):

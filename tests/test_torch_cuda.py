@@ -2,10 +2,13 @@
 the operands of the fitting paths (SMPL and SMPL-X), the launch counts of a
 fit with and without target joints and of an SMPL-X fit, and fits on the card
 against the same fits on the CPU, unweighted and with fit weights (per call
-and static: K9 and the ω forms of K2, K4, K5 and K6).
+and static: K9 and the ω forms of K2, K4, K5 and K6); the backward kernels
+K10-K13 against their twins and gradients on the card against the CPU.
+Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
-no JAX, so on a machine without JAX run it without the suite's conftest:
+no JAX, so on a machine without JAX run it, from the repository root, without
+the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -16,8 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import backward_pass, record_calls
 from port_on_cpu import port_model_from
-from smplfitter_tpu_torch import BodyFitter, BodyModel
+from smplfitter_tpu_torch import BodyFitter, BodyModel, get_fit_grad_fn
+from smplfitter_tpu_torch.api import default_loss
 from smplfitter_tpu_torch.ops import lbs_kernels
 from smplfitter_tpu_torch.utils import synthetic
 
@@ -53,24 +58,11 @@ def _params(batch, seed):
 
 
 def _capture(bm, fitter, batch):
-    calls = {name: [] for name in WRAPPERS}
-    originals = {name: getattr(lbs_kernels, name) for name in WRAPPERS}
-
-    def recorder(name):
-        def wrapped(*args, **kwargs):
-            calls[name].append((args, kwargs))
-            return originals[name](*args, **kwargs)
-        return wrapped
-
-    try:
-        for name in WRAPPERS:
-            setattr(lbs_kernels, name, recorder(name))
+    def run():
         out = bm(*_params(batch, batch))
         fitter.fit(out['vertices'], out['joints'], **FIT_KW)
-    finally:
-        for name in WRAPPERS:
-            setattr(lbs_kernels, name, originals[name])
-    return calls
+
+    return record_calls(lbs_kernels, WRAPPERS, run)
 
 
 def _error_scales(name, args, want):
@@ -122,31 +114,19 @@ def _capture_paths(bm, fitter, kid_fitter, batch):
     """The wrappers' arguments from the fits without joints (plain and the
     flipper's configuration with the kid column), the known-shape fit and the
     scale fit."""
-    calls = {name: [] for name in PATH_WRAPPERS}
-    originals = {name: getattr(lbs_kernels, name) for name in PATH_WRAPPERS}
-
-    def recorder(name):
-        def wrapped(*args, **kwargs):
-            calls[name].append((args, kwargs))
-            return originals[name](*args, **kwargs)
-        return wrapped
-
     pose, betas, trans = _params(batch, batch + 1)
     kid = np.random.default_rng(batch).normal(0, 0.5, batch).astype(np.float32)
     out = bm(pose, betas, trans, kid)
     tv, tj = out['vertices'], out['joints']
-    try:
-        for name in PATH_WRAPPERS:
-            setattr(lbs_kernels, name, recorder(name))
+
+    def run():
         fitter.fit(tv, num_iter=2, requested_keys=('vertices',))
         kid_fitter.fit(tv, initial_pose_rotvecs=pose, initial_shape_betas=betas,
                        initial_kid_factor=kid, beta_regularizer=1e-2)
         fitter.fit_with_known_shape(betas, tv, tj, num_iter=2)
         fitter.fit(tv, tj, num_iter=2, scale_fit=True)
-    finally:
-        for name in PATH_WRAPPERS:
-            setattr(lbs_kernels, name, originals[name])
-    return calls
+
+    return record_calls(lbs_kernels, PATH_WRAPPERS, run)
 
 
 @pytest.mark.parametrize('batch', [64, 37])
@@ -217,27 +197,15 @@ def _smplx_params(batch, seed):
 def _capture_smplx(bm, fitter, kid_fitter, batch):
     """The large-model wrappers' arguments from the SMPL-X headline fit, a fit
     with the kid column and joints (E = 17) and a scale fit."""
-    calls = {name: [] for name in X_WRAPPERS}
-    originals = {name: getattr(lbs_kernels, name) for name in X_WRAPPERS}
-
-    def recorder(name):
-        def wrapped(*args, **kwargs):
-            calls[name].append((args, kwargs))
-            return originals[name](*args, **kwargs)
-        return wrapped
-
     out = bm(*_smplx_params(batch, batch))
     tv, tj = out['vertices'], out['joints']
-    try:
-        for name in X_WRAPPERS:
-            setattr(lbs_kernels, name, recorder(name))
+
+    def run():
         fitter.fit(tv, tj, **FIT_KW)
         kid_fitter.fit(tv, tj, num_iter=1)
         fitter.fit(tv, tj, num_iter=1, scale_fit=True)
-    finally:
-        for name in X_WRAPPERS:
-            setattr(lbs_kernels, name, originals[name])
-    return calls
+
+    return record_calls(lbs_kernels, X_WRAPPERS, run)
 
 
 @pytest.mark.parametrize('batch', [64, 37])
@@ -329,34 +297,23 @@ def static_fitter(card_models):
 def _capture_weighted(bm, fitter, static_fitter, batch):
     """The wrappers' arguments from per-call and static weighted fits: with
     and without joints, with a scale column, and the known-shape fit."""
-    calls = {name: [] for name in W_WRAPPERS}
-    originals = {name: getattr(lbs_kernels, name) for name in W_WRAPPERS}
-
-    def recorder(name):
-        def wrapped(*args, **kwargs):
-            calls[name].append((args, kwargs))
-            return originals[name](*args, **kwargs)
-        return wrapped
-
     pose, betas, trans = _params(batch, batch + 2)
     out = bm(pose, betas, trans)
     tv, tj = out['vertices'], out['joints']
     vw = _fit_weights(batch, bm.num_vertices, batch)
     jw = _fit_weights(batch, bm.num_joints, batch + 1)
-    try:
-        for name in W_WRAPPERS:
-            setattr(lbs_kernels, name, recorder(name))
+
+    def run():
         fitter.fit(tv, tj, vertex_weights=vw, joint_weights=jw, num_iter=2)
         fitter.fit(tv, vertex_weights=vw, num_iter=2, scale_fit=True)
         fitter.fit_with_known_shape(betas, tv, tj, vertex_weights=vw, joint_weights=jw)
         static_fitter.fit(tv, tj, num_iter=2)
         static_fitter.fit(tv, num_iter=2, scale_target=True)
         static_fitter.fit_with_known_shape(betas, tv, tj)
-    finally:
-        for name in W_WRAPPERS:
-            setattr(lbs_kernels, name, originals[name])
-    return {name: [c for c in cs if 'omega' in c[1] or name == 'wgram_moments']
-            for name, cs in calls.items()}
+
+    calls = record_calls(lbs_kernels, W_WRAPPERS, run)
+    return {name: [c for c in calls[name] if 'omega' in c[1] or name == 'wgram_moments']
+            for name in W_WRAPPERS}
 
 
 @pytest.mark.parametrize('batch', [64, 37])
@@ -415,3 +372,109 @@ def test_weighted_card_fit_matches_cpu_fit(card_models, static_fitter, kind):
     assert (card['shape_betas'].cpu() - cpu['shape_betas']).abs().max().item() <= 1e-3
     for key in ('pose_rotvecs', 'trans'):
         assert torch.allclose(card[key].cpu(), cpu[key], atol=1e-3), key
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the backward kernels K10-K13 and the gradient of the fit
+# ---------------------------------------------------------------------------
+
+BWD_WRAPPERS = ('lbs_points_bwd', 'rhs_moments_bwd', 'rhs_moments_cached_bwd',
+                'recon_part_sums_cached_bwd')
+
+
+def _capture_backward(bm, fitters, params):
+    """The backward wrappers' arguments from the gradient of a forward pass
+    and of each fitter's headline and known-pose fits."""
+    params = [torch.as_tensor(x, device='cuda') for x in params]
+    return record_calls(lbs_kernels, BWD_WRAPPERS,
+                        lambda: backward_pass(torch, bm, fitters, params))
+
+
+@pytest.mark.parametrize('batch', [64, 1000])
+@pytest.mark.parametrize('name', BWD_WRAPPERS)
+def test_backward_kernel_matches_twin(card_models, static_fitter, smplx_models, name, batch):
+    """K10-K13 against their twins on the operands of real backward passes:
+    SMPL's forward pass, headline and known-pose fits, unweighted and with
+    static weights (the ω forms of K11 and K13; the known-pose fit runs K11's
+    plain form), and SMPL-X's (K10 at F = 503, K12, K13 at J = 55)."""
+    calls = _capture_backward(card_models[0], (card_models[1], static_fitter),
+                              _params(batch, batch + 5))[name]
+    if name != 'rhs_moments_bwd':
+        calls += _capture_backward(smplx_models[0], smplx_models[1:2],
+                                   _smplx_params(batch, batch + 6))[name]
+    assert calls, f'{name} was not called by the backward passes'
+    if name in ('rhs_moments_bwd', 'recon_part_sums_cached_bwd'):
+        assert any(kw.get('omega') is not None for _, kw in calls)
+    if name == 'rhs_moments_bwd':
+        assert {kw['gh'] is None for _, kw in calls} == {True, False}
+    _check_against_twin(name, calls)
+
+
+def test_gradient_launch_counts(card_models):
+    """One backward kernel per forward kernel of the SMPL headline fit."""
+    bm, fitter = card_models
+    out = bm(*_params(40, 10))
+    tv = out['vertices'].detach().requires_grad_()
+    tj = out['joints'].detach().requires_grad_()
+    loss = default_loss(fitter.fit(tv, tj, **FIT_KW))
+    lbs_kernels.reset_launch_counts()
+    torch.autograd.grad(loss, (tv, tj))
+    assert lbs_kernels.LAUNCHES == dict(NO_LAUNCHES, rhs_moments_h_bwd=3,
+                                        recon_part_sums_cached_bwd=3)
+
+
+def test_headline_fit_gradient_matches_cpu(card_models):
+    """The gradient of a loss of the headline fit with respect to its targets,
+    on the card and on the CPU, B = 32, within 1e-3 of max|g_cpu| (the JAX
+    package's limit for its kernel gradient, tests/test_tpu_grad.py). Before
+    the backward kernels the card's gradient left out the kernels' share."""
+    bm, fitter = card_models
+    out = bm(*_params(32, 11))
+    grads = []
+    for fit, dev in ((fitter, 'cuda'), (BodyFitter(port_model_from(bm)), 'cpu')):
+        tv = out['vertices'].detach().to(dev).requires_grad_()
+        tj = out['joints'].detach().to(dev).requires_grad_()
+        grads.append(torch.autograd.grad(default_loss(fit.fit(tv, tj, **FIT_KW)), (tv, tj)))
+    for g, c in zip(*grads):
+        assert torch.isfinite(g).all()
+        assert (g.cpu() - c).abs().max().item() <= 1e-3 * c.abs().max().item()
+
+
+def test_smplx_fit_gradient_matches_cpu(smplx_models):
+    """SMPL-X with one iteration, whose gradient runs the large-model route's
+    backward (K7's GEMM, the streamed Gramian term's, K12, K13), on the card
+    and on the CPU within 1e-3 of max|g_cpu|. Three iterations amplify f32
+    rounding on the hands beyond that (chip_smoke.py phase 15)."""
+    bm, fitter, _ = smplx_models
+    out = bm(*_smplx_params(32, 15))
+    tv, tj = out['vertices'], out['joints']
+    card = get_fit_grad_fn(fitter, num_iter=1)(tv, tj)[1]
+    cpu = get_fit_grad_fn(BodyFitter(port_model_from(bm)), num_iter=1)(tv.cpu(), tj.cpu())[1]
+    for g, c in zip(card, cpu):
+        assert torch.isfinite(g).all()
+        assert (g.cpu() - c).abs().max().item() <= 1e-3 * c.abs().max().item()
+
+
+def test_forward_gradient_matches_cpu(card_models):
+    bm = card_models[0]
+    cpu_bm = port_model_from(bm)
+    grads = []
+    for model, dev in ((bm, 'cuda'), (cpu_bm, 'cpu')):
+        p = [torch.as_tensor(x, device=dev).requires_grad_() for x in _params(32, 12)]
+        grads.append(torch.autograd.grad(torch.sin(model(*p)['vertices']).sum(), p))
+    for g, c in zip(*grads):
+        assert (g.cpu() - c).abs().max().item() <= 1e-5 * c.abs().max().item()
+
+
+def test_form_without_backward_refuses_gradient(card_models):
+    """Per-call weights run K5 and K9, which have no backward kernel yet: under
+    a gradient they raise instead of dropping their share; without one they run."""
+    bm, fitter = card_models
+    out = bm(*_params(16, 13))
+    kw = dict(FIT_KW, vertex_weights=_fit_weights(16, bm.num_vertices, 5),
+              joint_weights=_fit_weights(16, bm.num_joints, 6))
+    tv = out['vertices'].detach().requires_grad_()
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        fitter.fit(tv, out['joints'], **kw)
+    with torch.no_grad():
+        fitter.fit(tv, out['joints'], **kw)
