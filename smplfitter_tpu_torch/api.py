@@ -3,9 +3,17 @@
 :func:`get_fit_grad_fn` is the recipe for training a network with a loss
 taken through the closed-form fit: the value and gradient, with respect to
 the target vertices and joints, of a scalar loss of the fit's results. On the
-card the gradient runs through the backward kernels (K10-K13) of the fit's
-kernel forms; a form without one raises ``NotImplementedError`` rather than
-return a gradient without its share (see ``ops/lbs_kernels.py``).
+card the gradient runs through the backward kernels (K10-K15) of the fit's
+kernel forms, and through PyTorch ops where the JAX package has no custom VJP
+either (K2's scale forms, per-call fit weights, K9; see
+``ops/lbs_kernels.py``).
+
+Every entry point of ``BodyFitter`` is differentiable the same way: the
+other paths (fits without target joints, warm starts, ``scale_fit`` /
+``scale_target``, fit weights, ``fit_with_known_shape``,
+``fit_with_known_pose``) are differentiated with ``torch.autograd.grad`` of
+a loss of their results, as :func:`get_fit_grad_fn` does for ``fit`` with
+target joints (the JAX package's signature).
 """
 
 from __future__ import annotations

@@ -6,11 +6,12 @@
 //     raw[c*3+d, p] = sum_v t_c a_d,  s_t[c, p] = sum_v t_c,  s_a[d, p] = sum_v a_d.
 // The fit-weighted form (W) takes ω per vertex, the static column (V_pad, 1)
 // or per-call weights (V, B), through one row and one batch stride, and
-// multiplies a in every sum and t in s_t (the JAX package's convention). Under
-// per-call weights the reference may be batch-constant (BCAST: (3, V_a, 1),
-// read with a batch stride of 0; the first rotation fit's T-pose); the
-// unweighted and static forms of that case stay one GEMM
-// (models/bodyfitter.py:_part_sums_static_ref_lm).
+// multiplies a in every sum and t in s_t (the JAX package's convention). The
+// reference may be batch-constant (BCAST: (3, V_a, 1), read with a batch
+// stride of 0): under per-call weights the first rotation fit's T-pose; the
+// fit sends the unweighted and static forms of that case to one GEMM
+// (models/bodyfitter.py:_part_sums_static_ref_lm), and they reach this
+// kernel only through the API.
 //
 // What bounds it on an H100: bytes. Six floats are read per vertex and column
 // (seven weighted) and 15 FMAs or adds are done with them: at SMPL b4096 the
@@ -76,16 +77,18 @@ part_segments_kernel(const float* __restrict__ t, const float* __restrict__ a,
 // weights read as om[v * om_rs + b * om_bs] for v < min(Vt, om_rows); verts,
 // seg_offset (n_seg + 1), part_seg (J + 1) as in recon_part_sums_launch ->
 // raw (9, J, B), st (3, J, B), sa (3, J, B); part is scratch of
-// n_seg * 15 * B floats. bcast requires per-call weights.
+// n_seg * 15 * B floats.
 SMPL_API int part_sums_launch(const float* t, const float* a, const float* om, const int* verts,
                               const int* seg_offset, const int* part_seg, float* raw,
                               float* st, float* sa, float* part, int J, int B, int Vt, int Va,
                               int n_seg, int bcast, int om_rows, int om_rs, int om_bs,
                               cudaStream_t stream) {
-  if (bcast && om == nullptr) return (int)cudaErrorInvalidValue;
   if (n_seg > 0) {
     dim3 grid((B + TB4 - 1) / TB4, n_seg);
-    if (om == nullptr)
+    if (om == nullptr && bcast)
+      part_segments_kernel<false, true><<<grid, NT, 0, stream>>>(
+          t, a, om, verts, seg_offset, part, B, Vt, Va, om_rows, om_rs, om_bs);
+    else if (om == nullptr)
       part_segments_kernel<false, false><<<grid, NT, 0, stream>>>(
           t, a, om, verts, seg_offset, part, B, Vt, Va, om_rows, om_rs, om_bs);
     else if (bcast)

@@ -735,12 +735,12 @@ class BodyFitter(nn.Module):
         (B,) with the kid column, scale_corr (B,) under ``scale_target`` /
         ``scale_fit``, and on request pose_rotvecs (B, 3J), vertices (B, V, 3)
         and joints (B, J, 3). ``vertex_weights`` (B, V) and ``joint_weights``
-        (B, J) weight the fit (see the module docstring)."""
+        (B, J) weight the fit (see the module docstring). ``num_iter`` - 1
+        rounds of shape solve and rotation fit precede the final solve, so a
+        ``num_iter`` below 1 fits as 1 does, as in the JAX package."""
         requested_keys = tuple(requested_keys)
         if share_beta:
             raise _not_ported('share_beta', 5)
-        if num_iter < 1:
-            raise ValueError('num_iter must be at least 1')
         opt = self._optional
         target_vertices = self.body_model.as_f32(target_vertices)
         omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights,

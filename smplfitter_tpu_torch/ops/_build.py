@@ -40,6 +40,8 @@ _SIGNATURES = {
     'lbs_points_bwd_launch': [_P] * 7 + [_I] * 5 + [_P],
     'rhs_bwd_launch': [_P] * 15 + [_I] * 8 + [_P],
     'recon_bwd_launch': [_P] * 15 + [_I] * 6 + [_P],
+    'recon_lbs_bwd_launch': [_P] * 13 + [_I] * 6 + [_P],
+    'part_sums_bwd_launch': [_P] * 10 + [_I] * 5 + [_P],
 }
 # name -> argument types of the shared-memory size queries (restype size_t).
 _SMEM_SIGNATURES = {
@@ -53,6 +55,7 @@ _SMEM_SIGNATURES = {
     'lbs_points_bwd_smem_bytes': [_I],
     'rhs_bwd_smem_bytes': [_I, _I, _I],
     'recon_bwd_smem_bytes': [_I, _I],
+    'recon_lbs_bwd_smem_bytes': [_I],
 }
 
 _lib = None

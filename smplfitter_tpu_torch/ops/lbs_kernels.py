@@ -37,27 +37,48 @@ per-call weights only. Each form is a compile-time variant of its kernel.
 Gradients follow the JAX package's custom VJPs. Where it has one, the wrapper
 is a ``torch.autograd.Function`` whose backward is a kernel too:
 
-| wrapper (forms)                         | backward wrapper           | replaces (JAX package)         |
-|-----------------------------------------|----------------------------|--------------------------------|
-| lbs_points                              | lbs_points_bwd             | _lbs_points_bwd_kernel (K10)   |
-| rhs_moments_h, rhs_moments (static ω)   | rhs_moments_bwd            | _rhs_bwd_kernel (K11)          |
-| rhs_moments_cached (static ω)           | rhs_moments_cached_bwd     | _rhs_cached_bwd_kernel (K12)   |
-| recon_part_sums_cached_lm (static ω)    | recon_part_sums_cached_bwd | _recon_cached_bwd_kernel (K13) |
-| gram_assembly (K3), term1, posed_t.     | PyTorch ops                | the JAX package's XLA VJPs     |
+| wrapper                    | backward wrapper           | replaces (JAX package)            |
+|----------------------------|----------------------------|-----------------------------------|
+| lbs_points                 | lbs_points_bwd             | _lbs_points_bwd_kernel (K10)      |
+| rhs_moments_h, rhs_moments | rhs_moments_bwd            | _rhs_bwd_kernel (K11)             |
+| rhs_moments_cached         | rhs_moments_cached_bwd     | _rhs_cached_bwd_kernel (K12)      |
+| recon_part_sums_cached_lm  | recon_part_sums_cached_bwd | _recon_cached_bwd_kernel (K13)    |
+| recon_part_sums_lm         | recon_part_sums_bwd        | _recon_part_sums_bwd_kernel (K14) |
+| part_sums_vm_lm            | part_sums_bwd              | _part_sums_bwd_kernel (K15)       |
+| gram_assembly (K3), term1  | PyTorch ops                | the JAX package's XLA VJPs        |
+| posed_template_lm          | PyTorch ops                | the JAX package's XLA VJP         |
 
 The backward kernels are in csrc/lbs_points_bwd.cu (K10), csrc/rhs_bwd.cu
-(K11, K12) and csrc/recon_bwd.cu (K13); "(static ω)" means the unweighted
-form and the static-ω one; posed_t. is posed_template_lm.
+(K11, K12), csrc/recon_bwd.cu (K13), csrc/recon_lbs_part_sums_bwd.cu (K14)
+and csrc/part_sums_bwd.cu (K15). The K2, K4, K5 and K6 rows hold for the
+unweighted form and the static-ω one. K15 has a summed form for a
+batch-constant reference (3, V_a, 1), whose cotangent sums over the batch.
 
 Each backward wrapper, like a forward one, runs its plain twin (``*_bwd_ref``,
 the explicit formula) on CPU tensors and its kernel on CUDA tensors, counting
-launches under its own key. The other forms (K2's scale forms, per-call ω,
-K5, K6, K9) have no backward kernel yet: on the card they raise
-``NotImplementedError`` when autograd would need their gradient, on the CPU
-their twins stay autograd-transparent. Operands the JAX VJPs treat as
-constants (skinning weights, template projectors, shape directions, moments,
-ω, the part index) get no gradient; should one require grad, the CPU runs the
-twin and the card raises.
+launches under its own key.
+
+The forms the JAX package gives no custom VJP, which it differentiates
+through its XLA formulation, keep their forward kernel and take their
+backward in PyTorch ops (:class:`_ChunkedVjp`: the VJP of the twin's formula,
+recomputed one vertex chunk at a time), counted in ``TORCH_VJPS`` (as are
+the backward passes of K3, K7 and K8, under their LAUNCHES keys):
+
+| wrapper (forms)                                | TORCH_VJPS key                |
+|------------------------------------------------|-------------------------------|
+| rhs_moments, scale=True (unweighted, ω)        | rhs_moments_scale[_w]         |
+| rhs_moments_cached, scale=True (unweighted, ω) | rhs_moments_cached_scale[_w]  |
+| recon_part_sums_cached_lm, per-call ω          | recon_part_sums_cached_call_w |
+| part_sums_vm_lm, per-call ω                    | part_sums_call_w              |
+| recon_part_sums_lm, per-call ω                 | recon_part_sums_call_w        |
+| wgram_moments (K9)                             | wgram                         |
+
+They differentiate the targets, the [R|t] entries, the features or cached
+template, the Jacobian operands and means of K9, and the weights ω. Operands
+every backward treats as constants (skinning weights, template projectors,
+shape directions, moments, a static ω of a kernel backward, the part index)
+get no gradient; should one require grad, the CPU runs the twin and the card
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -102,10 +123,31 @@ LAUNCHES = {
     'rhs_moments_bwd_w': 0,
     'rhs_moments_cached_bwd_w': 0,
     'recon_part_sums_cached_bwd_w': 0,
+    'part_sums_bwd': 0,
+    'part_sums_bwd_sum': 0,
+    'part_sums_bwd_w': 0,
+    'part_sums_bwd_sum_w': 0,
+    'recon_part_sums_bwd': 0,
+    'recon_part_sums_bwd_w': 0,
 }
 
-# The item of ROADMAP.md's first queue that holds the gradients still to port.
-_GRAD_ITEM = 'ROADMAP Queue 1, item 8'
+# Backward passes in torch ops, one count per backward call: K3, K7 and K8,
+# whose JAX VJPs are XLA, and the forms the JAX package differentiates through
+# its XLA formulation (no custom VJP there; per-call fit weights count under
+# '_call_w').
+TORCH_VJPS = {
+    'gram_assembly': 0,
+    'posed_template': 0,
+    'term1': 0,
+    'rhs_moments_scale': 0,
+    'rhs_moments_scale_w': 0,
+    'rhs_moments_cached_scale': 0,
+    'rhs_moments_cached_scale_w': 0,
+    'recon_part_sums_cached_call_w': 0,
+    'part_sums_call_w': 0,
+    'recon_part_sums_call_w': 0,
+    'wgram': 0,
+}
 
 # Row padding of the per-vertex constant operands (weights_pad, consts, sd_cm).
 # The kernels mask by row index and need none; it is kept equal to the JAX
@@ -116,6 +158,8 @@ _TV = 64  # vertex tile of the LBS kernels (csrc/lbs_tile.cuh)
 _TB = 64  # batch tile of the LBS kernels
 _SEG = 512  # max vertices per part segment of the recon kernel
 _BWD_MAXJ = 64  # joints of one reduction pass of the backward kernels (csrc/lbs_bwd.cuh)
+_SUM_COLS = 256  # batch columns per split of K15's summed form (csrc/part_sums_bwd.cu)
+_VJP_VCHUNK = 512  # vertices per step of a backward in torch ops (bounds its memory)
 
 # The JAX package's route for the shape solve of models whose pose template
 # has more features than this (SMPL-X F=487, SMPL+H F=460): the posed template
@@ -131,8 +175,10 @@ TERM1_STREAM_MIN_BYTES = 2.75 * 2 ** 20
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero LAUNCHES and TORCH_VJPS."""
+    for counts in (LAUNCHES, TORCH_VJPS):
+        for name in counts:
+            counts[name] = 0
 
 
 def to_vertex_major(x: torch.Tensor) -> torch.Tensor:
@@ -232,24 +278,70 @@ def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def _refuse_grad(name: str, *tensors) -> None:
-    """On the card, a kernel form without a backward kernel refuses to run
-    where autograd would need its gradient (instead of dropping its share)."""
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f'{name}: gradients through this kernel form on the card are not ported yet '
-            f'({_GRAD_ITEM})')
-
-
 def _twin_for_constant_grads(name: str, cuda: bool, *constants) -> bool:
-    """True where an operand that the backward kernel treats as a constant
-    requires grad: on the CPU the wrapper then runs its autograd-transparent
-    twin instead of its Function; on the card it raises."""
+    """True where an operand that the backward treats as a constant requires
+    grad: on the CPU the wrapper then runs its autograd-transparent twin
+    instead of its Function; on the card it raises."""
     if not _needs_grad(*constants):
         return False
     if cuda:
-        _refuse_grad(f'{name} (gradient of a constant operand)', *constants)
+        raise NotImplementedError(
+            f'{name}: no gradient on the card for an operand that the backward treats as a '
+            'constant (skinning weights, templates, shape directions, moments, static fit '
+            'weights, the part index)')
     return True
+
+
+def _rows(x: torch.Tensor, dim: int, v0: int, v1: int) -> torch.Tensor:
+    """Rows [v0, v1) of x along its vertex axis ``dim`` (a view)."""
+    return x[(slice(None),) * dim + (slice(v0, v1),)]
+
+
+class _ChunkedVjp(torch.autograd.Function):
+    """A kernel form whose backward is torch ops, as the JAX package
+    differentiates the forms without a custom VJP through its XLA
+    formulation: the forward runs ``run`` (the kernel on CUDA tensors, the
+    twin on CPU ones); the backward recomputes ``chunk_fn``, the twin's
+    formula, under autograd on ``_VJP_VCHUNK`` vertices at a time and adds
+    up the chunks' VJPs. Every output is a sum over the first ``n_rows``
+    vertices, so the VJP splits exactly over chunks, and one chunk's graph
+    bounds the memory. ``vdims`` gives each operand's vertex axis (None: not
+    per vertex); ``diff`` the operands that get a gradient; each backward
+    counts one under ``TORCH_VJPS[key]``."""
+
+    @staticmethod
+    def forward(ctx, key, run, chunk_fn, n_rows, vdims, diff, *operands):
+        ctx.key, ctx.chunk_fn, ctx.n_rows, ctx.vdims, ctx.diff = (
+            key, chunk_fn, n_rows, vdims, diff)
+        ctx.save_for_backward(*operands)
+        return run(*operands)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cots):
+        ops = ctx.saved_tensors
+        want = [i for i in ctx.diff if ctx.needs_input_grad[6 + i]]
+        grads = [None] * len(ops)
+        if not want:
+            return (None,) * (6 + len(ops))
+        TORCH_VJPS[ctx.key] += 1
+        for i in want:
+            grads[i] = torch.zeros_like(ops[i])
+        for v0 in range(0, ctx.n_rows, _VJP_VCHUNK):
+            v1 = min(ctx.n_rows, v0 + _VJP_VCHUNK)
+            with torch.enable_grad():
+                xs = [o if o is None or d is None else _rows(o, d, v0, v1)
+                      for o, d in zip(ops, ctx.vdims)]
+                xs = [x.detach().requires_grad_() if i in want else x for i, x in enumerate(xs)]
+                outs = ctx.chunk_fn(*xs)
+                pairs = [(o, c) for o, c in zip(outs, cots) if o.requires_grad]
+                gs = torch.autograd.grad([o for o, _ in pairs], [xs[i] for i in want],
+                                         [c for _, c in pairs], allow_unused=True)
+            for i, g in zip(want, gs):
+                if g is not None:
+                    d = ctx.vdims[i]
+                    (grads[i] if d is None else _rows(grads[i], d, v0, v1)).add_(g)
+        return (None,) * 6 + tuple(grads)
 
 
 # ---------------------------------------------------------------------------
@@ -411,6 +503,7 @@ class _PosedTemplate(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dh):
+        TORCH_VJPS['posed_template'] += 1
         (consts_pad,) = ctx.saved_tensors
         _, Vp, F = consts_pad.shape
         consts3 = consts_pad[:3].reshape(3 * Vp, F)
@@ -516,14 +609,31 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, ho
         raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
     args = (name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm, emit_homog,
             scale, omega)
-    if scale:  # no backward kernel
-        if cuda:
-            _refuse_grad(name, tgt_vm, pj_cm, feat_cols, homog_vm, weights_pad, consts_pad, sd_cm,
-                         omega)
-        return _rhs_run(*args)
+    if scale:  # no backward kernel: the VJP of the twin in torch ops (ω included)
+        if _twin_for_constant_grads(name, cuda, weights_pad, consts_pad, sd_cm):
+            return _rhs_run(*args)
+        return _rhs_scale_vjp(*args[:8], omega)
     if _twin_for_constant_grads(name, cuda, weights_pad, consts_pad, sd_cm, omega):
         return _rhs_run(*args)
     return _RhsMoments.apply(*args)
+
+
+def _rhs_scale_vjp(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
+                   omega):
+    """K2's scale forms (plain or cached, unweighted or static ω) as a
+    _ChunkedVjp: tgt, pj, feat or the cached template, and ω differentiate."""
+    cached = homog_vm is not None
+
+    def run(tgt, pj, feat, w, consts, sd, homog, om):
+        return _rhs_run(name, tgt, pj, feat, w, consts, sd, homog, False, True, om)
+
+    def chunk(tgt, pj, feat, w, consts, sd, homog, om):
+        h = homog if cached else posed_template_ref(feat, consts)
+        return _rhs_twin(tgt, pj, h, w, sd, True, om)
+
+    return _ChunkedVjp.apply(name, run, chunk, tgt_vm.shape[1], (1, None, None, 0, 1, 1, 1, 0),
+                             (0, 1, 2, 6, 7), tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad,
+                             sd_cm, homog_vm, omega)
 
 
 class _RhsMoments(torch.autograd.Function):
@@ -879,6 +989,7 @@ class _GramAssembly(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gG, gSA, grb, gSb):
+        TORCH_VJPS['gram_assembly'] += 1
         saved = ctx.saved_tensors
         with torch.enable_grad():
             xs = [t.detach().requires_grad_() for t in saved[:5]]
@@ -969,6 +1080,7 @@ class _Term1(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gG):
+        TORCH_VJPS['term1'] += 1
         R_cm, ksd = ctx.saved_tensors
         _, J3, B = R_cm.shape
         dX = (gG.T @ ksd.T).view(B, J3, J3)
@@ -1069,13 +1181,25 @@ def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: Par
     if cuda and E > 32:
         raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
     args = (name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts, weights_pad, omega)
-    if omega is not None and omega.shape != (Vp, 1):  # per-call ω: no backward kernel
-        if cuda:
-            _refuse_grad(name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, weights_pad, omega)
+    call_omega = omega is not None and omega.shape != (Vp, 1)
+    if _twin_for_constant_grads(name, cuda, sd_cm, parts.pm, weights_pad,
+                                None if call_omega else omega):
         return _recon_cached_run(*args)
-    if _twin_for_constant_grads(name, cuda, sd_cm, parts.pm, weights_pad, omega):
-        return _recon_cached_run(*args)
+    if call_omega:  # no backward kernel: the VJP of the twin in torch ops
+        return _recon_cached_call_vjp(*args)
     return _ReconCached.apply(*args)
+
+
+def _recon_cached_call_vjp(name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts, weights_pad,
+                           omega):
+    """K4 under per-call ω as a _ChunkedVjp: tgt, pj, x, the cached template
+    and ω differentiate."""
+    def run(tgt, pj, x, sd, homog, pm, w, om):
+        return _recon_cached_run(name, tgt, pj, x, sd, homog, parts, w, om)
+
+    return _ChunkedVjp.apply('recon_part_sums_cached_call_w', run, recon_part_sums_cached_ref,
+                             tgt_vm.shape[1], (1, None, None, 1, 1, 1, 0, 0), (0, 1, 2, 4, 7),
+                             tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts.pm, weights_pad, omega)
 
 
 def _recon_cached_run(name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts, weights_pad, omega):
@@ -1187,9 +1311,7 @@ def recon_part_sums_cached_bwd(graw, gst, gsa, tgt_vm, pj_cm, x_cols, sd_cm, hom
                                               homog_vm, parts.pm, weights_pad, **extra)
     if J > _BWD_MAXJ or E > 32:
         raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ} and E <= 32, got {J}, {E}')
-    vp = parts.vpart
-    if vp.dtype != torch.int32 or vp.device != graw.device or vp.shape != (Vp,):
-        raise ValueError(f'{name}: parts.vpart must be int32 ({Vp},) on {graw.device}')
+    vp = _vpart(name, parts, Vp, graw.device)
     dev = graw.device
     tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
     dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
@@ -1226,7 +1348,9 @@ def _part_sums_of(pm, t, a, omega=None):
     """raw (9, J, B), s_t, s_a (3, J, B) of a target t (3, V_t, B) and a
     reference a (3, V_a, B|1) over the membership pm (J, >= max(V_t, V_a)).
     Fit weights ``omega`` ((V_pad, 1) or (V_t, B)) multiply a in every sum and
-    t in s_t; rows past the target's are then left out of all three."""
+    t in s_t; rows past the target's are then left out of all three. s_a is
+    (3, J, 1) for a batch-constant reference unless the weights vary over
+    the batch."""
     if omega is None:
         v = min(t.shape[1], a.shape[1])
         pm_ta = pm[:, :v]
@@ -1234,14 +1358,13 @@ def _part_sums_of(pm, t, a, omega=None):
         s_t = torch.stack([pm[:, :t.shape[1]] @ t[c] for c in range(3)])
         s_a = torch.stack([pm[:, :a.shape[1]] @ a[d] for d in range(3)])
         return raw, s_t, s_a
-    B = t.shape[2]
     v = min(t.shape[1], a.shape[1])
     om = _omega_rows(omega, t.shape[1])
     pm_v = pm[:, :v]
     aw = [a[d, :v] * om[:v] for d in range(3)]
     raw = torch.stack([pm_v @ (t[c, :v] * aw[d]) for c in range(3) for d in range(3)])
     s_t = torch.stack([pm[:, :t.shape[1]] @ (t[c] * om) for c in range(3)])
-    s_a = torch.stack([pm_v @ aw[d].expand(v, B) for d in range(3)])
+    s_a = torch.stack([pm_v @ aw[d] for d in range(3)])
     return raw, s_t, s_a
 
 
@@ -1257,14 +1380,17 @@ def part_sums_ref(t_vm, a_vm, pm, omega=None):
 
 def part_sums_vm_lm(t_vm, a_vm, parts: PartIndex, omega=None):
     """Per-part sums of a target t (3, V_t, B) against a reference a
-    (3, V_a, B) that varies over the batch: raw (9, J, B) = sum_v pm_jv t_c a_d
-    (rows c*3+d), s_t (3, J, B) = sum_v pm_jv t, s_a (3, J, B) = sum_v pm_jv a.
+    (3, V_a, B) that varies over the batch, or (3, V_a, 1) that does not:
+    raw (9, J, B) = sum_v pm_jv t_c a_d (rows c*3+d), s_t (3, J, B) =
+    sum_v pm_jv t, s_a (3, J, B|1) = sum_v pm_jv a.
 
     Fit weights ``omega``, static (V_pad, 1) or per call (V_t, B), multiply a
-    in every sum and t in s_t. With per-call weights the reference may be
-    batch-constant, (3, V_a, 1), read with a batch stride of 0 (the
-    unweighted and statically weighted forms of that case are one GEMM,
-    ``models/bodyfitter.py:_part_sums_static_ref_lm``)."""
+    in every sum and t in s_t; per-call weights make s_a (3, J, B). The fit
+    sends a batch-constant reference without per-call weights to one GEMM
+    (``models/bodyfitter.py:_part_sums_static_ref_lm``).
+
+    Gradients: unweighted or with static ω, K15 (:func:`part_sums_bwd`); with
+    per-call ω, torch ops (:class:`_ChunkedVjp`), which also give ω's."""
     name = 'part_sums' + ('' if omega is None else '_w')
     extra = {} if omega is None else dict(omega=omega)
     cuda = _on_cuda(name, t_vm=t_vm, a_vm=a_vm, pm=parts.pm, **extra)
@@ -1272,22 +1398,154 @@ def part_sums_vm_lm(t_vm, a_vm, parts: PartIndex, omega=None):
     _, v_t, B = t_vm.shape
     v_a = a_vm.shape[1]
     _expect(name, 't_vm', t_vm, (3, v_t, B))
-    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
-    broadcast = om_bs == 1 and a_vm.dim() == 3 and a_vm.shape[2] == 1 and B > 1
+    _omega_args(name, omega, v_t, B, Vp)
+    broadcast = a_vm.dim() == 3 and a_vm.shape[2] == 1 and B > 1
     _expect(name, 'a_vm', a_vm, (3, v_a, 1 if broadcast else B))
     if max(v_t, v_a) > Vp:
         raise ValueError(f'{name}: point rows {max(v_t, v_a)} exceed V_pad {Vp}')
-    if not cuda:
+    call_omega = omega is not None and omega.shape != (Vp, 1)
+    if _twin_for_constant_grads(name, cuda, parts.pm, None if call_omega else omega):
         return part_sums_ref(t_vm, a_vm, parts.pm, **extra)
-    _refuse_grad(name, t_vm, a_vm, omega)
+    if call_omega:  # no backward kernel: the VJP of the twin in torch ops
+        return _part_sums_call_vjp(name, t_vm, a_vm, parts, omega)
+    return _PartSums.apply(name, t_vm, a_vm, parts, omega)
+
+
+def _part_sums_call_vjp(name, t_vm, a_vm, parts: PartIndex, omega):
+    """K5 under per-call ω as a _ChunkedVjp: t, a and ω differentiate."""
+    def run(t, a, pm, om):
+        return _part_sums_run(name, t, a, parts, om)
+
+    return _ChunkedVjp.apply('part_sums_call_w', run, part_sums_ref, t_vm.shape[1],
+                             (1, 1, 1, 0), (0, 1, 3), t_vm, a_vm, parts.pm, omega)
+
+
+def _part_sums_run(name, t_vm, a_vm, parts: PartIndex, omega):
+    """Checked K5: its kernel on CUDA tensors, its twin on CPU ones."""
+    if not t_vm.is_cuda:
+        return part_sums_ref(t_vm, a_vm, parts.pm, **({} if omega is None else dict(omega=omega)))
+    J, Vp = parts.pm.shape
+    _, v_t, B = t_vm.shape
+    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
+    broadcast = a_vm.shape[2] == 1 and B > 1
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, t_vm.device)
     err = _build.library().part_sums_launch(
         _ptr(t_vm), _ptr(a_vm), om_ptr, _ptr(parts.verts), _ptr(parts.seg_offset),
-        _ptr(parts.part_seg), _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, B, v_t, v_a,
-        parts.n_seg, int(broadcast), om_rows, om_rs, om_bs, _stream(raw))
+        _ptr(parts.part_seg), _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, B, v_t,
+        a_vm.shape[1], parts.n_seg, int(broadcast), om_rows, om_rs, om_bs, _stream(raw))
     _build.check(err, name)
     LAUNCHES[name] += 1
+    if broadcast and om_bs == 0:  # every column's s_a is the same
+        s_a = s_a[:, :, :1].contiguous()
     return raw, s_t, s_a
+
+
+class _PartSums(torch.autograd.Function):
+    """K5 (unweighted or static ω) with K15 as its backward: the JAX
+    package's _part_sums_diff and _part_sums_w_diff."""
+
+    @staticmethod
+    def forward(ctx, name, t_vm, a_vm, parts, omega):
+        ctx.parts = parts
+        ctx.save_for_backward(t_vm, a_vm, omega)
+        return _part_sums_run(name, t_vm, a_vm, parts, omega)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, graw, gst, gsa):
+        t_vm, a_vm, omega = ctx.saved_tensors
+        dt, da = part_sums_bwd(graw.contiguous(), gst.contiguous(), gsa.contiguous(), t_vm, a_vm,
+                               ctx.parts, omega=omega)
+        return None, dt, da, None, None
+
+
+# ---------------------------------------------------------------------------
+# K15: backward of the per-part sums
+# ---------------------------------------------------------------------------
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x (C, V, B) with zero rows appended up to n."""
+    if x.shape[1] >= n:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], n - x.shape[1], x.shape[2]))], dim=1)
+
+
+def _part_sums_bwd_of(pm, graw, gst, gsa, t, a, omega=None):
+    """The VJP of :func:`_part_sums_of` (unweighted or a static ω column):
+    with W = pm^T graw, dt_c = ω (pm^T gst_c + sum_d W[c*3+d] a_d) (3, V_t, B)
+    and da_d = ω (pm^T gsa_d + sum_c W[c*3+d] t_c), (3, V_a, B), or summed
+    over the batch, (3, V_a, 1), for a batch-constant a; ω zero past V_t."""
+    v_t, v_a = t.shape[1], a.shape[1]
+    n = max(v_t, v_a)
+    pmn = pm[:, :n]
+    W = torch.einsum('jv,xjb->xvb', pmn, graw)
+    tp, ap = _pad_rows(t, n), _pad_rows(a, n)
+    dt = torch.einsum('jv,cjb->cvb', pmn, gst) + torch.stack(
+        [sum(W[c * 3 + d] * ap[d] for d in range(3)) for c in range(3)])
+    wt = torch.stack([sum(W[c * 3 + d] * tp[c] for c in range(3)) for d in range(3)])
+    if a.shape[2] != t.shape[2]:
+        wt = wt.sum(dim=2, keepdim=True)
+    da = torch.einsum('jv,djb->dvb', pmn, gsa) + wt
+    if omega is not None:
+        om = _omega_rows(omega, v_t)
+        om = torch.cat([om, om.new_zeros((n - v_t, 1))]) if n > v_t else om
+        dt, da = dt * om, da * om
+    return dt[:, :v_t].contiguous(), da[:, :v_a].contiguous()
+
+
+def part_sums_bwd_ref(graw, gst, gsa, t_vm, a_vm, pm, omega=None):
+    """Plain twin of :func:`part_sums_bwd` (``pm``: (J, V_pad))."""
+    return _part_sums_bwd_of(pm, graw, gst, gsa, t_vm, a_vm, omega)
+
+
+def part_sums_bwd(graw, gst, gsa, t_vm, a_vm, parts: PartIndex, omega=None):
+    """The VJP of :func:`part_sums_vm_lm` (unweighted or a static ``omega``
+    (V_pad, 1)) for the cotangents graw (9, J, B), gst (3, J, B) and gsa
+    (3, J, B), or (3, J, 1) for a batch-constant reference (the summed form):
+    with W = graw at the vertex's own part, dt_c = ω (gst + sum_d W[c*3+d]
+    a_d) (3, V_t, B) and da_d = ω (gsa + sum_c W[c*3+d] t_c) (3, V_a, B), or
+    summed over the batch, (3, V_a, 1). Returns (dt, da)."""
+    B = t_vm.shape[2]
+    summed = a_vm.shape[2] == 1 and B > 1
+    name = 'part_sums_bwd' + ('_sum' if summed else '') + ('' if omega is None else '_w')
+    extra = {} if omega is None else dict(omega=omega)
+    cuda = _on_cuda(name, graw=graw, gst=gst, gsa=gsa, t_vm=t_vm, a_vm=a_vm, pm=parts.pm,
+                    **extra)
+    J, Vp = parts.pm.shape
+    v_t, v_a = t_vm.shape[1], a_vm.shape[1]
+    _expect(name, 'graw', graw, (9, J, B))
+    _expect(name, 'gst', gst, (3, J, B))
+    _expect(name, 'gsa', gsa, (3, J, 1 if summed else B))
+    _expect(name, 't_vm', t_vm, (3, v_t, B))
+    _expect(name, 'a_vm', a_vm, (3, v_a, 1 if summed else B))
+    if max(v_t, v_a) > Vp:
+        raise ValueError(f'{name}: point rows {max(v_t, v_a)} exceed V_pad {Vp}')
+    if omega is not None:
+        _omega_strides(name, omega, v_t, B, Vp, static_only=True)
+    if not cuda:
+        return part_sums_bwd_ref(graw, gst, gsa, t_vm, a_vm, parts.pm, **extra)
+    vp = _vpart(name, parts, Vp, graw.device)
+    dev = graw.device
+    dt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
+    da = torch.empty((3, v_a, 1 if summed else B), dtype=torch.float32, device=dev)
+    part = torch.empty((-(-B // _SUM_COLS) * 3 * v_a if summed else 1,), dtype=torch.float32,
+                       device=dev)
+    err = _build.library().part_sums_bwd_launch(
+        _ptr(graw), _ptr(gst), _ptr(gsa), _ptr(t_vm), _ptr(a_vm),
+        None if omega is None else _ptr(omega), _ptr(vp), _ptr(dt), _ptr(da), _ptr(part), J, B,
+        v_t, v_a, int(summed), _stream(dt))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return dt, da
+
+
+def _vpart(name: str, parts: PartIndex, Vp: int, device) -> torch.Tensor:
+    """The part index's per-vertex parts, checked for a backward kernel."""
+    vp = parts.vpart
+    if vp.dtype != torch.int32 or vp.device != device or vp.shape != (Vp,):
+        raise ValueError(f'{name}: parts.vpart must be int32 ({Vp},) on {device}')
+    return vp
 
 
 # ---------------------------------------------------------------------------
@@ -1305,7 +1563,8 @@ def recon_part_sums_lm(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts:
                        omega=None):
     """Per-part sums (as :func:`part_sums_vm_lm`, with its ``omega``) of the
     targets against the extended LBS of :func:`lbs_points`, which the kernel
-    never writes out."""
+    never writes out. Gradients: unweighted or with static ω, K14
+    (:func:`recon_part_sums_bwd`); with per-call ω, torch ops."""
     name = 'recon_part_sums' + ('' if omega is None else '_w')
     extra = {} if omega is None else dict(omega=omega)
     cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
@@ -1323,11 +1582,38 @@ def recon_part_sums_lm(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts:
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
     if consts_pad.shape[0] < 3:
         raise ValueError(f'{name}: consts_pad needs at least 3 channels')
-    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
-    if not cuda:
+    _omega_args(name, omega, v_t, B, Vp)
+    args = (name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts, omega)
+    call_omega = omega is not None and omega.shape != (Vp, 1)
+    if _twin_for_constant_grads(name, cuda, weights_pad, consts_pad, parts.pm,
+                                None if call_omega else omega):
+        return _recon_lbs_run(*args)
+    if call_omega:  # no backward kernel: the VJP of the twin in torch ops
+        return _recon_call_vjp(*args)
+    return _ReconLbs.apply(*args)
+
+
+def _recon_call_vjp(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts, omega):
+    """K6 under per-call ω as a _ChunkedVjp: tgt, pj, feat and ω
+    differentiate."""
+    def run(tgt, pj, feat, w, consts, pm, om):
+        return _recon_lbs_run(name, tgt, pj, feat, w, consts, parts, om)
+
+    return _ChunkedVjp.apply('recon_part_sums_call_w', run, recon_part_sums_ref, tgt_vm.shape[1],
+                             (1, None, None, 0, 1, 1, 0), (0, 1, 2, 6), tgt_vm, pj_cm, feat_cols,
+                             weights_pad, consts_pad, parts.pm, omega)
+
+
+def _recon_lbs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts, omega):
+    """Checked K6: its kernel on CUDA tensors, its twin on CPU ones."""
+    if not tgt_vm.is_cuda:
         return recon_part_sums_ref(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts.pm,
-                                   **extra)
-    _refuse_grad(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, omega)
+                                   **({} if omega is None else dict(omega=omega)))
+    _, J, B = pj_cm.shape
+    F = feat_cols.shape[0]
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
     err = _build.library().recon_lbs_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
@@ -1337,6 +1623,90 @@ def recon_part_sums_lm(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts:
     _build.check(err, name)
     LAUNCHES[name] += 1
     return raw, s_t, s_a
+
+
+class _ReconLbs(torch.autograd.Function):
+    """K6 (unweighted or static ω) with K14 as its backward: the JAX
+    package's _recon_part_sums_diff and _recon_part_sums_w_diff."""
+
+    @staticmethod
+    def forward(ctx, name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts, omega):
+        ctx.parts = parts
+        ctx.save_for_backward(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, omega)
+        return _recon_lbs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, parts,
+                              omega)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, graw, gst, gsa):
+        tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, omega = ctx.saved_tensors
+        dtgt, dpj, dfeat = recon_part_sums_bwd(
+            graw.contiguous(), gst.contiguous(), gsa.contiguous(), tgt_vm, pj_cm, feat_cols,
+            weights_pad, consts_pad, ctx.parts, omega=omega)
+        return None, dtgt, dpj, dfeat, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# K14: backward of the fused reconstruction's part sums
+# ---------------------------------------------------------------------------
+
+
+def recon_part_sums_bwd_ref(graw, gst, gsa, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad,
+                            pm, omega=None):
+    """Plain twin of :func:`recon_part_sums_bwd` (``pm``: (J, V_pad))."""
+    pos = lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad)
+    dtgt, dpos = _part_sums_bwd_of(pm, graw, gst, gsa, tgt_vm, pos, omega)
+    dpj, dfeat = lbs_points_bwd_ref(dpos, pj_cm, feat_cols, weights_pad, consts_pad)
+    return dtgt, dpj, dfeat
+
+
+def recon_part_sums_bwd(graw, gst, gsa, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad,
+                        parts: PartIndex, omega=None):
+    """The VJP of :func:`recon_part_sums_lm` (unweighted or a static
+    ``omega`` (V_pad, 1)) for the cotangents graw (9, J, B), gst and gsa
+    (3, J, B): with pos the extended LBS and W = graw at the vertex's own
+    part, dtgt_c = ω (gst + sum_d W[c*3+d] pos_d) (3, V_t, B) and dpos_d =
+    ω (gsa + sum_c W[c*3+d] t_c), which :func:`lbs_points_bwd`'s formula
+    takes to dpj (12, J, B) and dfeat (F, B). Returns (dtgt, dpj, dfeat)."""
+    name = 'recon_part_sums_bwd' + ('' if omega is None else '_w')
+    extra = {} if omega is None else dict(omega=omega)
+    cuda = _on_cuda(name, graw=graw, gst=gst, gsa=gsa, tgt_vm=tgt_vm, pj_cm=pj_cm,
+                    feat_cols=feat_cols, weights_pad=weights_pad, consts_pad=consts_pad,
+                    pm=parts.pm, **extra)
+    _, J, B = pj_cm.shape
+    F = feat_cols.shape[0]
+    Vp = weights_pad.shape[0]
+    v_t = tgt_vm.shape[1]
+    _expect(name, 'graw', graw, (9, J, B))
+    _expect(name, 'gst', gst, (3, J, B))
+    _expect(name, 'gsa', gsa, (3, J, B))
+    _expect(name, 'tgt_vm', tgt_vm, (3, v_t, B))
+    _expect(name, 'feat_cols', feat_cols, (F, B))
+    _expect(name, 'weights_pad', weights_pad, (Vp, J))
+    _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    _expect(name, 'pm', parts.pm, (J, Vp))
+    if v_t > Vp:
+        raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
+    if omega is not None:
+        _omega_strides(name, omega, v_t, B, Vp, static_only=True)
+    if not cuda:
+        return recon_part_sums_bwd_ref(graw, gst, gsa, tgt_vm, pj_cm, feat_cols, weights_pad,
+                                       consts_pad, parts.pm, **extra)
+    if J > _BWD_MAXJ:
+        raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ}, got {J}')
+    vp = _vpart(name, parts, Vp, graw.device)
+    dev = graw.device
+    tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
+    dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
+    out = torch.empty((12 * J + F, B), dtype=torch.float32, device=dev)
+    part = torch.empty((n_splits, 12 * J + F, B), dtype=torch.float32, device=dev)
+    err = _build.library().recon_lbs_bwd_launch(
+        _ptr(graw), _ptr(gst), _ptr(gsa), _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols),
+        _ptr(weights_pad), _ptr(consts_pad), None if omega is None else _ptr(omega), _ptr(vp),
+        _ptr(dtgt), _ptr(out), _ptr(part), J, B, F, v_t, Vp, tiles_per_block, _stream(out))
+    _build.check(err, name)
+    LAUNCHES[name] += 1
+    return dtgt, out[:12 * J].view(12, J, B), out[12 * J:]
 
 
 # ---------------------------------------------------------------------------
@@ -1424,12 +1794,39 @@ def wgram_moments(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, ome
         _expect(name, 'mu_s', mu_s, (3, B))
     if V > Vp:
         raise ValueError(f'{name}: weight rows {V} exceed V_pad {Vp}')
-    if not cuda:
+    if cuda and E > _WGRAM_MAXE:
+        raise ValueError(f'{name}: the kernel takes E <= {_WGRAM_MAXE}, got {E}')
+    args = (tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_vm, mu_s)
+    if _twin_for_constant_grads(name, cuda, weights_pad, sd_cm):
+        return wgram_moments_ref(*args, scale_mode)
+    return _wgram_vjp(*args, scale_mode=scale_mode)  # no backward kernel: torch ops
+
+
+def _wgram_vjp(*args, scale_mode: int):
+    """K9 as a _ChunkedVjp: every operand but the skinning weights and the
+    shape directions differentiates."""
+    def run(*ops):
+        return _wgram_run(*ops, scale_mode)
+
+    def chunk(*ops):
+        return wgram_moments_ref(*ops, scale_mode)
+
+    return _ChunkedVjp.apply('wgram', run, chunk, args[7].shape[0],
+                             (1, None, 1, None, 0, 1, None, 0, None), (0, 1, 2, 3, 6, 7, 8),
+                             *args)
+
+
+def _wgram_run(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_vm, mu_s,
+               scale_mode):
+    """Checked K9: its kernel on CUDA tensors, its twin on CPU ones."""
+    if not tgt_vm.is_cuda:
         return wgram_moments_ref(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm,
                                  omega_vm, mu_s, scale_mode)
-    _refuse_grad(name, *tensors.values())
-    if E > _WGRAM_MAXE:
-        raise ValueError(f'{name}: the kernel takes E <= {_WGRAM_MAXE}, got {E}')
+    name = 'wgram'
+    _, J, B = pj_cm.shape
+    Vp = weights_pad.shape[0]
+    V = omega_vm.shape[0]
+    E = sd_cm.shape[2]
     lib = _build.library()
     E1 = E + (1 if scale_mode else 0)
     dev = tgt_vm.device
@@ -1484,6 +1881,8 @@ TWINS = {
     'rhs_moments_bwd': rhs_moments_bwd_ref,
     'rhs_moments_cached_bwd': rhs_moments_cached_bwd_ref,
     'recon_part_sums_cached_bwd': recon_part_sums_cached_bwd_ref,
+    'part_sums_bwd': part_sums_bwd_ref,
+    'recon_part_sums_bwd': recon_part_sums_bwd_ref,
 }
 
 

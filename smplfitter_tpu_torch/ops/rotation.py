@@ -358,12 +358,17 @@ def mat2rotvec_lm(R9: torch.Tensor) -> torch.Tensor:
 
 
 def align_unit_vectors_lm(a3, b3) -> torch.Tensor:
-    """Rotation mapping unit vectors a -> b, (3, ...) -> (9, ...)."""
+    """Rotation mapping unit vectors a -> b, (3, ...) -> (9, ...).
+
+    The sine is clamped away from zero as in :func:`rotvec2mat_lm`: where a
+    and b are bitwise parallel, their cross product is exactly zero, and the
+    unclamped square root's derivative, infinite there, made the gradient
+    NaN (the JAX package's fused products leave a rounding residue there and
+    stay finite). The rotation is unchanged: the cross product is zero."""
     cx = a3[1] * b3[2] - a3[2] * b3[1]
     cy = a3[2] * b3[0] - a3[0] * b3[2]
     cz = a3[0] * b3[1] - a3[1] * b3[0]
     dot = a3[0] * b3[0] + a3[1] * b3[1] + a3[2] * b3[2]
-    sin_a = torch.sqrt(cx * cx + cy * cy + cz * cz)
-    angle = torch.atan2(sin_a, dot)
-    f = divide_no_nan(angle, sin_a)
+    sin_a = torch.sqrt(torch.clamp(cx * cx + cy * cy + cz * cz, min=1e-30))
+    f = torch.atan2(sin_a, dot) / sin_a
     return rotvec2mat_lm(torch.stack([cx * f, cy * f, cz * f], dim=0))

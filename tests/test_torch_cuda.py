@@ -3,7 +3,8 @@ the operands of the fitting paths (SMPL and SMPL-X), the launch counts of a
 fit with and without target joints and of an SMPL-X fit, and fits on the card
 against the same fits on the CPU, unweighted and with fit weights (per call
 and static: K9 and the ω forms of K2, K4, K5 and K6); the backward kernels
-K10-K13 against their twins and gradients on the card against the CPU.
+K10-K15 against their twins, the launches and torch-op backward passes of
+every gradient path, and gradients on the card against the CPU.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import backward_pass, record_calls
+from chip_smoke import GRAD_PATHS, backward_pass, grad_path_counts, path_vg, record_calls
 from port_on_cpu import port_model_from
 from smplfitter_tpu_torch import BodyFitter, BodyModel, get_fit_grad_fn
 from smplfitter_tpu_torch.api import default_loss
@@ -466,15 +467,65 @@ def test_forward_gradient_matches_cpu(card_models):
         assert (g.cpu() - c).abs().max().item() <= 1e-5 * c.abs().max().item()
 
 
-def test_form_without_backward_refuses_gradient(card_models):
-    """Per-call weights run K5 and K9, which have no backward kernel yet: under
-    a gradient they raise instead of dropping their share; without one they run."""
+# ---------------------------------------------------------------------------
+# Gradients of the other fitting paths: K14, K15 and the torch-op backward passes
+# ---------------------------------------------------------------------------
+
+
+def _path_fitters(card_models, kid_fitter, static_fitter):
+    """GRAD_PATHS' fitters; the static fitter also serves as 'static_vw'."""
+    return dict(plain=card_models[1], kid=kid_fitter, static=static_fitter,
+                static_vw=static_fitter)
+
+
+@pytest.mark.parametrize('batch', [64, 1000])
+@pytest.mark.parametrize('name', ['part_sums_bwd', 'recon_part_sums_bwd'])
+def test_path_backward_kernel_matches_twin(card_models, kid_fitter, static_fitter, name, batch):
+    """K14 and K15 (unweighted and ω) against their twins on the operands of
+    the gradients of chip_smoke.CAPTURE_PATHS on SMPL."""
+    bm = card_models[0]
+    params = [torch.as_tensor(x, device='cuda') for x in _params(batch, batch + 9)]
+    calls = record_calls(lbs_kernels, (name,), lambda: backward_pass(
+        torch, bm, (), params, _path_fitters(card_models, kid_fitter, static_fitter)))[name]
+    assert {kw.get('omega') is None for _, kw in calls} == {True, False}
+    _check_against_twin(name, calls)
+
+
+@pytest.mark.parametrize('path', list(GRAD_PATHS))
+def test_path_gradient_launch_counts(card_models, kid_fitter, static_fitter, path):
+    """Each gradient path's value and gradient launches the kernels and runs
+    the torch-op backward passes that chip_smoke.GRAD_PATHS lists."""
+    bm = card_models[0]
+    p = tuple(torch.as_tensor(x, device='cuda') for x in _params(40, 17))
+    p += (torch.linspace(-0.5, 0.5, 40, device='cuda'),
+          torch.as_tensor(_fit_weights(40, bm.num_vertices, 18), device='cuda'),
+          torch.as_tensor(_fit_weights(40, bm.num_joints, 19), device='cuda'))
+    out = bm(*p[:3])
+    lbs_kernels.reset_launch_counts()
+    _, grads = path_vg(torch, path, _path_fitters(card_models, kid_fitter, static_fitter), p)(
+        out['vertices'], out['joints'])
+    launches, vjps = grad_path_counts(path, 'smpl')
+    assert lbs_kernels.LAUNCHES == dict(NO_LAUNCHES, **launches)
+    assert {k: n for k, n in lbs_kernels.TORCH_VJPS.items() if n} == vjps
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+def test_call_weighted_fit_gradient_matches_cpu(card_models):
+    """The per-call weighted headline fit (K5 with a batch-constant
+    reference, K9 and K4 under per-call ω, all with torch-op backward passes)
+    differentiated in the targets and the weights, on the card and on the
+    CPU, B = 32, within 1e-3 of max|g_cpu|."""
     bm, fitter = card_models
-    out = bm(*_params(16, 13))
-    kw = dict(FIT_KW, vertex_weights=_fit_weights(16, bm.num_vertices, 5),
-              joint_weights=_fit_weights(16, bm.num_joints, 6))
-    tv = out['vertices'].detach().requires_grad_()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fitter.fit(tv, out['joints'], **kw)
-    with torch.no_grad():
-        fitter.fit(tv, out['joints'], **kw)
+    out = bm(*_params(32, 13))
+    vw = torch.as_tensor(_fit_weights(32, bm.num_vertices, 5), device='cuda')
+    jw = torch.as_tensor(_fit_weights(32, bm.num_joints, 6), device='cuda')
+    grads = []
+    for fit, dev in ((fitter, 'cuda'), (BodyFitter(port_model_from(bm)), 'cpu')):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (out['vertices'], out['joints'],
+                                                                 vw)]
+        res = fit.fit(leaves[0], leaves[1], vertex_weights=leaves[2], joint_weights=jw.to(dev),
+                      **FIT_KW)
+        grads.append(torch.autograd.grad(default_loss(res), leaves))
+    for g, c in zip(*grads):
+        assert torch.isfinite(g).all()
+        assert (g.cpu() - c).abs().max().item() <= 1e-3 * c.abs().max().item()

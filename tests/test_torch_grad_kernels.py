@@ -28,9 +28,9 @@ F=503, K12 and its ω form, K13 at J=55.
   applied, and the constant operands get None.
 - proj_SO3_lm and solve_spd_unrolled against the JAX custom VJPs, also at
   nearly degenerate spectra.
-- A kernel form without a backward kernel, called on the card (``_on_cuda``
-  patched to True) with an operand that requires grad, raises
-  NotImplementedError naming its ROADMAP item before anything is launched.
+- A kernel form called on the card (``_on_cuda`` patched to True) with an
+  operand that its backward treats as a constant requiring grad raises
+  NotImplementedError before anything is launched.
 """
 
 from __future__ import annotations
@@ -407,7 +407,7 @@ def test_solve_spd_vjp_matches_autograd_of_the_solve():
 
 
 # ---------------------------------------------------------------------------
-# Forms without a backward kernel refuse a gradient on the card
+# A constant operand that requires grad is refused on the card
 # ---------------------------------------------------------------------------
 
 
@@ -428,26 +428,21 @@ def _small_operands():
                 parts=port_k.PartIndex.from_membership(pm, 'cpu'))
 
 
+# Every kernel form has a backward on the card (K10-K15, or torch ops); an
+# operand that the backward treats as a constant gets none there.
 GUARDED = {
-    'part_sums': lambda o: port_k.part_sums_vm_lm(_leaf(o['tgt']), o['a'], o['parts']),
-    'part_sums_w': lambda o: port_k.part_sums_vm_lm(_leaf(o['tgt']), o['a'], o['parts'],
-                                                    omega=o['om_call']),
-    'recon_part_sums': lambda o: port_k.recon_part_sums_lm(
-        o['tgt'], _leaf(o['pj']), o['feat'], o['w'], o['consts'], o['parts']),
-    'recon_part_sums_cached_call_omega': lambda o: port_k.recon_part_sums_cached_lm(
-        _leaf(o['tgt']), o['pj'], o['x'], o['sd'], o['homog'], o['parts'], o['w'],
-        omega=o['om_call']),
-    'rhs_moments_scale': lambda o: port_k.rhs_moments(
-        _leaf(o['tgt']), o['pj'], o['feat'], o['w'], o['consts'], o['sd'], scale=True),
-    'rhs_moments_cached_scale': lambda o: port_k.rhs_moments_cached(
-        o['tgt'], o['pj'], _leaf(o['homog']), o['w'], o['sd'], scale=True),
-    'wgram': lambda o: port_k.wgram_moments(
-        _leaf(o['tgt']), o['pj'], o['homog'], o['t4'], o['w'], o['sd'], o['mu'], o['om_call']),
     'lbs_points_constant': lambda o: port_k.lbs_points(o['pj'], o['feat'], _leaf(o['w']),
                                                        o['consts']),
     'rhs_moments_h_omega_grad': lambda o: port_k.rhs_moments_h(
         _leaf(o['tgt']), o['pj'], o['feat'], o['w'], o['consts'], o['sd'],
         omega=_leaf(o['om_static'])),
+    'part_sums_static_omega_grad': lambda o: port_k.part_sums_vm_lm(
+        _leaf(o['tgt']), o['a'], o['parts'], omega=_leaf(o['om_static'])),
+    'recon_part_sums_constant': lambda o: port_k.recon_part_sums_lm(
+        o['tgt'], _leaf(o['pj']), o['feat'], o['w'], _leaf(o['consts']), o['parts']),
+    'wgram_constant': lambda o: port_k.wgram_moments(
+        _leaf(o['tgt']), o['pj'], o['homog'], o['t4'], o['w'], _leaf(o['sd']), o['mu'],
+        o['om_call']),
 }
 
 
@@ -459,6 +454,6 @@ def test_form_without_backward_refuses_gradient_on_the_card(monkeypatch, form):
     monkeypatch.setattr(port_k, '_on_cuda', lambda name, **tensors: True)
     monkeypatch.setattr(port_k._build, 'library', no_launch)
     before = dict(port_k.LAUNCHES)
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1, item 8'):
+    with pytest.raises(NotImplementedError, match='treats as a constant'):
         GUARDED[form](_small_operands())
     assert port_k.LAUNCHES == before

@@ -141,12 +141,14 @@ def test_new_wrappers_dispatch_cpu_tensors_to_twins(captured, name):
 
 @pytest.mark.parametrize('name', WRAPPERS)
 def test_new_wrappers_reject_bad_operands(captured, name):
-    """A batch-constant reference for K5 (it takes per-instance meshes only), a
-    template projector of the wrong width for K6, too many target rows for K2."""
+    """A reference with neither one column nor the batch's for K5 (it takes
+    per-instance or batch-constant meshes), a template projector of the
+    wrong width for K6, too many target rows for K2."""
     args, kwargs = captured[name][0]
     args = list(args)
     if name == 'part_sums_vm_lm':
-        args[1] = args[1][:, :, :1].contiguous()
+        assert args[1].shape[2] > 2
+        args[1] = args[1][:, :, :2].contiguous()
     elif name == 'recon_part_sums_lm':
         args[4] = args[4][:, :, 1:].contiguous()
     else:
