@@ -17,8 +17,11 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     wrappers each model's paths reach (CAPTURED), and times the kernel,
     the twin and, where one PyTorch call computes the same function, that
     call at B=4096; each kernel's least time on the card (its bound) is
-    reckoned from the same operands; and times each torch-op backward pass
-    (TORCH_VJP_FORMS) at B=4096 on a captured call of its forward form;
+    reckoned from the same operands; the kernels that have such a call
+    (K7 and K8, the GEMMs of csrc/sgemm_tile.cuh) also repeat bit for bit on
+    the same operands, and a line gives their TFLOP/s beside the call's; and
+    times each torch-op backward pass (TORCH_VJP_FORMS) at B=4096 on a
+    captured call of its forward form;
  4. makes 8 distinct SMPL target sets with ``BodyModel`` at B=4096;
  5. fits them with ``BodyFitter.fit`` (the benchmark configuration: num_iter=3,
     beta_regularizer=1, final rotation adjustment), checks that every kernel of
@@ -802,16 +805,22 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
 
 def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results) -> None:
     """Hold every captured call of one kernel to its twin (KERNEL_REL_TOL of
-    its error scale per output); at B=4096 also time kernel, twin and library
+    its error scale per output), and a kernel with a library call to its own
+    second call, bit for bit; at B=4096 also time kernel, twin and library
     call over the calls of the first call's configuration and reckon the
     bound. Without autograd: captured backward operands may carry history."""
     with torch.no_grad():
         res = results.setdefault(key, dict(max_abs_err=0.0, rel_err={}))
         outputs = SPECS[key][3]
+        repeat = library_call(torch, key) is not None
         for args, kwargs in arg_sets:
             got = kernel_call(lbs_kernels, key, args, kwargs)
             want = twin_call(lbs_kernels, key, args, kwargs)
+            again = kernel_call(lbs_kernels, key, args, kwargs) if repeat else got
             torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again, strict=True)):
+                raise AssertionError(f'{label} {key} at B={batch}: two calls on the same '
+                                     'operands differ')
             scales = error_scales(torch, lbs_kernels, key, args, want)
             for out_name, g, w, scale in zip(outputs, got, want, scales, strict=True):
                 abs_err = (g - w).abs().max().item()
@@ -822,7 +831,7 @@ def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results) -> No
                         f'{abs_err:.3e} = {rel:.3e} x its scale > {KERNEL_REL_TOL}')
                 res['max_abs_err'] = max(res['max_abs_err'], abs_err)
                 res['rel_err'][out_name] = max(res['rel_err'].get(out_name, 0.0), rel)
-            del got, want
+            del got, want, again
         args0, kw = arg_sets[0]
         shapes0 = [getattr(a, 'shape', None) for a in args0]
         sets = [args for args, kwargs in arg_sets if same_configuration(kwargs, kw)
@@ -838,6 +847,12 @@ def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results) -> No
             lib_txt = '' if lib is None else f'  library {res["library_ms"]:.3f} ms'
             line += (f'  kernel {res["ms"]:.3f} ms  twin {res["plain_ms"]:.3f} ms{lib_txt}'
                      f'  bound {res["bound_ms"]:.3f} ms ({res["bound_by"]})')
+            if lib is not None:
+                flops = kernel_work(key, args0, kw)[0]
+                log(f'{label:6s} {key:28s} B={batch:5d} kernel {flops / res["ms"] / 1e9:.1f} '
+                    f'TFLOP/s ({flops / res["ms"] * 1e3 / PEAK_F32_FLOPS:.3f} of the f32 peak), '
+                    f'library {flops / res["library_ms"] / 1e9:.1f} TFLOP/s; kernel / library '
+                    f'time {res["ms"] / res["library_ms"]:.3f}, repeats bit for bit')
         log(line)
 
 

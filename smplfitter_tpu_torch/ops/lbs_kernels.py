@@ -160,6 +160,8 @@ _SEG = 512  # max vertices per part segment of the recon kernel
 _BWD_MAXJ = 64  # joints of one reduction pass of the backward kernels (csrc/lbs_bwd.cuh)
 _SUM_COLS = 256  # batch columns per split of K15's summed form (csrc/part_sums_bwd.cu)
 _VJP_VCHUNK = 512  # vertices per step of a backward in torch ops (bounds its memory)
+_TERM1_TILE = (256, 128)  # K8's block tile: rows of G1, batch columns (csrc/term1.cu)
+_TERM1_KB, _TERM1_JS = 8, 5  # k and j values per k stage of K8
 
 # The JAX package's route for the shape solve of models whose pose template
 # has more features than this (SMPL-X F=487, SMPL+H F=460): the posed template
@@ -1057,6 +1059,16 @@ def term1(R_cm, ksd):
     return _Term1.apply(R_cm, ksd)
 
 
+def term1_splits(J3: int, EE: int, B: int, device) -> int:
+    """Splits of K8's J3^2 sum: as many as fill one wave of the card (one
+    resident block per SM) with the grid's (row, batch) tiles, at most one per
+    k stage of 8 k by 5 j values (4 at SMPL-X b4096 on 132 SMs)."""
+    tiles = -(-EE // _TERM1_TILE[0]) * -(-B // _TERM1_TILE[1])
+    stages = -(-J3 // _TERM1_KB) * -(-J3 // _TERM1_JS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(stages, sms // tiles))
+
+
 class _Term1(torch.autograd.Function):
     """K8; its backward in PyTorch ops (the JAX package folds term1 into the
     XLA VJP of the Gramian): dX = Ksd g, formed once, batch-major as
@@ -1071,8 +1083,11 @@ class _Term1(torch.autograd.Function):
         _, J3, B = R_cm.shape
         EE = ksd.shape[1]
         G = torch.empty((EE, B), dtype=torch.float32, device=R_cm.device)
-        err = _build.library().term1_launch(_ptr(R_cm), _ptr(ksd), _ptr(G), J3, EE, B,
-                                            _stream(G))
+        S = term1_splits(J3, EE, B, R_cm.device)
+        part = torch.empty((S, EE, B), dtype=torch.float32, device=R_cm.device) if S > 1 else None
+        err = _build.library().term1_launch(_ptr(R_cm), _ptr(ksd),
+                                            None if part is None else _ptr(part), _ptr(G),
+                                            J3, EE, B, S, _stream(G))
         _build.check(err, 'term1')
         LAUNCHES['term1'] += 1
         return G

@@ -4,7 +4,9 @@ fit with and without target joints and of an SMPL-X fit, and fits on the card
 against the same fits on the CPU, unweighted and with fit weights (per call
 and static: K9 and the ω forms of K2, K4, K5 and K6); the backward kernels
 K10-K15 against their twins, the launches and torch-op backward passes of
-every gradient path, and gradients on the card against the CPU.
+every gradient path, and gradients on the card against the CPU; the GEMM
+kernels K7 and K8 on seeded operands at the shapes whose edges they mask,
+against their twins and bit for bit against a second call.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -529,3 +531,66 @@ def test_call_weighted_fit_gradient_matches_cpu(card_models):
     for g, c in zip(*grads):
         assert torch.isfinite(g).all()
         assert (g.cpu() - c).abs().max().item() <= 1e-3 * c.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8, the register-tiled GEMMs, at the shapes whose edges they mask
+# ---------------------------------------------------------------------------
+
+# (F, V_pad): MANO, SMPL, SMPL+H and SMPL-X widths; 3 V_pad = 3000 rows is
+# not a multiple of the 128-row tile.
+K7_SHAPES = [(136, 1024), (208, 6912), (460, 6912), (487, 10496), (487, 1000)]
+# (J3, E): SMPL+H and SMPL-X, E = 17 (the kid column: E^2 = 289, rows not
+# 16-byte aligned); E = 32 (the limit: one split at B = 4096).
+K8_SHAPES = [(156, 16), (165, 16), (165, 17), (72, 32)]
+GEMM_BATCHES = [1, 37, 1000, 4096]
+
+
+@pytest.fixture(scope='module')
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+
+
+def _normal(seed, *shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor((scale * rng.normal(size=shape)).astype(np.float32), device='cuda')
+
+
+def _rotation_rows(seed, J3, batch):
+    """R (3, J3, B): the rows (joint, c) of seeded rotation matrices."""
+    q = np.linalg.qr(np.random.default_rng(seed).normal(size=(batch, J3 // 3, 3, 3)))[0]
+    R = q.transpose(2, 1, 3, 0).reshape(3, J3, batch)  # R[a, 3 j + c, b] = q[b, j, a, c]
+    return torch.as_tensor(np.ascontiguousarray(R, dtype=np.float32), device='cuda')
+
+
+def _hold_and_repeat(wrapper, args):
+    """Within REL_TOL x max|twin| of the twin, and bit for bit on a second call."""
+    with torch.no_grad():
+        got = getattr(lbs_kernels, wrapper)(*args)
+        again = getattr(lbs_kernels, wrapper)(*args)
+        (want,) = lbs_kernels.twin_call(wrapper, args, {})
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.is_cuda and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= REL_TOL * want.abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('batch', GEMM_BATCHES)
+@pytest.mark.parametrize('F, Vp', K7_SHAPES)
+def test_posed_template_kernel_at_edges(card, F, Vp, batch):
+    consts = _normal(F + Vp, 4, Vp, F, scale=0.1)
+    feat = _normal(batch, F, batch)
+    lbs_kernels.reset_launch_counts()
+    _hold_and_repeat('posed_template_lm', (feat, consts))
+    assert lbs_kernels.LAUNCHES['posed_template'] == 2
+
+
+@pytest.mark.parametrize('batch', GEMM_BATCHES)
+@pytest.mark.parametrize('J3, E', K8_SHAPES)
+def test_term1_kernel_at_edges(card, J3, E, batch):
+    ksd = _normal(J3 + E, J3 * J3, E * E)
+    R = _rotation_rows(batch, J3, batch)
+    lbs_kernels.reset_launch_counts()
+    _hold_and_repeat('term1', (R, ksd))
+    assert lbs_kernels.LAUNCHES['term1'] == 2

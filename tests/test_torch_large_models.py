@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import os.path as osp
 import pickle
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -383,6 +384,18 @@ def test_new_wrappers_reject_bad_operands(captured, name):
         args[1] = args[1][1:].contiguous()
     with pytest.raises(ValueError):
         getattr(port_k, name)(*args, **kwargs)
+
+
+@pytest.mark.parametrize('J3, E, B, splits', [
+    (165, 16, 4096, 4), (156, 16, 4096, 4), (165, 17, 4096, 2), (165, 16, 1000, 16),
+    (165, 16, 1, 132), (72, 32, 4096, 1), (3, 16, 1, 1)])
+def test_term1_splits_fill_one_wave(monkeypatch, J3, E, B, splits):
+    """K8 splits its J3^2 sum so that its (256-row, 128-column) tiles fill one
+    wave of a 132-SM card, one block per SM, with at most one split per k
+    stage of 8 k by 5 j values."""
+    monkeypatch.setattr(torch.cuda, 'get_device_properties',
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+    assert port_k.term1_splits(J3, E * E, B, 'cuda') == splits
 
 
 # ---------------------------------------------------------------------------
