@@ -17,11 +17,17 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     wrappers each model's paths reach (CAPTURED), and times the kernel,
     the twin and, where one PyTorch call computes the same function, that
     call at B=4096; each kernel's least time on the card (its bound) is
-    reckoned from the same operands; the kernels that have such a call
-    (K7 and K8, the GEMMs of csrc/sgemm_tile.cuh) also repeat bit for bit on
-    the same operands, and a line gives their TFLOP/s beside the call's; and
-    times each torch-op backward pass (TORCH_VJP_FORMS) at B=4096 on a
-    captured call of its forward form;
+    reckoned from the same operands, its blends counted at the operands'
+    nonzero skinning weights; the kernels that have such a call (K7 and K8,
+    the GEMMs of csrc/sgemm_tile.cuh) and the kernels that blend over each
+    segment's active joints (K9, K6 in its three forms) also repeat bit for
+    bit on the same operands, and a line gives K7's and K8's TFLOP/s beside
+    the call's; K9 in scale modes 1 and 2, K6's ω forms where no path
+    reached them, and on SMPL-X K9 and K6 with dense skinning weights (every
+    joint on every vertex) and K9 at E = 32, each held and timed the same
+    way (hold_blend_variants), and K6 beside the same function from K7 and
+    K4's cached form; and times each torch-op backward pass
+    (TORCH_VJP_FORMS) at B=4096 on a captured call of its forward form;
  4. makes 8 distinct SMPL target sets with ``BodyModel`` at B=4096;
  5. fits them with ``BodyFitter.fit`` (the benchmark configuration: num_iter=3,
     beta_regularizer=1, final rotation adjustment), checks that every kernel of
@@ -532,8 +538,14 @@ def same_configuration(kw_a, kw_b) -> bool:
     """Two calls' keyword arguments agree (tensors by shape)."""
     if kw_a.keys() != kw_b.keys():
         return False
-    return all(getattr(a, 'shape', a) == getattr(b, 'shape', b)
-               for a, b in ((kw_a[k], kw_b[k]) for k in kw_a))
+    return all(_config(kw_a[k]) == _config(kw_b[k]) for k in kw_a)
+
+
+def _config(x):
+    """A keyword argument by its shape: a tensor's, a segment cover's lists'."""
+    if hasattr(x, 'joint_offset'):
+        return ('cover', x.verts.shape, x.joints.shape)
+    return getattr(x, 'shape', x)
 
 
 def error_scales(torch, lbs_kernels, key, args, want) -> list:
@@ -565,6 +577,11 @@ def twin_call(lbs_kernels, key, args, kwargs):
     return lbs_kernels.twin_call(SPECS[key][0], args, kwargs)
 
 
+# Besides the kernels with a library call (K7, K8), the kernels redesigned
+# for Hopper (K9, K6) also repeat bit for bit on the same operands.
+REPEAT_KEYS = ('wgram', 'recon_part_sums', 'recon_part_sums_w')
+
+
 def library_call(torch, key):
     """One PyTorch call computing the same function as the kernel (timed as a
     yardstick, never used by the port), or None where there is none."""
@@ -575,11 +592,23 @@ def library_call(torch, key):
     return None
 
 
+def skinned(w, rows=None) -> float:
+    """The (vertex, joint) pairs with a nonzero skinning weight among the
+    vertices a kernel blends (``rows``: a vertex count or index list; all of
+    ``w``'s rows by default): a blend of per-joint entries needs one FMA per
+    entry for each of them, not one per joint."""
+    if rows is not None:
+        w = w[:rows] if isinstance(rows, int) else w[rows.long()]
+    return float((w != 0).sum().item())
+
+
 def kernel_work(key, args, kwargs=None) -> tuple[float, float]:
     """(operations, bytes) that the kernel's function needs on these operands:
     each input read once and each output written once; the per-part kernels
-    count only the vertices that belong to a part. A fit-weighted form adds
-    its weights' bytes and one multiply per weighted term."""
+    count only the vertices that belong to a part. Blends over the joints
+    count the nonzero skinning weights of these operands (``skinned``). A
+    fit-weighted form adds its weights' bytes and one multiply per weighted
+    term."""
     n = lambda t: float(t.numel())  # noqa: E731
     kwargs = kwargs or {}
     if key in BWD_KERNELS or key in SUMMED:
@@ -597,14 +626,15 @@ def kernel_work(key, args, kwargs=None) -> tuple[float, float]:
         V, E = om.shape[0], sd.shape[2]
         E1 = E + (1 if kwargs.get('scale_mode') else 0)
         pairs = E1 * (E1 + 1) // 2
-        per = 12 * J + 3 * E * J + 9 * E + 9 + 4 * pairs + 7 * E1 + 4
+        per = 9 * E + 9 + 4 * pairs + 7 * E1 + 4
+        blend = (12 + 3 * E) * skinned(w, V)
         ins = 7 * V * B + n(pj) + n(t4) + V * J + 3 * V * E + n(mu)
-        return 2.0 * V * B * per, 4 * (ins + (E1 * E1 + 4 * E1 + 4) * B)
+        return 2.0 * B * (V * per + blend), 4 * (ins + (E1 * E1 + 4 * E1 + 4) * B)
     if key == 'lbs_points':
         pj, feat, w, consts = args
         _, J, B = pj.shape
         F, Vp = feat.shape[0], w.shape[0]
-        return (2.0 * Vp * B * (3 * F + 12 * J + 12),
+        return (2.0 * B * (Vp * (3 * F + 12) + 12 * skinned(w)),
                 4 * (n(pj) + n(feat) + n(w) + 3 * Vp * F + 3 * Vp * B))
     if key.startswith('rhs_moments'):
         cached = key.startswith('rhs_moments_cached')
@@ -614,13 +644,15 @@ def kernel_work(key, args, kwargs=None) -> tuple[float, float]:
         _, J, B = pj.shape
         Vp, E = w.shape[0], sd.shape[2]
         F = 0 if cached else args[2].shape[0]
-        per = 3 * F + 12 * J + 12 + 3 + 3 * J + 9 + 3 * E
+        per = 3 * F + 12 + 3 + 9 + 3 * E
+        per_joint = 12 + 3
         if scale:
-            per += 3 * J + 9 + 3 * E + 3
+            per += 9 + 3 * E + 3
+            per_joint += 3
         ins = n(tgt) + n(pj) + n(w) + n(sd) + (n(args[2]) if cached else n(args[2]) + 3 * Vp * F)
         outs = (3 * J + E) * B * (2 if scale else 1) + (3 * B if scale else 0)
         outs += 3 * Vp * B if key == 'rhs_moments_h' else 0
-        return 2.0 * Vp * B * per, 4 * (ins + outs)
+        return 2.0 * B * (Vp * per + per_joint * skinned(w)), 4 * (ins + outs)
     if key == 'posed_template':
         feat, consts = args
         F, B = feat.shape
@@ -652,20 +684,23 @@ def kernel_work(key, args, kwargs=None) -> tuple[float, float]:
     if key == 'recon_part_sums_cached':
         x, sd, homog, _, w = args[2:]
         E = x.shape[0]
-        per = 3 * E + 3 + 12 * J + 12 + 15
-        return 2.0 * Vu * B * per, 4 * (6 * Vu * B + n(pj) + n(x) + Vu * (3 * E + J) + 15 * J * B)
+        per = 3 * E + 3 + 12 + 15
+        return (2.0 * B * (Vu * per + 12 * skinned(w, parts.verts)),
+                4 * (6 * Vu * B + n(pj) + n(x) + Vu * (3 * E + J) + 15 * J * B))
     feat, w, consts = args[2], args[3], args[4]  # recon_part_sums
     F = feat.shape[0]
-    per = 3 * F + 12 * J + 12 + 15
-    return 2.0 * Vu * B * per, 4 * (3 * Vu * B + n(pj) + n(feat) + Vu * (J + 3 * F) + 15 * J * B)
+    per = 3 * F + 12 + 15
+    return (2.0 * B * (Vu * per + 12 * skinned(w, parts.verts)),
+            4 * (3 * Vu * B + n(pj) + n(feat) + Vu * (J + 3 * F) + 15 * J * B))
 
 
 def backward_work(key, args, kwargs) -> tuple[float, float]:
     """(operations, bytes) of a backward kernel's function on these operands:
     the least work its formula needs, not the kernel's own recomputation. Per
-    (vertex, column), in FMAs: the blended [R|t] formed once (12J, or 9J where
-    only its rotation is used), the 12 dpj fields reduced over the joints
-    (12J), K11/K12's gy term (3J), the posed template and the feature
+    (vertex, column), in FMAs, with J the joints that skin the vertex (its
+    nonzero weights, ``skinned``): the blended [R|t] formed once (12J, or 9J
+    where only its rotation is used), the 12 dpj fields reduced over the
+    joints (12J), K11/K12's gy term (3J), the posed template and the feature
     reduction (3F each, K10/K11), G = SD gr or SD x and the shape reduction
     (3E each), and per-vertex constants: each 3 x 3 product with the formed
     blend (9: the position, blend . G, Rbar^T of a field), K13's two 3 x 3
@@ -694,13 +729,13 @@ def backward_work(key, args, kwargs) -> tuple[float, float]:
         ins = n(graw) + n(gst) + n(gsa) + 3 * min(Vu, tgt.shape[1]) * B + n(pj) + n(feat)
         ins += Vu * (J + 3 * F) + (omega.shape[0] if omega is not None else 0)
         outs = n(tgt) + (12 * J + F) * B
-        return 2.0 * Vu * B * (6 * F + 24 * J + 45 + w_ops), 4 * (ins + outs)
+        return (2.0 * B * (Vu * (6 * F + 45 + w_ops) + 24 * skinned(w, parts.verts)),
+                4 * (ins + outs))
     if key.startswith('lbs_points_bwd'):
         g, pj, feat, w, consts = args
         _, J, B = pj.shape
         F, Vp = feat.shape[0], w.shape[0]
-        per = 6 * F + 21 * J + 9
-        return (2.0 * Vp * B * per,
+        return (2.0 * B * (Vp * (6 * F + 9) + 21 * skinned(w)),
                 4 * (n(g) + n(pj) + n(feat) + n(w) + 3 * Vp * F + (12 * J + F) * B))
     if key.startswith('recon_part_sums_cached_bwd'):
         graw, gst, gsa, tgt, pj, x, sd, homog, parts, w = args
@@ -709,11 +744,11 @@ def backward_work(key, args, kwargs) -> tuple[float, float]:
         Vu = float(parts.verts.numel())
         # blend 12J, dpj 12J, SD x and dx 6E, position and Rbar^T dpos 18,
         # dtgt and dpos from the part's cotangents 18, dpj products 9
-        per = 6 * E + 24 * J + 45 + (3 if omega is not None else 0)
+        per = 6 * E + 45 + (3 if omega is not None else 0)
         ins = n(graw) + n(gst) + n(gsa) + 3 * min(Vu, tgt.shape[1]) * B + n(pj) + n(x)
         ins += Vu * (3 * E + J) + 3 * Vu * B + (Vp if omega is not None else 0)
         outs = n(tgt) + (12 * J + E) * B + 3 * Vp * B
-        return 2.0 * Vu * B * per, 4 * (ins + outs)
+        return 2.0 * B * (Vu * per + 24 * skinned(w, parts.verts)), 4 * (ins + outs)
     cached = key.startswith('rhs_moments_cached_bwd')
     gr, gy, tgt, pj = args[:4]
     w, sd = (args[5], args[6]) if cached else (args[5], args[7])
@@ -722,12 +757,12 @@ def backward_work(key, args, kwargs) -> tuple[float, float]:
     F = 0 if cached else args[4].shape[0]
     # blend 12J, gy term 3J, dpj 12J, template and dfeat 6F, G 3E, position,
     # blend . G and Rbar^T db 27, dpj products 9, residual 3
-    per = 6 * F + 27 * J + 3 * E + 39 + (3 if omega is not None else 0)
+    per = 6 * F + 3 * E + 39 + (3 if omega is not None else 0)
     ins = n(gr) + n(gy) + n(tgt) + n(pj) + n(w) + n(sd) + (Vp if omega is not None else 0)
     ins += 3 * Vp * B if cached else n(args[4]) + 3 * Vp * F
     ins += 3 * Vp * B if kwargs.get('gh') is not None else 0
     outs = n(tgt) + 12 * J * B + (3 * Vp * B if cached else F * B)
-    return 2.0 * Vp * B * per, 4 * (ins + outs)
+    return 2.0 * B * (Vp * per + 27 * skinned(w)), 4 * (ins + outs)
 
 
 def bound(key, args, kwargs=None) -> tuple[float, str]:
@@ -794,6 +829,8 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
             raise AssertionError(f'{label} at B={batch}: K4 saw no operands with E = 17')
         for key in [k for k in KERNELS if k in captured]:
             hold_to_twin(torch, lbs_kernels, label, key, calls[key], batch, results)
+        hold_blend_variants(torch, lbs_kernels, label, calls, batch,
+                            results.setdefault('variants', {}), model)
         if batch == BATCH:
             for key in TORCH_VJP_FORMS:
                 time_torch_vjp(torch, lbs_kernels, label, key, calls,
@@ -812,7 +849,7 @@ def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results) -> No
     with torch.no_grad():
         res = results.setdefault(key, dict(max_abs_err=0.0, rel_err={}))
         outputs = SPECS[key][3]
-        repeat = library_call(torch, key) is not None
+        repeat = library_call(torch, key) is not None or key in REPEAT_KEYS
         for args, kwargs in arg_sets:
             got = kernel_call(lbs_kernels, key, args, kwargs)
             want = twin_call(lbs_kernels, key, args, kwargs)
@@ -854,6 +891,124 @@ def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results) -> No
                     f'library {flops / res["library_ms"] / 1e9:.1f} TFLOP/s; kernel / library '
                     f'time {res["ms"] / res["library_ms"]:.3f}, repeats bit for bit')
         log(line)
+
+
+def dense_weights(torch, w, V):
+    """Skinning weights with every joint nonzero on every vertex below V
+    (seeded, rows summing to 1), zero rows past V: the worst case of the
+    active-joint blends."""
+    g = torch.Generator(device=w.device).manual_seed(SEED)
+    d = torch.rand(w.shape, generator=g, device=w.device) + 0.01
+    d[V:] = 0.0
+    return d / d.sum(dim=1, keepdim=True).clamp_min(1e-30)
+
+
+def scale_mean(torch, tgt, om, mode):
+    """The fitter's centring of K9's scale column: minus (scale_target) or
+    plus (scale_fit) the ω-weighted target mean (3, B)."""
+    t_mean = torch.einsum('avb,vb->ab', tgt, om) / om.sum(dim=0).clamp_min(1e-12)
+    return (-t_mean if mode == 1 else t_mean).contiguous()
+
+
+def widen(torch, t, E, axis):
+    """A shape-column operand widened from E to 2E columns (its columns again,
+    reversed and scaled by 0.7): K9's operands at E = 32. ``axis`` 0: rows
+    (a, e) a-major, (3E, ...); 2: sd (3, V_pad, E)."""
+    if axis == 2:
+        return torch.cat([t, 0.7 * t.flip(2)], dim=2).contiguous()
+    r = t.reshape((3, E) + tuple(t.shape[1:]))
+    return torch.cat([r, 0.7 * r.flip(1)], dim=1).reshape((6 * E,) + tuple(t.shape[1:]))
+
+
+def k6_forms(torch, calls):
+    """K6's three forms on the paths' operands: the first captured call of
+    each, and where a path captured none, the unweighted call with seeded
+    weights (static (V_pad, 1), or per call (V, B))."""
+    a0, _ = calls['recon_part_sums'][0]
+    forms = {'': ('recon_part_sums', a0, {})}
+    for a, k in calls['recon_part_sums_w']:
+        form = ' static' if k['omega'].shape[1] == 1 else ' per-call'
+        forms.setdefault(form, ('recon_part_sums_w', a, k))
+    g = torch.Generator(device=a0[0].device).manual_seed(SEED)
+    vp, (_, v_t, batch) = a0[3].shape[0], a0[0].shape
+    for form, shape in ((' static', (vp, 1)), (' per-call', (v_t, batch))):
+        om = 0.1 + 1.9 * torch.rand(shape, generator=g, device=a0[0].device)
+        if form == ' static':
+            om[v_t:] = 0.0
+        forms.setdefault(form, ('recon_part_sums_w', a0, dict(omega=om)))
+    return forms
+
+
+def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model) -> None:
+    """The operand sets of this slice's redesigned kernels beyond the fitting
+    paths' own calls, each held to its twin (and to a second call, bit for
+    bit) and, at B=4096, timed (hold_to_twin): K9 in scale modes 1 and 2 (on
+    the first captured call, centred as the fitter centres them) and K6's ω
+    forms where no path captured them (k6_forms); on SMPL-X also dense
+    skinning weights for K9 (modes 0-2) and K6 (its three forms), and K9 at
+    E = 32 with the scale column; and at B=4096 K6's yardstick: the same
+    function from the port's own kernels, K7 into a (3, V_pad, B) workspace
+    and K4's cached form, held to K6's twin and timed beside K6."""
+    dev = calls['wgram'][0][0][0].device
+    sets = {}
+    args9, kw9 = calls['wgram'][0]
+    tgt, pj, homog, t4, w, sd, mu, om = args9
+    for mode in (1, 2):
+        sets[f'wgram mode {mode}'] = ('wgram', args9, dict(
+            kw9, scale_mode=mode, mu_s=scale_mean(torch, tgt, om, mode)))
+    forms = k6_forms(torch, calls)
+    for form, (key, a, k) in forms.items():
+        if form and not any(k is kk for _, kk in calls['recon_part_sums_w']):
+            sets[f'recon_part_sums{form}'] = (key, a, k)
+    if model == 'smplx':
+        V = om.shape[0]
+        wd = dense_weights(torch, w, V)
+        cover = lbs_kernels.wgram_cover(wd.cpu().numpy(), V, dev)
+        dense9 = (tgt, pj, homog, t4, wd, sd, mu, om)
+        for mode in (0, 1, 2):
+            kw = dict(kw9, scale_mode=mode, cover=cover,
+                      mu_s=scale_mean(torch, tgt, om, mode) if mode else None)
+            sets[f'wgram dense mode {mode}'] = ('wgram', dense9, kw)
+        E = sd.shape[2]
+        wide = (tgt, pj, homog, widen(torch, t4, E, 0), w, widen(torch, sd, E, 2),
+                widen(torch, mu, E, 0), om)
+        sets['wgram E=32 mode 2'] = ('wgram', wide, dict(kw9, scale_mode=2,
+                                                         mu_s=scale_mean(torch, tgt, om, 2)))
+        for form, (key, a, k) in forms.items():
+            wd = dense_weights(torch, a[3], a[0].shape[1])
+            parts = lbs_kernels.PartIndex.from_membership(a[5].pm.cpu().numpy(), dev,
+                                                          weights=wd.cpu().numpy())
+            sets[f'recon_part_sums dense{form}'] = (key, a[:3] + (wd, a[4], parts), k)
+    for name, (key, args, kw) in sets.items():
+        hold_to_twin(torch, lbs_kernels, f'{label} {name}', key, [(args, kw)], batch,
+                     results.setdefault(name, {}))
+    if batch != BATCH:
+        return
+    # K6's yardstick: K7 then K4 on the same function's operands.
+    k6_args = forms[''][1]
+    tgt, pj, feat, w, consts, parts = k6_args
+    P1 = 9 * (pj.shape[1] - 1) + 1
+    feat_p, x = feat[:P1].contiguous(), feat[P1:].contiguous()
+    consts_p, sd = consts[:, :, :P1].contiguous(), consts[:3, :, P1:].contiguous()
+
+    def composed():
+        homog = lbs_kernels.posed_template_lm(feat_p, consts_p)
+        return lbs_kernels.recon_part_sums_cached_lm(tgt, pj, x, sd, homog, parts, w)
+
+    with torch.no_grad():
+        got, want = composed(), twin_call(lbs_kernels, 'recon_part_sums', k6_args, {})
+        torch.cuda.synchronize()
+        for g, t in zip(got, want, strict=True):
+            rel = (g - t).abs().max().item() / t.abs().max().item()
+            if rel > KERNEL_REL_TOL:
+                raise AssertionError(f'{label} K7 + K4 yardstick: {rel:.3e} x max|twin| from '
+                                     "K6's twin")
+        ms = time_ms(torch, composed, [()] * 5)
+        k6_ms = time_ms(torch, lambda: kernel_call(lbs_kernels, 'recon_part_sums', k6_args, {}),
+                        [()] * 5)
+    results['yardstick'] = dict(ms=ms, k6_ms=k6_ms)
+    log(f'{label:6s} recon_part_sums (K6) {k6_ms:.3f} ms against K7 + K4 (posed template, then '
+        f'the cached part sums) {ms:.3f} ms on the same operands, B={batch}')
 
 
 # The torch-op backward passes, each timed in phase 3 at B=4096 on a captured

@@ -12,374 +12,538 @@
 //     G[e, f] = sum ω sum_a jac[a,e] jac[a,f]   (upper triangle once, mirrored)
 //     SA[a*E1+e] = sum ω jac[a,e],  r[e] = sum ω sum_a jac[a,e] b_a,
 //     Sb[a] = sum ω b_a,  W = sum ω.
-// The TPU kernel weighted by sqrt(ω) on both Jacobian copies to save VMEM;
-// here ω multiplies once, which differs by rounding only.
 //
-// What bounds it on an H100: f32 arithmetic. Per (vertex, column): 12J FMAs
-// of the [R|t] blend, 3EJ of the translation Jacobian, 9E of the shape
-// directions and 3 E1(E1+1)/2 + 7 E1 of the sums: at SMPL-X (J = 55, E = 16)
-// ~3,900 FMAs, ~340 GFLOP at B = 4096, against ~0.9 GB of targets, template
-// and weights.
+// What bounds it on an H100: f32 arithmetic. Per (vertex, column): the
+// [R|t] and translation-Jacobian blends (12 + 3E FMAs per joint that skins
+// the vertex), 9E of the shape directions and ~3 N (N + 1) / 2 of the sums
+// (N = E1 + 4, below): at SMPL-X (E = 16, 3 joints per vertex) ~1,000 FMAs,
+// ~85 GFLOP at B = 4096, against ~0.9 GB of targets, template and weights.
 //
-// Design: a block owns 8 batch columns and a split of the vertex axis. The
-// columns' [R|t] entries (12 J) and translation Jacobians (3E J) stay in
-// shared memory for the whole split (112 KB at J = 55, E = 17), laid out
-// (joint, column, entry) so that a thread reads its column's entries of one
-// joint as float4 vectors; the J-deep blends then make one shared load per
-// four FMAs. The block walks its split 32 vertices at a time, one (vertex,
-// column) point per thread: each thread blends its point's 12 + 3E entries
-// in registers (the skinning weights of the 32 vertices are staged in shared
-// memory), forms the Jacobian and residual and stages them in shared memory,
-// vertex-contiguous per column; then every thread adds the 32 vertices'
-// contributions, read as float4 vectors, to the outputs it owns (a fixed set
-// of (entry, column) pairs, at most 8), kept in registers over the split.
-// Strides are padded so that the eight columns of a warp's loads fall in
-// distinct banks. Each split writes its partials once (n_split, n_out, B); a
-// second kernel sums them in split order. No atomics: runs repeat bit for
-// bit. Rows at or past V and columns past B carry ω = 0 and add nothing.
-#include <cuda_runtime.h>
-
-#define SMPL_API extern "C" __attribute__((visibility("default")))
+// Design.
+// - The blend runs over each segment's active joints only. The host covers
+//   the vertices < V with segments of at most 32 vertices, each inside one
+//   body part (grouped by dominant joint), and lists for each segment every
+//   joint with a nonzero weight on any of its vertices (BlendSegments in
+//   ops/lbs_kernels.py). The terms left out are products with exact zeros.
+//   A segment with many active joints (up to all of them, dense weights)
+//   runs the same loop over a longer list.
+// - One augmented Gram per batch column. Each (vertex, axis a) point gives a
+//   row x = sqrt(ω) [jac[a, 0..E1), b_a, 1{a=0}, 1{a=1}, 1{a=2}] of N = E1 + 4
+//   entries (padded to NP, a multiple of 4); sum x^T x over the rows holds
+//   G, r (column E1), SA (columns E1 + 1 + a), Sb (row E1 against those) and
+//   W (a diagonal indicator entry). The TPU kernel's sqrt(ω) factorisation:
+//   ω >= 0 (fit confidences), and (sqrt ω)^2 differs from ω by rounding.
+// - A block owns TBW batch columns (8, fewer where shared memory requires),
+//   one warp each, and a split of the segments. Every joint's [R|t] and T4
+//   entries for its columns are staged once in shared memory, as the
+//   parent design did; the segments' lists index into them. Blocks of
+//   E <= 12 take at most 128 registers; wider ones up to 255 (their three
+//   axes' blends in registers at once, no spills), one block to an SM.
+// - Per segment each warp builds its column's 96 rows (a lane per vertex:
+//   the three axes' blends in registers, joint by joint, each float4 of the
+//   shape directions read once for the three rows, float4 stores) in a
+//   stage of its own, then runs a register-tiled symmetric rank update on
+//   them: each lane owns a 4 x 4 block of the upper triangle of the Gram
+//   (and a share of the rows), reading two float4 per row for 16 FMAs, the
+//   lanes sharing their float4 (broadcasts). A warp needs no block barrier
+//   between the two.
+// - The next segment's vertex and joint lists, shape directions, weights,
+//   and its points' template, targets and ω are gathered by cp.async while
+//   this segment's arithmetic runs (double buffers, a ring of three for the
+//   lists): one block barrier per segment. Scattered 4-byte gathers are what
+//   the parent design's loads cost most, so the copies are 16 bytes where
+//   the layout allows (a vertex's 4 or 8 batch columns of a point array
+//   where B % 4 == 0; its shape-direction rows where E % 4 == 0, 8 bytes
+//   where E is even).
+// - Sums are per segment, added to the running sums once per segment (short
+//   f32 chains), the row groups summed in order at the end, each split
+//   writes its partial once, and a second kernel sums the splits in order.
+//   No atomics: runs repeat bit for bit. Rows past a segment, of vertices at
+//   or past V and columns past B carry sqrt(ω) = 0 and add nothing.
+#include "sgemm_tile.cuh"  // cp.async
 
 namespace {
 
-constexpr int NT = 256;            // threads per block
-constexpr int TBW = 8;             // batch columns per block
-constexpr int TVW = NT / TBW;      // vertices per pass (32)
-constexpr int CS = TVW + 4;        // column stride of the staging tile (bank spread)
-constexpr int RS = TBW * CS;       // row stride of the staging tile
-constexpr int MAXOWN = 8;          // outputs per thread
+constexpr int TV = 32;        // vertices per segment at most: a warp's lanes
+constexpr int ROWS = 3 * TV;  // rows of a segment: (vertex, axis)
+constexpr int MAX_NT = 256;   // threads per block at most (TBW = 8 warps)
 
-__host__ __device__ inline int n_pairs(int E1) { return E1 * (E1 + 1) / 2; }
-__host__ __device__ inline int n_outputs(int E1) { return n_pairs(E1) + 4 * E1 + 4; }
-
-// Floats per (joint, column) of the translation Jacobians: 3E rounded up to
-// a float4, and to 4 mod 8 so the eight columns of a load hit distinct banks.
-__host__ __device__ inline int t4_stride(int E) {
-  const int r = (3 * E + 3) / 4 * 4;
-  return r % 8 == 0 ? r + 4 : r;
-}
-
-struct Smem {
-  float *pj, *t4, *mu, *w, *sd, *stage;
+// The sizes of one call, the same on the host and the device.
+struct Dims {
+  int E, E1, N, NP, nb, nT;
+  int RS;   // row stride of a warp's stage: NP, made 4 mod 8 (float4 stores by 32 lanes)
+  int EA;   // shape entries per axis: E rounded up to 4
+  int AS;   // floats per (column, joint, axis) of the joint stage: [Rbar row | tbar | T4 row]
+  int MS;   // floats per (column, axis) of the means: mu row (EA), then mu_s
+  int SDS;  // floats per vertex of the shape-direction stage: 3 EA, made 4 mod 8
 };
 
-__host__ __device__ inline size_t smem_floats(int J, int E, int E1) {
-  return (size_t)12 * J * TBW + (size_t)t4_stride(E) * J * TBW + (size_t)(3 * E + 3) * TBW +
-         (size_t)TVW * J + (size_t)TVW * 3 * E + (size_t)(3 * E1 + 4) * RS;
+__host__ __device__ inline Dims dims_of(int E, int scale) {
+  Dims d;
+  d.E = E;
+  d.E1 = E + (scale ? 1 : 0);
+  d.N = d.E1 + 4;
+  d.NP = (d.N + 3) / 4 * 4;
+  d.nb = d.NP / 4;
+  d.nT = d.nb * (d.nb + 1) / 2;
+  d.RS = d.NP % 8 == 4 ? d.NP : d.NP + 4;
+  d.EA = (E + 3) / 4 * 4;
+  d.AS = 4 + d.EA;
+  d.MS = d.EA + 4;
+  d.SDS = 3 * d.EA % 8 == 4 ? 3 * d.EA : 3 * d.EA + 4;
+  return d;
 }
 
-// Every part starts at a multiple of 4 floats (16 bytes) for float4 loads.
-__device__ inline Smem carve(float* smem, int J, int E) {
-  Smem s;
-  s.pj = smem;                                // [J][TBW][12]
-  s.t4 = s.pj + 12 * J * TBW;                 // [J][TBW][t4_stride(E)]
-  s.mu = s.t4 + t4_stride(E) * J * TBW;       // [3E + 3][TBW]: mu rows, then mu_s
-  s.w = s.mu + (3 * E + 3) * TBW;             // [TVW][J]
-  s.sd = s.w + TVW * J;                       // [TVW][3E]
-  s.stage = s.sd + TVW * 3 * E;               // [3 E1 + 4][TBW][CS]: jac, b, ω
-  return s;
+// Shared-memory floats of a block of TBW columns; maxA the longest joint
+// list, cap the segments of a split at most.
+__host__ __device__ inline size_t smem_floats(const Dims& d, int J, int TBW, int maxA, int cap) {
+  return (size_t)TBW * J * 3 * d.AS + (size_t)TBW * 3 * d.MS + (size_t)TBW * ROWS * d.RS +
+         (size_t)2 * TV * d.SDS + (size_t)2 * 7 * TV * (TBW + 4) + (size_t)2 * maxA * TV +
+         3 * TV + 3 * maxA + 2 * (cap + 1);
 }
 
-__device__ inline float4 ld4(const float* p, int q) {
-  return reinterpret_cast<const float4*>(p)[q];
-}
+__device__ inline float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-__device__ inline float dot4(float4 a, float4 b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
-}
-
-// The upper-triangle pair (e, f), e <= f, of index p in row-major order.
-__device__ inline void pair_of(int p, int E1, int& e, int& f) {
-  e = 0;
-  while (p >= E1 - e) {
-    p -= E1 - e;
-    ++e;
+// The upper-triangle block (eb, fb), eb <= fb, of index t in row-major order.
+__host__ __device__ inline void block_of(int t, int nb, int& eb, int& fb) {
+  eb = 0;
+  while (t >= nb - eb) {
+    t -= nb - eb;
+    ++eb;
   }
-  f = e + p;
+  fb = eb + t;
 }
 
-// One output entry's sum over the pass's TVW vertices of column c, four
-// vertices per step.
-__device__ inline float pass_sum(const float* stage, int entry, int c, int E1) {
-  const int np = n_pairs(E1);
-  const float* base = stage + c * CS;
-  const float* om = base + (3 * E1 + 3) * RS;
-  float s = 0.f;
-  if (entry < np) {
-    int e, f;
-    pair_of(entry, E1, e, f);
-    const float* je = base + e * RS;
-    const float* jf = base + f * RS;
-#pragma unroll 2
-    for (int q = 0; q < TVW / 4; ++q) {
-      float4 d;
-      const float4 x0 = ld4(je, q), y0 = ld4(jf, q);
-      const float4 x1 = ld4(je + E1 * RS, q), y1 = ld4(jf + E1 * RS, q);
-      const float4 x2 = ld4(je + 2 * E1 * RS, q), y2 = ld4(jf + 2 * E1 * RS, q);
-      d.x = fmaf(x2.x, y2.x, fmaf(x1.x, y1.x, x0.x * y0.x));
-      d.y = fmaf(x2.y, y2.y, fmaf(x1.y, y1.y, x0.y * y0.y));
-      d.z = fmaf(x2.z, y2.z, fmaf(x1.z, y1.z, x0.z * y0.z));
-      d.w = fmaf(x2.w, y2.w, fmaf(x1.w, y1.w, x0.w * y0.w));
-      s += dot4(ld4(om, q), d);
-    }
-  } else if (entry < np + 3 * E1) {  // SA[a*E1 + e]
-    const float* j = base + (entry - np) * RS;
-    for (int q = 0; q < TVW / 4; ++q) s += dot4(ld4(om, q), ld4(j, q));
-  } else if (entry < np + 4 * E1) {  // r[e]
-    const float* j = base + (entry - np - 3 * E1) * RS;
-    const float* bres = base + 3 * E1 * RS;
-    for (int q = 0; q < TVW / 4; ++q) {
-      float4 d;
-      const float4 x0 = ld4(j, q), y0 = ld4(bres, q);
-      const float4 x1 = ld4(j + E1 * RS, q), y1 = ld4(bres + RS, q);
-      const float4 x2 = ld4(j + 2 * E1 * RS, q), y2 = ld4(bres + 2 * RS, q);
-      d.x = fmaf(x2.x, y2.x, fmaf(x1.x, y1.x, x0.x * y0.x));
-      d.y = fmaf(x2.y, y2.y, fmaf(x1.y, y1.y, x0.y * y0.y));
-      d.z = fmaf(x2.z, y2.z, fmaf(x1.z, y1.z, x0.z * y0.z));
-      d.w = fmaf(x2.w, y2.w, fmaf(x1.w, y1.w, x0.w * y0.w));
-      s += dot4(ld4(om, q), d);
-    }
-  } else if (entry < np + 4 * E1 + 3) {  // Sb[a]
-    const float* bres = base + (3 * E1 + entry - np - 4 * E1) * RS;
-    for (int q = 0; q < TVW / 4; ++q) s += dot4(ld4(om, q), ld4(bres, q));
-  } else {  // W
-    for (int q = 0; q < TVW / 4; ++q) {
-      const float4 o = ld4(om, q);
-      s += (o.x + o.y) + (o.z + o.w);
-    }
-  }
-  return s;
+__device__ __forceinline__ void cp_async_i4(int* dst, const int* src, bool live) {
+  sgemm::cp_async4(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src), live);
 }
 
-template <int NQ>  // float4s of translation Jacobian per point: t4_stride(E) <= 4 NQ
-__global__ void __launch_bounds__(NT, 1)
+__device__ __forceinline__ void cp_async8(float* dst, const float* src, bool live) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
+               "r"(live ? 8 : 0)
+               : "memory");
+}
+
+// EP: shape entries per axis held in registers (>= E); MT: tasks per lane.
+template <int EP, int MT>
+__global__ void __launch_bounds__(MAX_NT, EP <= 12 ? 2 : 1)
 wgram_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
              const float* __restrict__ homog, const float* __restrict__ t4,
              const float* __restrict__ w, const float* __restrict__ sd,
              const float* __restrict__ mu, const float* __restrict__ omega,
-             const float* __restrict__ mu_s, float* __restrict__ part, int J, int E, int B,
-             int V, int Vp, int scale_mode, int tiles_per_block) {
+             const float* __restrict__ mu_s, const int* __restrict__ verts,
+             const int* __restrict__ seg_offset, const int* __restrict__ joints,
+             const int* __restrict__ joint_offset, float* __restrict__ part, int J, int E,
+             int B, int V, int Vp, int scale_mode, int n_seg, int maxA, int KG, int vec_pt,
+             int vec_sd) {
   extern __shared__ __align__(16) float smem[];
-  const int E1 = E + (scale_mode ? 1 : 0);
-  const int n_out = n_outputs(E1);
-  const int T4S = t4_stride(E);
-  const Smem s = carve(smem, J, E);
-  const int tid = threadIdx.x;
-  const int col = tid % TBW, vl = tid / TBW;
-  const int b0 = blockIdx.x * TBW;
-  const int b = b0 + col;
+  const Dims d = dims_of(E, scale_mode);
+  const int TBW = blockDim.x / 32, nthr = blockDim.x;
+  const int tid = threadIdx.x, lane = tid % 32, col = tid / 32;
+  const int b0 = blockIdx.x * TBW, b = b0 + col;
+  const int split = blockIdx.y, n_splits = gridDim.y;
+  const int s_beg = (int)((long long)n_seg * split / n_splits);
+  const int ns = (int)((long long)n_seg * (split + 1) / n_splits) - s_beg;
+  const int cap = (n_seg + n_splits - 1) / n_splits;
 
-  // The block's columns: [R|t] entries, translation Jacobians (zero past 3E),
-  // centring means. Read in the global layout's order (column fastest).
-  for (int idx = tid; idx < 12 * J * TBW; idx += NT) {
-    const int c = idx % TBW, xj = idx / TBW;  // xj = x * J + j
-    const int bb = b0 + c;
-    s.pj[((xj % J) * TBW + c) * 12 + xj / J] = bb < B ? pj[(size_t)xj * B + bb] : 0.f;
+  float* const js = smem;                             // [TBW][J][3][AS]
+  float* const mus = js + TBW * J * 3 * d.AS;         // [TBW][3][MS]
+  float* const stage = mus + TBW * 3 * d.MS;          // [TBW][ROWS][RS]
+  float* const sds = stage + TBW * ROWS * d.RS;       // [2][TV][SDS]
+  const int PS = TBW + 4;                             // vertex stride of the point stage
+  float* const pts = sds + 2 * TV * d.SDS;            // [2][7][TV][PS]: homog, tgt, ω
+  float* const ws = pts + 2 * 7 * TV * PS;            // [2][maxA][TV]
+  int* const rows = reinterpret_cast<int*>(ws + 2 * maxA * TV);  // [3][TV]
+  int* const jl = rows + 3 * TV;                      // [3][maxA]
+  int* const offs_v = jl + 3 * maxA;                  // [cap + 1]: the split's segment bounds
+  int* const offs_j = offs_v + cap + 1;               // [cap + 1]: its joint-list bounds
+
+  for (int i = tid; i <= ns; i += nthr) {
+    offs_v[i] = seg_offset[s_beg + i];
+    offs_j[i] = joint_offset[s_beg + i];
   }
-  for (int idx = tid; idx < T4S * J * TBW; idx += NT) {
-    const int c = idx % TBW, rj = idx / TBW;  // rj = r * J + j
-    const int r = rj / J, bb = b0 + c;
-    s.t4[((rj % J) * TBW + c) * T4S + r] =
-        (bb < B && r < 3 * E) ? t4[(size_t)rj * B + bb] : 0.f;
-  }
-  for (int idx = tid; idx < (3 * E + 3) * TBW; idx += NT) {
-    const int row = idx / TBW, bb = b0 + idx % TBW;
-    float m = 0.f;
+  // Every joint's [R|t] row a and T4 rows a*E .. a*E+E (zero past E), per
+  // column (zero past B); read column fastest.
+  for (int idx = tid; idx < TBW * J * 3 * d.AS; idx += nthr) {
+    const int c = idx % TBW, rest = idx / TBW;
+    const int r = rest % d.AS, aj = rest / d.AS;  // aj = j * 3 + a
+    const int a = aj % 3, j = aj / 3, bb = b0 + c;
+    float val = 0.f;
     if (bb < B) {
-      if (row < 3 * E) m = mu[(size_t)row * B + bb];
-      else if (scale_mode) m = mu_s[(size_t)(row - 3 * E) * B + bb];
+      if (r < 4) val = pj[((size_t)(a * 4 + r) * J + j) * B + bb];
+      else if (r - 4 < E) val = t4[((size_t)(a * E + r - 4) * J + j) * B + bb];
     }
-    s.mu[idx] = m;
+    js[((c * J + j) * 3 + a) * d.AS + r] = val;
   }
-
-  float acc[MAXOWN];
-#pragma unroll
-  for (int k = 0; k < MAXOWN; ++k) acc[k] = 0.f;
-
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int v0 = (blockIdx.y * tiles_per_block + t) * TVW;
-    if (v0 >= V) break;  // uniform across the block
-    __syncthreads();     // the previous pass is done with w, sd and stage
-    for (int idx = tid; idx < TVW * J; idx += NT) {
-      const int v = v0 + idx / J;
-      s.w[idx] = v < V ? w[(size_t)v * J + idx % J] : 0.f;
+  for (int idx = tid; idx < TBW * 3 * d.MS; idx += nthr) {
+    const int c = idx % TBW, rest = idx / TBW;
+    const int e = rest % d.MS, a = rest / d.MS, bb = b0 + c;
+    float val = 0.f;
+    if (bb < B) {
+      if (e < E) val = mu[(size_t)(a * E + e) * B + bb];
+      else if (e == d.EA && scale_mode) val = mu_s[(size_t)a * B + bb];
     }
-    for (int idx = tid; idx < TVW * 3 * E; idx += NT) {
-      const int vv = idx / (3 * E), ce = idx % (3 * E);
-      const int v = v0 + vv;
-      s.sd[idx] = v < V ? sd[((size_t)(ce / E) * Vp + v) * E + ce % E] : 0.f;
-    }
-    __syncthreads();
+    mus[(c * 3 + a) * d.MS + e] = val;
+  }
+  __syncthreads();  // the split's bounds
 
-    // This thread's point: blends, Jacobian and residual, staged. The
-    // register arrays are indexed by compile-time constants only (a runtime
-    // index would put them in local memory).
-    const int v = v0 + vl;
-    const bool ok = v < V && b < B;
-    float bl[12], tb[4 * NQ];
-#pragma unroll
-    for (int x = 0; x < 12; ++x) bl[x] = 0.f;
-#pragma unroll
-    for (int r = 0; r < 4 * NQ; ++r) tb[r] = 0.f;
-    const float* wrow = s.w + vl * J;
-    for (int j = 0; j < J; ++j) {
-      const float wv = wrow[j];
-      const float* pjj = s.pj + (j * TBW + col) * 12;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        const float4 p = ld4(pjj, q);
-        bl[4 * q] = fmaf(wv, p.x, bl[4 * q]);
-        bl[4 * q + 1] = fmaf(wv, p.y, bl[4 * q + 1]);
-        bl[4 * q + 2] = fmaf(wv, p.z, bl[4 * q + 2]);
-        bl[4 * q + 3] = fmaf(wv, p.w, bl[4 * q + 3]);
+  // Segment k's vertex and joint lists into slot k % 3 of the ring.
+  auto issue_lists = [&](int k) {
+    if (k >= ns) return;
+    const int v0 = offs_v[k], n = offs_v[k + 1] - v0;
+    const int j0 = offs_j[k], nA = offs_j[k + 1] - j0;
+    for (int i = tid; i < TV; i += nthr)
+      cp_async_i4(rows + (k % 3) * TV + i, i < n ? verts + v0 + i : verts, i < n);
+    for (int i = tid; i < nA; i += nthr) cp_async_i4(jl + (k % 3) * maxA + i, joints + j0 + i, true);
+  };
+  // Segment k's shape directions, weights, and the template, targets and ω
+  // of its points into buffer k % 2 (its lists landed), 16 bytes a copy
+  // where E (shape directions) or B (points) and the alignment allow.
+  auto issue_data = [&](int k) {
+    if (k >= ns) return;
+    const int n = offs_v[k + 1] - offs_v[k], nA = offs_j[k + 1] - offs_j[k];
+    const int* rr = rows + (k % 3) * TV;
+    const int* jj_of = jl + (k % 3) * maxA;
+    float* sb = sds + (k % 2) * TV * d.SDS;
+    float* pb = pts + (k % 2) * 7 * TV * PS;
+    float* wb = ws + (k % 2) * maxA * TV;
+    if (vec_sd) {  // vec_sd floats a copy: 4 or 2
+      const int QE = E / vec_sd;
+      for (int idx = tid; idx < TV * 3 * QE; idx += nthr) {
+        const int vv = idx / (3 * QE), rem = idx % (3 * QE);
+        const int c = rem / QE, q = rem % QE;
+        const bool live = vv < n;
+        float* dst = sb + vv * d.SDS + c * d.EA + vec_sd * q;
+        const float* src = live ? sd + ((size_t)c * Vp + rr[vv]) * E + vec_sd * q : sd;
+        if (vec_sd == 4) sgemm::cp_async16(dst, src, live);
+        else cp_async8(dst, src, live);
       }
-      const float* t4j = s.t4 + (j * TBW + col) * T4S;
-#pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        if (4 * q < 3 * E) {
-          const float4 p = ld4(t4j, q);
-          tb[4 * q] = fmaf(wv, p.x, tb[4 * q]);
-          tb[4 * q + 1] = fmaf(wv, p.y, tb[4 * q + 1]);
-          tb[4 * q + 2] = fmaf(wv, p.z, tb[4 * q + 2]);
-          tb[4 * q + 3] = fmaf(wv, p.w, tb[4 * q + 3]);
-        }
+    } else {
+      for (int idx = tid; idx < TV * 3 * d.EA; idx += nthr) {
+        const int vv = idx / (3 * d.EA), rem = idx % (3 * d.EA);
+        const int c = rem / d.EA, e = rem % d.EA;
+        const bool live = vv < n && e < E;
+        sgemm::cp_async4(sb + vv * d.SDS + rem,
+                         live ? sd + ((size_t)c * Vp + rr[vv]) * E + e : sd, live);
       }
     }
-    float h[3], tg[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      h[c] = ok ? homog[((size_t)c * Vp + v) * B + b] : 0.f;
-      tg[c] = ok ? tgt[((size_t)c * V + v) * B + b] : 0.f;
-    }
-    const float om = ok ? omega[(size_t)v * B + b] : 0.f;
-    const float* sdv = s.sd + vl * 3 * E;
-    float* st = s.stage + col * CS + vl;
-    int a = 0, e = 0;  // r = a * E + e
-#pragma unroll
-    for (int r = 0; r < 4 * NQ; ++r) {
-      if (r < 3 * E) {
-        // Rbar[a, :], picked without a runtime index into bl.
-        const float r0 = a == 0 ? bl[0] : (a == 1 ? bl[4] : bl[8]);
-        const float r1 = a == 0 ? bl[1] : (a == 1 ? bl[5] : bl[9]);
-        const float r2 = a == 0 ? bl[2] : (a == 1 ? bl[6] : bl[10]);
-        float jv = tb[r] - s.mu[r * TBW + col];
-        jv = fmaf(r0, sdv[e], jv);
-        jv = fmaf(r1, sdv[E + e], jv);
-        jv = fmaf(r2, sdv[2 * E + e], jv);
-        st[(a * E1 + e) * RS] = jv;
-        if (++e == E) {
-          e = 0;
-          ++a;
-        }
+    // Point arrays a (0-2 homog, 3-5 tgt, 6 ω) of vertex vv, columns b0 + ...:
+    // rows past the segment or past V are zero.
+    auto point_src = [&](int a, int v) -> const float* {
+      return a < 3 ? homog + ((size_t)a * Vp + v) * B
+                   : (a < 6 ? tgt + ((size_t)(a - 3) * V + v) * B : omega + (size_t)v * B);
+    };
+    if (vec_pt) {
+      const int QB = TBW / 4;
+      for (int idx = tid; idx < 7 * TV * QB; idx += nthr) {
+        const int q = idx % QB, av = idx / QB;
+        const int vv = av % TV, a = av / TV;
+        const int v = vv < n ? rr[vv] : 0;
+        const bool live = vv < n && v < V && b0 + 4 * q < B;
+        sgemm::cp_async16(pb + (a * TV + vv) * PS + 4 * q,
+                          live ? point_src(a, v) + b0 + 4 * q : homog, live);
+      }
+    } else {
+      for (int idx = tid; idx < 7 * TV * TBW; idx += nthr) {
+        const int c = idx % TBW, av = idx / TBW;
+        const int vv = av % TV, a = av / TV;
+        const int v = vv < n ? rr[vv] : 0;
+        const bool live = vv < n && v < V && b0 + c < B;
+        sgemm::cp_async4(pb + (a * TV + vv) * PS + c, live ? point_src(a, v) + b0 + c : homog,
+                         live);
       }
     }
+    for (int idx = tid; idx < nA * TV; idx += nthr) {
+      const int jj = idx / TV, vv = idx % TV;
+      const bool live = vv < n;
+      sgemm::cp_async4(wb + idx, live ? w + (size_t)rr[vv] * J + jj_of[jj] : w, live);
+    }
+  };
+  // This lane's tasks: task = g * nT + block, g the row group.
+  const int RG = ROWS / KG;
+  int t_e[MT], t_f[MT];
+  bool t_live[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int task = lane + 32 * m;
+    t_live[m] = task < KG * d.nT;
+    const int tt = t_live[m] ? task : 0;
+    int eb, fb;
+    block_of(tt % d.nT, d.nb, eb, fb);
+    const int r0 = (tt / d.nT) * RG * d.RS;
+    t_e[m] = r0 + 4 * eb;
+    t_f[m] = r0 + 4 * fb;
+  }
+  float acc[MT][16];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int k = 0; k < 16; ++k) acc[m][k] = 0.f;
+
+  float* const st = stage + col * ROWS * d.RS;  // this warp's rows
+  const float* const jsc = js + col * J * 3 * d.AS;
+  issue_lists(0);
+  sgemm::cp_async_commit();
+  sgemm::cp_async_wait<0>();
+  __syncthreads();
+  issue_data(0);
+  issue_lists(1);
+  sgemm::cp_async_commit();
+  sgemm::cp_async_wait<0>();
+  __syncthreads();
+  for (int k = 0; k < ns; ++k) {
+    issue_data(k + 1);
+    issue_lists(k + 2);
+    sgemm::cp_async_commit();
+    // This lane's point: template, target and ω (zero outside the segment,
+    // past V or past B).
+    float pt[7];
+#pragma unroll
+    for (int a = 0; a < 7; ++a) pt[a] = pts[(((k % 2) * 7 + a) * TV + lane) * PS + col];
+    const int nA = offs_j[k + 1] - offs_j[k];
+    const float* sdv = sds + (k % 2) * TV * d.SDS + lane * d.SDS;
+    const float* wb = ws + (k % 2) * maxA * TV + lane;
+    const int* jlk = jl + (k % 3) * maxA;
+    const float som = sqrtf(pt[6]);
+
+    // The blends of the three axes over the segment's active joints (each
+    // joint's weight and list entry read once), then each float4 of the shape
+    // directions read once for the three axes' rows.
+    float bl[3][4], tb[3][EP];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const float pos = fmaf(bl[a * 4], h[0], fmaf(bl[a * 4 + 1], h[1],
-                        fmaf(bl[a * 4 + 2], h[2], bl[a * 4 + 3])));
-      if (scale_mode)
-        st[(a * E1 + E) * RS] = (scale_mode == 1 ? -tg[a] : pos) - s.mu[(3 * E + a) * TBW + col];
-      st[(3 * E1 + a) * RS] = tg[a] - pos;
-    }
-    st[(3 * E1 + 3) * RS] = om;
-    __syncthreads();
-
 #pragma unroll
-    for (int k = 0; k < MAXOWN; ++k) {
-      const int idx = tid + k * NT;
-      if (idx < n_out * TBW) acc[k] += pass_sum(s.stage, idx / TBW, idx % TBW, E1);
+      for (int k = 0; k < 4; ++k) bl[a][k] = 0.f;
+#pragma unroll
+      for (int e = 0; e < EP; ++e) tb[a][e] = 0.f;
     }
+    for (int jj = 0; jj < nA; ++jj) {
+      const float wv = wb[jj * TV];
+      const float* p = jsc + jlk[jj] * 3 * d.AS;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float4 r = ld4(p + a * d.AS);
+        bl[a][0] = fmaf(wv, r.x, bl[a][0]);
+        bl[a][1] = fmaf(wv, r.y, bl[a][1]);
+        bl[a][2] = fmaf(wv, r.z, bl[a][2]);
+        bl[a][3] = fmaf(wv, r.w, bl[a][3]);
+#pragma unroll
+        for (int q = 0; q < EP / 4; ++q) {
+          if (4 * q < E) {
+            const float4 t = ld4(p + a * d.AS + 4 + 4 * q);
+            tb[a][4 * q] = fmaf(wv, t.x, tb[a][4 * q]);
+            tb[a][4 * q + 1] = fmaf(wv, t.y, tb[a][4 * q + 1]);
+            tb[a][4 * q + 2] = fmaf(wv, t.z, tb[a][4 * q + 2]);
+            tb[a][4 * q + 3] = fmaf(wv, t.w, tb[a][4 * q + 3]);
+          }
+        }
+      }
+    }
+    float* const row0 = st + lane * 3 * d.RS;  // the lane's rows (vertex, a) at row0 + a RS
+    const float* const muc = mus + col * 3 * d.MS;
+#pragma unroll
+    for (int q = 0; q < EP / 4; ++q) {
+      if (4 * q < E) {
+        const float4 s0 = ld4(sdv + 4 * q), s1 = ld4(sdv + d.EA + 4 * q);
+        const float4 s2 = ld4(sdv + 2 * d.EA + 4 * q);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const float4 m = ld4(muc + a * d.MS + 4 * q);
+          float4 x;
+          x.x = som * fmaf(bl[a][0], s0.x, fmaf(bl[a][1], s1.x, fmaf(bl[a][2], s2.x, tb[a][4 * q] - m.x)));
+          x.y = som * fmaf(bl[a][0], s0.y, fmaf(bl[a][1], s1.y, fmaf(bl[a][2], s2.y, tb[a][4 * q + 1] - m.y)));
+          x.z = som * fmaf(bl[a][0], s0.z, fmaf(bl[a][1], s1.z, fmaf(bl[a][2], s2.z, tb[a][4 * q + 2] - m.z)));
+          x.w = som * fmaf(bl[a][0], s0.w, fmaf(bl[a][1], s1.w, fmaf(bl[a][2], s2.w, tb[a][4 * q + 3] - m.w)));
+          *reinterpret_cast<float4*>(row0 + a * d.RS + 4 * q) = x;
+        }
+      }
+    }
+    // Entries E .. NP of each row: the scale column, the residual, the axis
+    // indicators, zeros (over the float4 tail past E).
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float pos = fmaf(bl[a][0], pt[0], fmaf(bl[a][1], pt[1], fmaf(bl[a][2], pt[2], bl[a][3])));
+      const float tga = pt[3 + a];
+      float* row = row0 + a * d.RS;
+      for (int e = E; e < d.NP; ++e) {
+        float val = 0.f;
+        if (e == E && scale_mode) val = som * ((scale_mode == 1 ? -tga : pos) - muc[a * d.MS + d.EA]);
+        else if (e == d.E1) val = som * (tga - pos);
+        else if (e == d.E1 + 1 + a) val = som;
+        row[e] = val;
+      }
+    }
+    __syncwarp();
+
+    // The symmetric rank update of this warp's column over the segment.
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (!t_live[m]) continue;
+      float tmp[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) tmp[i] = 0.f;
+      const float* xe = st + t_e[m];
+      const float* xf = st + t_f[m];
+#pragma unroll 4
+      for (int r = 0; r < RG; ++r) {
+        const float4 p = ld4(xe + r * d.RS), q = ld4(xf + r * d.RS);
+        const float pe[4] = {p.x, p.y, p.z, p.w}, qf[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tmp[i * 4 + j] = fmaf(pe[i], qf[j], tmp[i * 4 + j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[m][i] += tmp[i];
+    }
+    __syncwarp();  // the warp is done with its rows
+    sgemm::cp_async_wait<0>();
+    __syncthreads();  // segment k + 1's data and k + 2's lists have landed
   }
 
+  // Sum the row groups in order and write the split's partial
+  // part[split][block * 16 + k][b]; the warp's rows are free now.
+  float* red = st;  // [KG nT][16]
 #pragma unroll
-  for (int k = 0; k < MAXOWN; ++k) {
-    const int idx = tid + k * NT;
-    const int bb = b0 + idx % TBW;
-    if (idx < n_out * TBW && bb < B)
-      part[((size_t)blockIdx.y * n_out + idx / TBW) * B + bb] = acc[k];
+  for (int m = 0; m < MT; ++m) {
+    const int task = lane + 32 * m;
+    if (t_live[m])
+#pragma unroll
+      for (int i = 0; i < 16; ++i) red[task * 16 + i] = acc[m][i];
   }
+  __syncwarp();
+  if (b < B)
+    for (int idx = lane; idx < d.nT * 16; idx += 32) {
+      float sum = 0.f;
+      for (int g = 0; g < KG; ++g) sum += red[g * d.nT * 16 + idx];
+      part[((size_t)split * d.nT * 16 + idx) * B + b] = sum;
+    }
+}
+
+// Entry (n1, n2) of the augmented Gram in the partial layout (block * 16 + k).
+__device__ inline int aug_index(int n1, int n2, int nb) {
+  if (n1 > n2) {
+    const int t = n1;
+    n1 = n2;
+    n2 = t;
+  }
+  const int eb = n1 / 4, fb = n2 / 4;
+  const int t = eb * nb - eb * (eb - 1) / 2 + (fb - eb);
+  return t * 16 + (n1 % 4) * 4 + n2 % 4;
 }
 
 // Sums the split partials in split order and scatters them: G mirrored.
 __global__ void wgram_split_sum_kernel(const float* __restrict__ part, float* __restrict__ G,
                                        float* __restrict__ SA, float* __restrict__ r,
                                        float* __restrict__ Sb, float* __restrict__ W,
-                                       int n_splits, int E1, int B) {
-  const int n_out = n_outputs(E1), np = n_pairs(E1);
-  const size_t n = (size_t)n_out * B;
+                                       int n_splits, int E, int scale, int B) {
+  const Dims d = dims_of(E, scale);
+  const int E1 = d.E1;
+  const int n_out = E1 * E1 + 3 * E1 + E1 + 3 + 1;
+  const size_t n = (size_t)n_out * B, stride = (size_t)d.nT * 16 * B;
   for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
        idx += (size_t)gridDim.x * blockDim.x) {
-    float sum = 0.f;
-    for (int sp = 0; sp < n_splits; ++sp) sum += part[(size_t)sp * n + idx];
-    const int entry = (int)(idx / B);
+    const int o = (int)(idx / B);
     const size_t bb = idx % B;
-    if (entry < np) {
-      int e, f;
-      pair_of(entry, E1, e, f);
-      G[(size_t)(e * E1 + f) * B + bb] = sum;
-      G[(size_t)(f * E1 + e) * B + bb] = sum;
-    } else if (entry < np + 3 * E1) {
-      SA[(size_t)(entry - np) * B + bb] = sum;
-    } else if (entry < np + 4 * E1) {
-      r[(size_t)(entry - np - 3 * E1) * B + bb] = sum;
-    } else if (entry < np + 4 * E1 + 3) {
-      Sb[(size_t)(entry - np - 4 * E1) * B + bb] = sum;
+    float* dst;
+    int src;
+    if (o < E1 * E1) {
+      dst = G + (size_t)o * B;
+      src = aug_index(o / E1, o % E1, d.nb);
+    } else if (o < E1 * E1 + 3 * E1) {
+      const int q = o - E1 * E1;  // SA[a * E1 + e]
+      dst = SA + (size_t)q * B;
+      src = aug_index(q % E1, E1 + 1 + q / E1, d.nb);
+    } else if (o < E1 * E1 + 4 * E1) {
+      const int e = o - E1 * E1 - 3 * E1;
+      dst = r + (size_t)e * B;
+      src = aug_index(e, E1, d.nb);
+    } else if (o < E1 * E1 + 4 * E1 + 3) {
+      const int a = o - E1 * E1 - 4 * E1;
+      dst = Sb + (size_t)a * B;
+      src = aug_index(E1, E1 + 1 + a, d.nb);
     } else {
-      W[bb] = sum;
+      dst = W;
+      src = aug_index(E1 + 1, E1 + 1, d.nb);
     }
+    float sum = 0.f;
+    for (int sp = 0; sp < n_splits; ++sp) sum += part[sp * stride + (size_t)src * B + bb];
+    dst[bb] = sum;
   }
 }
 
-template <int NQ>
+constexpr size_t SMEM_LIMIT = 227 * 1024;  // dynamic shared memory a block may use
+
+template <int EP, int MT>
 cudaError_t launch_wgram(const float* tgt, const float* pj, const float* homog, const float* t4,
                          const float* w, const float* sd, const float* mu, const float* omega,
-                         const float* mu_s, float* part, int J, int E, int B, int V, int Vp,
-                         int scale_mode, int tiles_per_block, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(wgram_kernel<NQ>,
+                         const float* mu_s, const int* verts, const int* seg_offset,
+                         const int* joints, const int* joint_offset, float* part, int J, int E,
+                         int B, int V, int Vp, int scale_mode, int n_seg, int n_splits,
+                         int maxA, int KG, int TBW, int vec_pt, int vec_sd, size_t smem,
+                         cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(wgram_kernel<EP, MT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_tiles = (V + TVW - 1) / TVW;
-  dim3 grid((B + TBW - 1) / TBW, (n_tiles + tiles_per_block - 1) / tiles_per_block);
-  wgram_kernel<NQ><<<grid, NT, smem, stream>>>(tgt, pj, homog, t4, w, sd, mu, omega, mu_s,
-                                                 part, J, E, B, V, Vp, scale_mode,
-                                                 tiles_per_block);
+  dim3 grid((B + TBW - 1) / TBW, n_splits);
+  wgram_kernel<EP, MT><<<grid, 32 * TBW, smem, stream>>>(
+      tgt, pj, homog, t4, w, sd, mu, omega, mu_s, verts, seg_offset, joints, joint_offset, part,
+      J, E, B, V, Vp, scale_mode, n_seg, maxA, KG, vec_pt, vec_sd);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-SMPL_API size_t wgram_smem_bytes(int J, int E, int scale) {
-  return sizeof(float) * smem_floats(J, E, E + (scale ? 1 : 0));
-}
-
 // tgt (3, V, B), pj (12, J, B), homog (3, Vp, B), t4 (3E, J, B), w (Vp, J),
-// sd (3, Vp, E), mu (3E, B), omega (V, B), mu_s (3, B) when scale_mode ->
-// G (E1^2, B), SA (3E1, B), r (E1, B), Sb (3, B), W (1, B), E1 = E + (scale_mode
-// != 0). part is scratch of n_splits * n_out * B floats, n_out =
-// E1 (E1 + 1) / 2 + 4 E1 + 4, n_splits = ceil(ceil(V / 32) / tiles_per_block).
-// Requires E <= 17 (and E1 (E1 + 1) / 2 + 4 E1 + 4 <= 256).
+// sd (3, Vp, E), mu (3E, B), omega (V, B), mu_s (3, B) when scale_mode; the
+// segment cover: verts, seg_offset (n_seg + 1; at most 32 vertices each),
+// joints, joint_offset (n_seg + 1), max_joints the longest list ->
+// G (E1^2, B), SA (3E1, B), r (E1, B), Sb (3, B), W (1, B), E1 = E +
+// (scale_mode != 0). The launch plan (lbs_kernels.wgram_plan): TBW columns
+// per block (2, 4 or 8), MT tasks per lane (1 or 2), KG row groups (dividing
+// 96, KG nT <= 32 MT), n_splits; part is scratch of n_splits * part_floats * B
+// floats, part_floats = 16 nT. A plan that disagrees with this layout, E
+// outside 1..32 or a block past the shared memory is refused.
 SMPL_API int wgram_launch(const float* tgt, const float* pj, const float* homog,
                           const float* t4, const float* w, const float* sd, const float* mu,
-                          const float* omega, const float* mu_s, float* part, float* G,
-                          float* SA, float* r, float* Sb, float* W, int J, int E, int B, int V,
-                          int Vp, int scale_mode, int tiles_per_block, cudaStream_t stream) {
-  const int E1 = E + (scale_mode ? 1 : 0);
-  if (E > 17 || n_outputs(E1) * TBW > MAXOWN * NT || (scale_mode && mu_s == nullptr))
+                          const float* omega, const float* mu_s, const int* verts,
+                          const int* seg_offset, const int* joints, const int* joint_offset,
+                          float* part, float* G, float* SA, float* r, float* Sb, float* W, int J,
+                          int E, int B, int V, int Vp, int scale_mode, int n_seg, int n_splits,
+                          int max_joints, int TBW, int MT, int KG, int part_floats,
+                          cudaStream_t stream) {
+  if (E < 1 || E > 32 || n_seg < 1 || n_splits < 1 || (scale_mode && mu_s == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = wgram_smem_bytes(J, E, scale_mode != 0);
-  const cudaError_t err =
-      t4_stride(E) <= 36
-          ? launch_wgram<9>(tgt, pj, homog, t4, w, sd, mu, omega, mu_s, part, J, E, B, V, Vp,
-                            scale_mode, tiles_per_block, smem, stream)
-          : launch_wgram<13>(tgt, pj, homog, t4, w, sd, mu, omega, mu_s, part, J, E, B, V, Vp,
-                             scale_mode, tiles_per_block, smem, stream);
+  const Dims d = dims_of(E, scale_mode);
+  const int EP = E <= 12 ? 12 : (E <= 20 ? 20 : 32);
+  const int maxA = max_joints < 1 ? 1 : max_joints;
+  const int cap = (n_seg + n_splits - 1) / n_splits;
+  const size_t smem = sizeof(float) * smem_floats(d, J, TBW, maxA, cap);
+  if (part_floats != 16 * d.nT || (TBW != 2 && TBW != 4 && TBW != 8) || (MT != 1 && MT != 2) ||
+      KG < 1 || ROWS % KG != 0 || KG * d.nT > 32 * MT || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const int vec_pt = TBW >= 4 && B % 4 == 0 && sgemm::aligned16(tgt) &&
+                     sgemm::aligned16(homog) && sgemm::aligned16(omega);
+  const bool aligned8 = (reinterpret_cast<uintptr_t>(sd) & 7) == 0;
+  const int vec_sd = E % 4 == 0 && sgemm::aligned16(sd) ? 4 : (E % 2 == 0 && aligned8 ? 2 : 0);
+  cudaError_t err = cudaSuccess;
+#define WGRAM_CASE(ep, mt)                                                                     \
+  if (EP == ep && MT == mt)                                                                    \
+    err = launch_wgram<ep, mt>(tgt, pj, homog, t4, w, sd, mu, omega, mu_s, verts, seg_offset,  \
+                               joints, joint_offset, part, J, E, B, V, Vp, scale_mode, n_seg,  \
+                               n_splits, maxA, KG, TBW, vec_pt, vec_sd, smem, stream);
+  WGRAM_CASE(12, 1)
+  WGRAM_CASE(12, 2)
+  WGRAM_CASE(20, 1)
+  WGRAM_CASE(20, 2)
+  WGRAM_CASE(32, 1)
+  WGRAM_CASE(32, 2)
+#undef WGRAM_CASE
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (V + TVW - 1) / TVW;
-  const int n_splits = (n_tiles + tiles_per_block - 1) / tiles_per_block;
-  const size_t n = (size_t)n_outputs(E1) * B;
+  const size_t n = (size_t)(d.E1 * d.E1 + 4 * d.E1 + 4) * B;
   const int threads = 256;
   wgram_split_sum_kernel<<<(int)((n + threads - 1) / threads), threads, 0, stream>>>(
-      part, G, SA, r, Sb, W, n_splits, E1, B);
+      part, G, SA, r, Sb, W, n_splits, E, scale_mode ? 1 : 0, B);
   return (int)cudaGetLastError();
 }

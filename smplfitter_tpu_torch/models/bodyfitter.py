@@ -61,6 +61,8 @@ class FitterPlan:
     part_seg_offset: torch.Tensor  # int32 (n_seg + 1,)
     part_seg: torch.Tensor  # int32 (J + 1,)
     part_of_vertex: torch.Tensor  # int32 (V_pad,): each vertex's part, -1 for none
+    part_seg_joints: torch.Tensor  # int32: each segment's active joints (K6's blend)
+    part_seg_joint_offset: torch.Tensor  # int32 (n_seg + 1,)
 
     bone_parts: tuple
     leaf_parts: tuple
@@ -82,7 +84,8 @@ class FitterPlan:
     def parts(self) -> lbs_kernels.PartIndex:
         return lbs_kernels.PartIndex(pm=self.pm_t_pad, verts=self.part_verts,
                                      seg_offset=self.part_seg_offset, part_seg=self.part_seg,
-                                     vpart=self.part_of_vertex)
+                                     vpart=self.part_of_vertex, joints=self.part_seg_joints,
+                                     joint_offset=self.part_seg_joint_offset)
 
 
 def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int] = None,
@@ -192,7 +195,7 @@ def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int]
     def f32(x):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32, device=device)
 
-    parts = lbs_kernels.PartIndex.from_membership(pm_t_pad, device)
+    parts = lbs_kernels.PartIndex.from_membership(pm_t_pad, device, weights=weights)
     omega = None if vertex_weights is None else np.asarray(vertex_weights, np.float64).reshape(V)
     return FitterPlan(
         omega_pad=None if omega is None else f32(np.pad(omega.reshape(V, 1),
@@ -212,6 +215,8 @@ def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int]
         part_seg_offset=parts.seg_offset,
         part_seg=parts.part_seg,
         part_of_vertex=parts.vpart,
+        part_seg_joints=parts.joints,
+        part_seg_joint_offset=parts.joint_offset,
         bone_parts=tuple(bone_parts),
         leaf_parts=tuple(leaf_parts),
         bone_pairs=bone_pairs,

@@ -60,12 +60,26 @@ class GramData:
     Kc: torch.Tensor  # (J, 3, P + 1 + E)  sum_v w_vj consts_v
     Msd: torch.Tensor  # (V, J*3*E)  w_vj SD_v[c, e], columns (j, c, e): the per-call ω mean
     n_ext: int  # E = number of betas (+1 with the kid column)
+    # K9's cover of the vertices (lbs_kernels.wgram_cover): segments of at
+    # most 32 vertices of one body part, each with its active joints.
+    wgram_verts: Optional[torch.Tensor] = None  # int32 (V,)
+    wgram_seg_offset: Optional[torch.Tensor] = None  # int32 (n_seg + 1,)
+    wgram_joints: Optional[torch.Tensor] = None  # int32
+    wgram_joint_offset: Optional[torch.Tensor] = None  # int32 (n_seg + 1,)
+    wgram_max_joints: int = 0
     # Static fit weights ω (None: unweighted). With them every moment above
     # except Msd is an ω-weighted vertex sum, and K2 weights the residual by
     # this column; the per-vertex operands stay unweighted (and are shared
     # with the fitter's unweighted GramData).
     omega_pad: Optional[torch.Tensor] = None  # (V_pad, 1), zero rows in the padding
     w_total: float = 0.0  # sum_v ω_v (V without weights)
+
+    @property
+    def wgram_cover(self) -> lbs_kernels.BlendSegments:
+        return lbs_kernels.BlendSegments(
+            verts=self.wgram_verts, seg_offset=self.wgram_seg_offset, joints=self.wgram_joints,
+            joint_offset=self.wgram_joint_offset, max_joints=self.wgram_max_joints,
+            covers=self.wgram_verts.shape[0])
 
 
 # The per-vertex operands, the same in the weighted and the unweighted GramData.
@@ -131,8 +145,14 @@ def build_gram_data(weights: np.ndarray, shapedirs: np.ndarray,
             Msd=f32(Msd),
         )
 
+    cover = lbs_kernels.wgram_cover(w, V, device)
     return GramData(
         **per_vertex,
+        wgram_verts=cover.verts,
+        wgram_seg_offset=cover.seg_offset,
+        wgram_joints=cover.joints,
+        wgram_joint_offset=cover.joint_offset,
+        wgram_max_joints=cover.max_joints,
         Ksd=f32(Ksd),
         Lz_e=f32(np.transpose(Lsd, (0, 2, 3, 1)).reshape(J * 3, E * J)),
         sd1_2d=f32(sd1.reshape(J * 3, E)),
@@ -435,7 +455,8 @@ def fit_shape_wgram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm, omega_v
     homog_vm = lbs_kernels.posed_template_lm(pre['feat_cols'], gram.consts_pose)
     Gk, SAk, rk, Sbk, Wk = lbs_kernels.wgram_moments(
         tgt_vm, pre['pj_cm'], homog_vm, t4_cm, gram.weights_pad, gram.sd_cm,
-        mu.reshape(3 * E, batch).contiguous(), omega_vm, mu_s=mu_s, scale_mode=scale_mode)
+        mu.reshape(3 * E, batch).contiguous(), omega_vm, mu_s=mu_s, scale_mode=scale_mode,
+        cover=gram.wgram_cover)
     E1 = mu_full.shape[1]
     G = Gk.T.reshape(batch, E1, E1)
     SA = SAk.T.reshape(batch, 3, E1)

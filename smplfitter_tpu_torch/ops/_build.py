@@ -33,10 +33,10 @@ _SIGNATURES = {
     'gram_assembly_launch': [_P] * 14 + [_I] * 4 + [_P],
     'recon_part_sums_launch': [_P] * 14 + [_I] * 9 + [_P],
     'part_sums_launch': [_P] * 10 + [_I] * 9 + [_P],
-    'recon_lbs_part_sums_launch': [_P] * 13 + [_I] * 9 + [_P],
+    'recon_lbs_part_sums_launch': [_P] * 15 + [_I] * 9 + [_P],
     'posed_template_launch': [_P] * 3 + [_I] * 3 + [_P],
     'term1_launch': [_P] * 4 + [_I] * 4 + [_P],
-    'wgram_launch': [_P] * 15 + [_I] * 7 + [_P],
+    'wgram_launch': [_P] * 19 + [_I] * 13 + [_P],
     'lbs_points_bwd_launch': [_P] * 7 + [_I] * 5 + [_P],
     'rhs_bwd_launch': [_P] * 15 + [_I] * 8 + [_P],
     'recon_bwd_launch': [_P] * 15 + [_I] * 6 + [_P],
@@ -47,10 +47,8 @@ _SIGNATURES = {
 _SMEM_SIGNATURES = {
     'lbs_points_smem_bytes': [_I],
     'recon_part_sums_smem_bytes': [_I],
-    'recon_lbs_part_sums_smem_bytes': [_I],
     'gram_assembly_smem_bytes': [_I, _I],
     'rhs_moments_smem_bytes': [_I, _I],
-    'wgram_smem_bytes': [_I, _I, _I],
     'lbs_points_bwd_smem_bytes': [_I],
     'rhs_bwd_smem_bytes': [_I, _I, _I],
     'recon_bwd_smem_bytes': [_I, _I],

@@ -157,6 +157,7 @@ VC = 256
 _TV = 64  # vertex tile of the LBS kernels (csrc/lbs_tile.cuh)
 _TB = 64  # batch tile of the LBS kernels
 _SEG = 512  # max vertices per part segment of the recon kernel
+_WGRAM_SEG = 32  # max vertices per segment of K9's cover (csrc/wgram.cu: one tile)
 _BWD_MAXJ = 64  # joints of one reduction pass of the backward kernels (csrc/lbs_bwd.cuh)
 _SUM_COLS = 256  # batch columns per split of K15's summed form (csrc/part_sums_bwd.cu)
 _VJP_VCHUNK = 512  # vertices per step of a backward in torch ops (bounds its memory)
@@ -1109,6 +1110,71 @@ class _Term1(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
+def _active_joints(weights, verts: np.ndarray, seg_offset: np.ndarray, J: int):
+    """Each segment's active joints, ascending: every joint with a nonzero
+    weight in ``weights`` (V, J) on any of the segment's vertices (every
+    joint for ``weights`` None). Returns (joints, joint_offset, longest)."""
+    joints, joint_offset = [], [0]
+    for s0, s1 in zip(seg_offset[:-1], seg_offset[1:]):
+        if weights is None:
+            js = np.arange(J)
+        else:
+            js = np.nonzero(np.any(weights[verts[s0:s1]] != 0, axis=0))[0]
+        joints.extend(js)
+        joint_offset.append(len(joints))
+    counts = np.diff(joint_offset)
+    return joints, joint_offset, int(counts.max()) if len(counts) else 0
+
+
+def _i32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+
+@dataclass(eq=False)
+class BlendSegments:
+    """Vertex segments with the joints that skin them: the cover that K9
+    walks. ``verts`` lists vertices segment after segment (``seg_offset``
+    (n_seg + 1) bounds each), ``joints`` each segment's active joints
+    (``joint_offset`` (n_seg + 1)), ascending: every joint with a nonzero
+    skinning weight on any of the segment's vertices, ``max_joints`` the
+    longest list. Every vertex below ``covers`` appears exactly once. A
+    blend over a segment's list is exact: the joints left out weigh 0 on all
+    of its vertices. Built once per model on the host
+    (:func:`wgram_cover`)."""
+
+    verts: torch.Tensor
+    seg_offset: torch.Tensor
+    joints: torch.Tensor
+    joint_offset: torch.Tensor
+    max_joints: int
+    covers: int
+
+    @property
+    def n_seg(self) -> int:
+        return self.seg_offset.shape[0] - 1
+
+
+def wgram_cover(weights: np.ndarray, num_vertices: int, device) -> BlendSegments:
+    """K9's cover of the vertices below ``num_vertices``: grouped by body part
+    (each vertex's dominant joint, in canonical order within a part) and cut
+    into segments of at most 32 vertices (one tile of csrc/wgram.cu), with
+    each segment's active joints of the skinning ``weights`` (>= V, J)."""
+    w = np.asarray(weights)[:num_vertices]
+    J = w.shape[1]
+    dominant = np.argmax(w, axis=1)
+    verts, seg_offset = [], [0]
+    for j in range(J):
+        vs = np.nonzero(dominant == j)[0]
+        for s in range(0, len(vs), _WGRAM_SEG):
+            verts.extend(vs[s:s + _WGRAM_SEG])
+            seg_offset.append(len(verts))
+    verts = np.asarray(verts, np.int64)
+    joints, joint_offset, longest = _active_joints(w, verts, np.asarray(seg_offset), J)
+    return BlendSegments(verts=_i32(verts, device), seg_offset=_i32(seg_offset, device),
+                         joints=_i32(joints, device), joint_offset=_i32(joint_offset, device),
+                         max_joints=longest, covers=int(num_vertices))
+
+
 @dataclass
 class PartIndex:
     """One-hot body-part membership of the vertices, in two forms built from
@@ -1116,21 +1182,30 @@ class PartIndex:
     vertex lists cut into segments of at most 512 for the kernel
     (``verts``: used vertices grouped by part; ``seg_offset`` (n_seg + 1):
     segment bounds in ``verts``; ``part_seg`` (J + 1): each part's segments),
-    and for the backward kernel each vertex's part (``vpart`` (V_pad,), -1
-    for none)."""
+    for the backward kernel each vertex's part (``vpart`` (V_pad,), -1 for
+    none), and each segment's active joints for K6's blend (``joints``,
+    ``joint_offset`` (n_seg + 1), as :class:`BlendSegments`'): those of the
+    skinning weights the index was built with, every joint without them.
+    K6 blends over these lists only, so they must come from the same
+    weights as its ``weights_pad``."""
 
     pm: torch.Tensor
     verts: torch.Tensor
     seg_offset: torch.Tensor
     part_seg: torch.Tensor
     vpart: torch.Tensor
+    joints: torch.Tensor
+    joint_offset: torch.Tensor
 
     @property
     def n_seg(self) -> int:
         return self.seg_offset.shape[0] - 1
 
     @classmethod
-    def from_membership(cls, pm: np.ndarray, device) -> 'PartIndex':
+    def from_membership(cls, pm: np.ndarray, device, weights=None) -> 'PartIndex':
+        """The index of membership ``pm`` (J, V_pad); ``weights`` (>= V, J)
+        the skinning weights whose active joints K6 blends over (None:
+        every joint)."""
         pm = np.asarray(pm, np.float32)
         if not np.all((pm == 0) | (pm == 1)) or np.any(pm.sum(axis=0) > 1):
             raise ValueError('part membership must be one-hot 0/1 over vertices')
@@ -1141,13 +1216,14 @@ class PartIndex:
                 verts.extend(vs[s:s + _SEG])
                 seg_offset.append(len(verts))
             part_seg.append(len(seg_offset) - 1)
-
-        def i32(x):
-            return torch.as_tensor(np.asarray(x, np.int32), device=device)
-
+        verts = np.asarray(verts, np.int64)
+        w = None if weights is None else np.asarray(weights)
+        joints, joint_offset, _ = _active_joints(w, verts, np.asarray(seg_offset), pm.shape[0])
         vpart = np.where(pm.any(axis=0), pm.argmax(axis=0), -1)
-        return cls(pm=torch.as_tensor(pm, device=device), verts=i32(verts),
-                   seg_offset=i32(seg_offset), part_seg=i32(part_seg), vpart=i32(vpart))
+        return cls(pm=torch.as_tensor(pm, device=device), verts=_i32(verts, device),
+                   seg_offset=_i32(seg_offset, device), part_seg=_i32(part_seg, device),
+                   vpart=_i32(vpart, device), joints=_i32(joints, device),
+                   joint_offset=_i32(joint_offset, device))
 
 
 def recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, pm, weights_pad,
@@ -1555,6 +1631,14 @@ def part_sums_bwd(graw, gst, gsa, t_vm, a_vm, parts: PartIndex, omega=None):
     return dt, da
 
 
+def _index_tensors(name: str, device, *tensors) -> None:
+    """Index operands (vertex and joint lists) must be contiguous int32 on
+    the kernel's device."""
+    for t in tensors:
+        if t.dtype != torch.int32 or t.device != device or not t.is_contiguous():
+            raise ValueError(f'{name}: index lists must be contiguous int32 on {device}')
+
+
 def _vpart(name: str, parts: PartIndex, Vp: int, device) -> torch.Tensor:
     """The part index's per-vertex parts, checked for a backward kernel."""
     vp = parts.vpart
@@ -1629,12 +1713,13 @@ def _recon_lbs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, part
     Vp = weights_pad.shape[0]
     v_t = tgt_vm.shape[1]
     om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
+    _index_tensors(name, tgt_vm.device, parts.joints, parts.joint_offset)
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
     err = _build.library().recon_lbs_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
-        om_ptr, _ptr(parts.verts), _ptr(parts.seg_offset), _ptr(parts.part_seg), _ptr(raw),
-        _ptr(s_t), _ptr(s_a), _ptr(part), J, B, F, v_t, Vp, parts.n_seg, om_rows, om_rs, om_bs,
-        _stream(raw))
+        om_ptr, _ptr(parts.verts), _ptr(parts.seg_offset), _ptr(parts.joints),
+        _ptr(parts.joint_offset), _ptr(parts.part_seg), _ptr(raw), _ptr(s_t), _ptr(s_a),
+        _ptr(part), J, B, F, v_t, Vp, parts.n_seg, om_rows, om_rs, om_bs, _stream(raw))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return raw, s_t, s_a
@@ -1732,8 +1817,9 @@ _WGRAM_VCHUNK = 1024  # vertices per step of the plain twin (bounds its memory)
 
 
 def wgram_moments_ref(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_vm,
-                      mu_s=None, scale_mode: int = 0):
-    """Plain twin of :func:`wgram_moments`, in steps of vertices."""
+                      mu_s=None, scale_mode: int = 0, cover=None):
+    """Plain twin of :func:`wgram_moments`, in steps of vertices: the
+    dense blend over every joint (``cover`` only serves the kernel)."""
     V, B = omega_vm.shape
     E = sd_cm.shape[2]
     E1 = E + (1 if scale_mode else 0)
@@ -1770,7 +1856,7 @@ def wgram_moments_ref(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm,
 
 
 def wgram_moments(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_vm,
-                  mu_s=None, scale_mode: int = 0):
+                  mu_s=None, scale_mode: int = 0, cover: BlendSegments | None = None):
     """The shape solve's normal equations under per-call fit weights ω.
 
     For each vertex v < V (the rows of ``omega_vm`` (V, B)) and column b: the
@@ -1782,7 +1868,13 @@ def wgram_moments(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, ome
     (3E, B)); ``scale_mode`` 1 (scale_target) or 2 (scale_fit) appends the
     column -tgt or pos minus ``mu_s`` (3, B). Returns G (E1^2, B) = sum ω
     jac^T jac, SA (3E1, B) = sum ω jac, r (E1, B) = sum ω jac^T b, Sb (3, B) =
-    sum ω b and W (1, B) = sum ω, E1 = E (+1 with the scale column)."""
+    sum ω b and W (1, B) = sum ω, E1 = E (+1 with the scale column); E <= 32.
+    ω >= 0: the kernel weights each row by sqrt(ω), as the TPU kernel does.
+
+    ``cover`` (:func:`wgram_cover` of ``weights_pad``, as the fitter's
+    GramData holds it) is the segment cover the kernel walks, blending over
+    each segment's active joints; None builds it from ``weights_pad`` on the
+    host (a copy from the card at every call)."""
     name = 'wgram'
     tensors = dict(tgt_vm=tgt_vm, pj_cm=pj_cm, homog_vm=homog_vm, t4_cm=t4_cm,
                    weights_pad=weights_pad, sd_cm=sd_cm, mu_cm=mu_cm, omega_vm=omega_vm)
@@ -1814,14 +1906,21 @@ def wgram_moments(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, ome
     args = (tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_vm, mu_s)
     if _twin_for_constant_grads(name, cuda, weights_pad, sd_cm):
         return wgram_moments_ref(*args, scale_mode)
-    return _wgram_vjp(*args, scale_mode=scale_mode)  # no backward kernel: torch ops
+    if cuda:
+        if cover is None:
+            cover = wgram_cover(weights_pad.detach().cpu().numpy(), V, tgt_vm.device)
+        if cover.covers < V:
+            raise ValueError(f'{name}: the cover holds vertices < {cover.covers}, not all < {V}')
+        _index_tensors(name, tgt_vm.device, cover.verts, cover.seg_offset, cover.joints,
+                       cover.joint_offset)
+    return _wgram_vjp(*args, scale_mode=scale_mode, cover=cover)  # no backward kernel: torch ops
 
 
-def _wgram_vjp(*args, scale_mode: int):
+def _wgram_vjp(*args, scale_mode: int, cover=None):
     """K9 as a _ChunkedVjp: every operand but the skinning weights and the
     shape directions differentiates."""
     def run(*ops):
-        return _wgram_run(*ops, scale_mode)
+        return _wgram_run(*ops, scale_mode, cover)
 
     def chunk(*ops):
         return wgram_moments_ref(*ops, scale_mode)
@@ -1832,7 +1931,7 @@ def _wgram_vjp(*args, scale_mode: int):
 
 
 def _wgram_run(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_vm, mu_s,
-               scale_mode):
+               scale_mode, cover=None):
     """Checked K9: its kernel on CUDA tensors, its twin on CPU ones."""
     if not tgt_vm.is_cuda:
         return wgram_moments_ref(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm,
@@ -1845,9 +1944,9 @@ def _wgram_run(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_
     lib = _build.library()
     E1 = E + (1 if scale_mode else 0)
     dev = tgt_vm.device
-    tiles_per_block, n_splits = _wgram_splits(V, B, dev)
-    n_out = E1 * (E1 + 1) // 2 + 4 * E1 + 4
-    part = torch.empty((n_splits, n_out, B), dtype=torch.float32, device=dev)
+    plan = wgram_plan(J, E, scale_mode, cover.max_joints, cover.n_seg, B,
+                      torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty((plan.n_splits, plan.part_floats, B), dtype=torch.float32, device=dev)
     G = torch.empty((E1 * E1, B), dtype=torch.float32, device=dev)
     SA = torch.empty((3 * E1, B), dtype=torch.float32, device=dev)
     r = torch.empty((E1, B), dtype=torch.float32, device=dev)
@@ -1855,28 +1954,83 @@ def _wgram_run(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, omega_
     W = torch.empty((1, B), dtype=torch.float32, device=dev)
     err = lib.wgram_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(homog_vm), _ptr(t4_cm), _ptr(weights_pad), _ptr(sd_cm),
-        _ptr(mu_cm), _ptr(omega_vm), None if mu_s is None else _ptr(mu_s), _ptr(part), _ptr(G),
-        _ptr(SA), _ptr(r), _ptr(Sb), _ptr(W), J, E, B, V, Vp, scale_mode, tiles_per_block,
-        _stream(G))
+        _ptr(mu_cm), _ptr(omega_vm), None if mu_s is None else _ptr(mu_s), _ptr(cover.verts),
+        _ptr(cover.seg_offset), _ptr(cover.joints), _ptr(cover.joint_offset), _ptr(part),
+        _ptr(G), _ptr(SA), _ptr(r), _ptr(Sb), _ptr(W), J, E, B, V, Vp, scale_mode, cover.n_seg,
+        plan.n_splits, cover.max_joints, plan.columns, plan.tasks_per_lane, plan.row_groups,
+        plan.part_floats, _stream(G))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return G, SA, r, Sb, W
 
 
-_WGRAM_MAXE = 17  # csrc/wgram.cu's largest instance
-_WGRAM_TB = 8  # batch columns per block of csrc/wgram.cu
-_WGRAM_TV = 32  # vertices per pass of csrc/wgram.cu
+_WGRAM_MAXE = 32  # csrc/wgram.cu's largest instance
+_WGRAM_ROWS = 3 * _WGRAM_SEG  # rows (vertex, axis) of a segment
+_WGRAM_SMEM = 227 * 1024  # shared memory a block may use
+_WGRAM_GROUPS = (1, 2, 3, 4, 6, 8)  # row groups: divisors of the 96 rows
 
 
-def _wgram_splits(V: int, B: int, device) -> tuple[int, int]:
-    """(vertex passes per block, number of vertex splits) of K9: enough
-    splits that the grid holds about two blocks per SM (one fits at a time)."""
-    n_tiles = -(-V // _WGRAM_TV)
-    grid_x = -(-B // _WGRAM_TB)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_tiles, math.ceil(2 * sms / grid_x)))
-    tiles_per_block = -(-n_tiles // want)
-    return tiles_per_block, -(-n_tiles // tiles_per_block)
+@dataclass(frozen=True)
+class WgramPlan:
+    """K9's launch on one call's shapes (csrc/wgram.cu checks it): the
+    augmented Gram's entries padded to ``padded`` (a multiple of 4) and its
+    upper-triangle 4 x 4 ``blocks``; ``columns`` batch columns per block
+    (a warp each: 8, fewer where every joint's entries would not fit shared
+    memory); per column ``row_groups`` x ``blocks`` tasks over its 32 lanes,
+    ``tasks_per_lane`` each; ``n_splits`` of the cover's segments; scratch
+    of ``part_floats`` floats per split and column; ``smem_bytes`` per block."""
+
+    padded: int
+    blocks: int
+    columns: int
+    tasks_per_lane: int
+    row_groups: int
+    n_splits: int
+    part_floats: int
+    smem_bytes: int
+
+
+def _wgram_smem(J: int, E: int, scale: bool, columns: int, max_joints: int, cap: int) -> int:
+    """Shared-memory bytes of a K9 block (csrc/wgram.cu: dims_of, smem_floats)."""
+    E1 = E + int(scale)
+    NP = -(-(E1 + 4) // 4) * 4
+    RS = NP if NP % 8 == 4 else NP + 4
+    EA = -(-E // 4) * 4
+    AS, MS = 4 + EA, EA + 4
+    SDS = 3 * EA if 3 * EA % 8 == 4 else 3 * EA + 4
+    A = max(1, max_joints)
+    floats = (columns * J * 3 * AS + columns * 3 * MS + columns * _WGRAM_ROWS * RS
+              + 2 * _WGRAM_SEG * SDS + 2 * 7 * _WGRAM_SEG * (columns + 4) + 2 * A * _WGRAM_SEG
+              + 3 * _WGRAM_SEG + 3 * A + 2 * (cap + 1))
+    return 4 * floats
+
+
+def wgram_plan(J: int, E: int, scale_mode: int, max_joints: int, n_seg: int, B: int,
+               sms: int) -> WgramPlan:
+    """The launch plan of K9 (:class:`WgramPlan`): the most batch columns per
+    block whose shared memory fits, the task split that keeps the most lanes
+    busy (one task per lane on a tie), and enough splits of the segments
+    that the grid holds about two blocks per SM."""
+    if not 1 <= E <= _WGRAM_MAXE:
+        raise ValueError(f'wgram: the kernel takes 1 <= E <= {_WGRAM_MAXE}, got {E}')
+    scale = bool(scale_mode)
+    NP = -(-(E + int(scale) + 4) // 4) * 4
+    blocks = (NP // 4) * (NP // 4 + 1) // 2
+    columns = next((c for c in (8, 4, 2)
+                    if _wgram_smem(J, E, scale, c, max_joints, n_seg) <= _WGRAM_SMEM), None)
+    if columns is None:
+        raise ValueError(f'wgram: J = {J} joints at E = {E} do not fit a block\'s shared memory')
+    best = None
+    for mt in (1, 2):
+        for kg in _WGRAM_GROUPS:
+            if kg * blocks <= 32 * mt and (best is None or kg * blocks / (32 * mt) > best[0] + 1e-9):
+                best = (kg * blocks / (32 * mt), mt, kg)
+    grid_x = -(-B // columns)
+    n_splits = max(1, min(n_seg, math.ceil(2 * sms / grid_x)))
+    cap = -(-n_seg // n_splits)
+    return WgramPlan(padded=NP, blocks=blocks, columns=columns, tasks_per_lane=best[1],
+                     row_groups=best[2], n_splits=n_splits, part_floats=16 * blocks,
+                     smem_bytes=_wgram_smem(J, E, scale, columns, max_joints, cap))
 
 
 # wrapper -> its plain twin

@@ -157,8 +157,10 @@ def _to_np(x):
 
 
 def _jax_call(name, args, kwargs):
+    """The JAX kernel on a port call's operands; K9's segment cover serves
+    only the port's kernel."""
     args = [_to_np(a) for a in args]
-    kwargs = {k: _to_np(v) for k, v in kwargs.items()}
+    kwargs = {k: _to_np(v) for k, v in kwargs.items() if k != 'cover'}
     fn = getattr(jax_k, name)
     return fn(*args, **kwargs, interpret=True)
 
