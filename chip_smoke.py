@@ -21,13 +21,18 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     nonzero skinning weights; the kernels that have such a call (K7 and K8,
     the GEMMs of csrc/sgemm_tile.cuh) and the kernels that blend over each
     segment's active joints (K9, K6 in its three forms) also repeat bit for
-    bit on the same operands, and a line gives K7's and K8's TFLOP/s beside
-    the call's; K9 in scale modes 1 and 2, K6's ω forms where no path
-    reached them, and on SMPL-X K9 and K6 with dense skinning weights (every
-    joint on every vertex) and K9 at E = 32, each held and timed the same
-    way (hold_blend_variants), and K6 beside the same function from K7 and
-    K4's cached form; and times each torch-op backward pass
-    (TORCH_VJP_FORMS) at B=4096 on a captured call of its forward form;
+    bit on the same operands, as do K1 and every form of K2, and a line
+    gives K7's and K8's TFLOP/s beside the call's; K9 in scale modes 1 and
+    2, K6's ω forms where no path reached them, on SMPL-X K9, K6, K1 and K2's
+    cached forms with dense skinning weights (every joint on every vertex)
+    and K9 and K2's cached forms at E = 32, on SMPL K2's emit form with
+    dense weights, each held and timed the same way (hold_blend_variants),
+    K6 beside the same function from K7 and K4's cached form, and K1 beside
+    K7 on K1's own (feat, consts); and times each torch-op backward pass
+    (TORCH_VJP_FORMS) at B=4096 on a captured call of its forward form.
+    Every phase that drives a fitting path or the forward pass also fails
+    if a wrapper built a vertex cover on the host (check_host_covers): K1,
+    K2 and K9 walk the covers their models hold;
  4. makes 8 distinct SMPL target sets with ``BodyModel`` at B=4096;
  5. fits them with ``BodyFitter.fit`` (the benchmark configuration: num_iter=3,
     beta_regularizer=1, final rotation adjustment), checks that every kernel of
@@ -578,8 +583,12 @@ def twin_call(lbs_kernels, key, args, kwargs):
 
 
 # Besides the kernels with a library call (K7, K8), the kernels redesigned
-# for Hopper (K9, K6) also repeat bit for bit on the same operands.
-REPEAT_KEYS = ('wgram', 'recon_part_sums', 'recon_part_sums_w')
+# for Hopper (K9, K6, K1 and every form of K2) also repeat bit for bit on the
+# same operands.
+K2_KEYS = ('rhs_moments_h', 'rhs_moments', 'rhs_moments_scale', 'rhs_moments_cached',
+           'rhs_moments_cached_scale')
+REPEAT_KEYS = ('wgram', 'recon_part_sums', 'recon_part_sums_w', 'lbs_points', *K2_KEYS,
+               *(key + '_w' for key in K2_KEYS))
 
 
 def library_call(torch, key):
@@ -771,6 +780,14 @@ def bound(key, args, kwargs=None) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, 'operations' if t_ops >= t_bytes else 'bytes'
 
 
+def check_host_covers(lbs_kernels, what: str) -> None:
+    """No wrapper call since the counts were last reset built a vertex cover
+    on the host: every call of the fitting paths passes its model's."""
+    built = {k: n for k, n in lbs_kernels.HOST_COVERS.items() if n}
+    if built:
+        raise AssertionError(f'{what}: covers built on the host for {built}')
+
+
 def check_launches(launches: dict, expected_per_fit: dict, n_fits: int, what: str) -> None:
     """Every kernel's launch count must be its expected count per fit times n_fits."""
     for key, n in launches.items():
@@ -814,6 +831,7 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
         kid = torch.as_tensor(kid_factors(kid_rng, batch), device=dev)
         lbs_kernels.reset_launch_counts()
         calls = record_calls(lbs_kernels, WRAPPERS, make_run(params, kid), kernel_key)
+        check_host_covers(lbs_kernels, f'{label} at B={batch}')
         captured = {key for key, arg_sets in calls.items() if arg_sets}
         if captured != CAPTURED[model]:
             raise AssertionError(f'{label} at B={batch}: the paths reached {sorted(captured)}, '
@@ -946,9 +964,11 @@ def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model)
     the first captured call, centred as the fitter centres them) and K6's ω
     forms where no path captured them (k6_forms); on SMPL-X also dense
     skinning weights for K9 (modes 0-2) and K6 (its three forms), and K9 at
-    E = 32 with the scale column; and at B=4096 K6's yardstick: the same
-    function from the port's own kernels, K7 into a (3, V_pad, B) workspace
-    and K4's cached form, held to K6's twin and timed beside K6."""
+    E = 32 with the scale column, and K1 and K2 (cover_variants); and at
+    B=4096 K6's yardstick: the same function from the port's own kernels, K7
+    into a (3, V_pad, B) workspace and K4's cached form, held to K6's twin and
+    timed beside K6, and K1 beside K7 on K1's own (feat, consts), a
+    yardstick for its template dot."""
     dev = calls['wgram'][0][0][0].device
     sets = {}
     args9, kw9 = calls['wgram'][0]
@@ -979,6 +999,7 @@ def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model)
             parts = lbs_kernels.PartIndex.from_membership(a[5].pm.cpu().numpy(), dev,
                                                           weights=wd.cpu().numpy())
             sets[f'recon_part_sums dense{form}'] = (key, a[:3] + (wd, a[4], parts), k)
+    sets.update(cover_variants(torch, lbs_kernels, calls, model))
     for name, (key, args, kw) in sets.items():
         hold_to_twin(torch, lbs_kernels, f'{label} {name}', key, [(args, kw)], batch,
                      results.setdefault(name, {}))
@@ -1009,6 +1030,43 @@ def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model)
     results['yardstick'] = dict(ms=ms, k6_ms=k6_ms)
     log(f'{label:6s} recon_part_sums (K6) {k6_ms:.3f} ms against K7 + K4 (posed template, then '
         f'the cached part sums) {ms:.3f} ms on the same operands, B={batch}')
+    # K1's yardstick for its template dot: K7 on K1's own (feat, consts).
+    k1_args, k1_kw = max(calls['lbs_points'], key=lambda c: c[0][1].shape[0])  # the widest F
+    feat, consts = k1_args[1], k1_args[3]
+    with torch.no_grad():
+        k1_ms = time_ms(torch, lambda: kernel_call(lbs_kernels, 'lbs_points', k1_args, k1_kw),
+                        [()] * 5)
+        k7_ms = time_ms(torch, lambda: lbs_kernels.posed_template_lm(feat, consts), [()] * 5)
+    results['k1_yardstick'] = dict(ms=k1_ms, k7_ms=k7_ms)
+    log(f'{label:6s} lbs_points (K1) {k1_ms:.3f} ms against K7 (the template dot alone) '
+        f'{k7_ms:.3f} ms on its (feat, consts), F={feat.shape[0]}, B={batch}')
+
+
+def cover_variants(torch, lbs_kernels, calls, model) -> dict:
+    """K1 and K2 beyond the fitting paths' own calls: on SMPL-X K1 and K2's
+    cached forms (plain and scale) with dense skinning weights and their
+    cover, and K2's cached forms at E = 32 (the shape directions widened);
+    on SMPL K2's emit form with dense weights. name -> (key, args, kwargs)."""
+    sets = {}
+    dev = calls['lbs_points'][0][0][0].device
+
+    def dense(args, kw, w_at):
+        V = kw['cover'].covers
+        wd = dense_weights(torch, args[w_at], V)
+        cover = lbs_kernels.wgram_cover(wd.cpu().numpy(), V, dev)
+        return args[:w_at] + (wd,) + args[w_at + 1:], dict(kw, cover=cover)
+
+    if model == 'smplx':
+        a, k = max(calls['lbs_points'], key=lambda c: c[0][1].shape[0])  # widest F: 504
+        sets['lbs_points dense'] = ('lbs_points',) + dense(a, k, 2)
+        for key in ('rhs_moments_cached', 'rhs_moments_cached_scale'):
+            a, k = next((a, k) for a, k in calls[key] if a[4].shape[2] == 16)
+            sets[f'{key} dense'] = (key,) + dense(a, k, 3)
+            sets[f'{key} E=32'] = (key, a[:4] + (widen(torch, a[4], 16, 2),), k)
+    else:
+        a, k = calls['rhs_moments_h'][0]
+        sets['rhs_moments_h dense'] = ('rhs_moments_h',) + dense(a, k, 3)
+    return sets
 
 
 # The torch-op backward passes, each timed in phase 3 at B=4096 on a captured
@@ -1208,6 +1266,7 @@ def time_path(torch, lbs_kernels, run, fitter, fitter_kid, targets, inputs, kids
             for (tv, tj), p, k in zip(targets, inputs, kids)]
     end.record()
     torch.cuda.synchronize()
+    check_host_covers(lbs_kernels, 'a fitting path')
     return fits, dict(lbs_kernels.LAUNCHES), start.elapsed_time(end), time.perf_counter() - t0
 
 
@@ -1357,6 +1416,7 @@ def main() -> int:
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
     fwd_launches = lbs_kernels.LAUNCHES['lbs_points']
+    check_host_covers(lbs_kernels, 'phase 4')
     if fwd_launches < 1:
         raise AssertionError('the forward pass did not launch lbs_points')
     log(f'forward: {N_TARGETS} x B={BATCH} in {fwd_s * 1e3:.1f} ms, lbs_points launches '
@@ -1454,6 +1514,7 @@ def main() -> int:
     end.record()
     torch.cuda.synchronize()
     check_launches(dict(lbs_kernels.LAUNCHES), dict(lbs_points=1), n_fits, 'smplx forward')
+    check_host_covers(lbs_kernels, 'smplx forward')
     total_launches['lbs_points'] += lbs_kernels.LAUNCHES['lbs_points']
     log(f'smplx forward: {start.elapsed_time(end) / N_TARGETS:.3f} ms per B={BATCH} call '
         f'(CUDA events), lbs_points launches {lbs_kernels.LAUNCHES["lbs_points"]} on {smi}')
@@ -1638,6 +1699,7 @@ def main() -> int:
                                f'phase 14 {name}')
                 check_launches(dict(lbs_kernels.TORCH_VJPS), vjps, N_GRAD_TARGETS,
                                f'phase 14 {name} (torch-op backward passes)')
+                check_host_covers(lbs_kernels, f'phase 14 {name}')
                 for key in total_launches:
                     total_launches[key] += lbs_kernels.LAUNCHES[key]
                 for value, grads in outs:
@@ -1672,6 +1734,7 @@ def main() -> int:
                    N_GRAD_TARGETS, 'phase 14 forward gradient')
     check_launches(dict(lbs_kernels.TORCH_VJPS), {}, N_GRAD_TARGETS,
                    'phase 14 forward gradient (torch-op backward passes)')
+    check_host_covers(lbs_kernels, 'phase 14 forward gradient')
     for key in total_launches:
         total_launches[key] += lbs_kernels.LAUNCHES[key]
     log(f'smpl forward gradient: {start.elapsed_time(end) / N_GRAD_TARGETS:.2f} ms per B={BATCH}'

@@ -6,78 +6,118 @@
 // template homog_c = consts_c . feat (c = 0..2; the 4th channel is 1).
 //
 // What bounds it on an H100: f32 arithmetic. Per (vertex, batch column) it
-// does 3F FMAs of homog dot plus 12J of blend, against 12 bytes written:
-// at SMPL b4096 (F = 219, J = 24) about 7168 * 4096 * 945 * 2 = 55 GFLOP
-// against ~0.4 GB of traffic, so the 67 TFLOP/s f32 rate is the roof.
+// does 3F FMAs of the template dot and 12 per joint that skins the vertex of
+// the blend, against 12 bytes written: at SMPL-X b4096 (F = 503 for the
+// fitted mesh, 3 joints per vertex) about 10496 * 4096 * 1545 * 2 = 133 GFLOP
+// against 0.52 GB of stores, so the 67 TFLOP/s f32 rate is the roof (2.0 ms;
+// the store alone 0.15 ms). Left now: f32 issue of the dot and the copies
+// sharing the load/store pipe with it.
 //
-// Design: each block loads its batch tile's per-joint [R|t] entries (12 x J x
-// 64 floats) into shared memory once, then walks several 64-vertex tiles. Per
-// tile the homog dot runs as a shared-memory-tiled GEMM with a 4 x 4 register
-// micro-tile per thread, and the blend is folded into the application (the
-// joint sum outermost), so no blended transform is ever stored. The vertex edge
-// is masked by global row index and the batch edge by column index, so any
-// V_pad and any B work.
-#include "lbs_tile.cuh"
-
-using namespace lbs;
+// Design: the vertices are walked through a cover (BlendSegments in
+// ops/lbs_kernels.py: segments of at most 32 vertices of one body part, each
+// with its active joints; every vertex below `covers` once). A block owns (a
+// run of segments, 128 batch columns); each segment is one 32-row tile of
+// template_tile.cuh: the template dot as a 4 x 4 x 3 register-tiled GEMM fed
+// by a 4-stage cp.async ring across tile boundaries, then the blend over the
+// segment's active joints only, [R|t] and weights read through L1. No
+// per-joint staging: shared memory holds the ring and the run's vertex lists
+// (61 KB), so two blocks share an SM (128 registers a thread). Each thread
+// stores its 4 vertices x 3 channels as float4 along the batch. Rows from
+// `covers` to V_pad (zero skinning weights: zero points) are cleared with one
+// 2D memset.
+#include "template_tile.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(NT)
+using tmpl::NT;
+using tmpl::TB;
+using tmpl::TV;
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT, 2)
 lbs_points_kernel(const float* __restrict__ pj, const float* __restrict__ feat,
                   const float* __restrict__ w, const float* __restrict__ consts,
-                  float* __restrict__ out, int J, int B, int F, int Vp,
-                  int tiles_per_block) {
-  extern __shared__ float smem[];
-  float* pj_s = smem;                  // [12][J][TB]
-  float* w_s = pj_s + 12 * J * TB;     // [J][TVP]
-  float* stage = w_s + J * TVP;        // staging_floats()
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+                  const int* __restrict__ verts, const int* __restrict__ seg_offset,
+                  const int* __restrict__ joints, const int* __restrict__ joint_offset,
+                  float* __restrict__ out, int J, int B, int F, int Vp, int n_seg,
+                  int segs_per_block) {
+  extern __shared__ float4 smem4[];
+  float* const ring = reinterpret_cast<float*>(smem4);
+  int* const rows_s = reinterpret_cast<int*>(ring + tmpl::RING_FLOATS);  // [run][TV]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tm = 4 * (warp / 4) + lane / 8;  // vertex group: tile rows 4 tm .. 4 tm + 3
+  const int tn = 8 * (warp % 4) + lane % 8;  // column group: 4 tn .. 4 tn + 3
   const int b0 = blockIdx.x * TB;
+  const int bc = b0 + 4 * tn;
+  const int s0 = blockIdx.y * segs_per_block;
+  const int n_tiles = min(segs_per_block, n_seg - s0);
 
-  load_pj_tile(pj_s, pj, J, B, b0);
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int v0 = (blockIdx.y * tiles_per_block + t) * TV;
-    if (v0 >= Vp) break;  // uniform across the block
-    __syncthreads();      // the previous tile is done reading w_s
-    const TileRows rows{v0, Vp};
-    load_w_tile(w_s, w, J, rows);
-    float h[3][4][4];
-    homog_tile(h, feat, consts, F, B, Vp, rows, b0, stage);
+  for (int i = threadIdx.x; i < n_tiles * TV; i += NT) {
+    const int beg = seg_offset[s0 + i / TV], n = seg_offset[s0 + i / TV + 1] - beg;
+    rows_s[i] = i % TV < n ? verts[beg + i % TV] : -1;
+  }
+  __syncthreads();
+
+  const tmpl::Ring<VEC> rg(ring, rows_s, feat, consts, F, B, Vp, b0);
+  tmpl::walk_tiles(rg, n_tiles, tm, tn, [&](int tile, const float (&h)[3][4][4]) {
+    const int seg = s0 + tile;
+    const int j0 = joint_offset[seg], nA = joint_offset[seg + 1] - j0;
+    int vid[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) vid[i] = rows_s[tile * TV + 4 * tm + i];
     float pos[3][4][4];
-    pos_tile(pos, h, pj_s, w_s, J);
+    tmpl::blend_pos<VEC>(pos, h, pj, w, joints + j0, nA, J, B, bc, vid);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int v = v0 + ty + 16 * i;
-      if (v >= Vp) continue;
+      if (vid[i] < 0) continue;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int b = b0 + tx + 16 * k;
-        if (b >= B) continue;
-#pragma unroll
-        for (int a = 0; a < 3; ++a) out[((size_t)a * Vp + v) * B + b] = pos[a][i][k];
-      }
+      for (int a = 0; a < 3; ++a)
+        tmpl::store4<VEC>(out + ((size_t)a * Vp + vid[i]) * B + bc, pos[a][i], bc, B);
     }
-  }
+  });
+}
+
+template <bool VEC>
+cudaError_t launch(const float* pj, const float* feat, const float* w, const float* consts,
+                   const int* verts, const int* seg_offset, const int* joints,
+                   const int* joint_offset, float* out, int J, int B, int F, int Vp, int n_seg,
+                   int segs_per_block, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * tmpl::RING_FLOATS + sizeof(int) * segs_per_block * TV;
+  cudaError_t err = cudaFuncSetAttribute(
+      lbs_points_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((B + TB - 1) / TB, (n_seg + segs_per_block - 1) / segs_per_block);
+  lbs_points_kernel<VEC><<<grid, NT, smem, stream>>>(pj, feat, w, consts, verts, seg_offset,
+                                                     joints, joint_offset, out, J, B, F, Vp,
+                                                     n_seg, segs_per_block);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-SMPL_API size_t lbs_points_smem_bytes(int J) {
-  return sizeof(float) * (12 * J * TB + J * TVP + staging_floats());
-}
-
-// pj (12, J, B), feat (F, B), w (Vp, J), consts (>= 3, Vp, F) -> out (3, Vp, B).
+// pj (12, J, B), feat (F, B), w (Vp, J), consts (>= 3, Vp, F), the cover
+// (verts, seg_offset (n_seg + 1), joints, joint_offset (n_seg + 1); every
+// vertex below `covers` once, segments of at most 32) -> out (3, Vp, B),
+// rows from `covers` on zero. segs_per_block: segments per block.
 SMPL_API int lbs_points_launch(const float* pj, const float* feat, const float* w,
-                               const float* consts, float* out, int J, int B, int F,
-                               int Vp, int tiles_per_block, cudaStream_t stream) {
-  const size_t smem = lbs_points_smem_bytes(J);
-  cudaError_t err = cudaFuncSetAttribute(
-      lbs_points_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_vtiles = (Vp + TV - 1) / TV;
-  dim3 grid((B + TB - 1) / TB, (n_vtiles + tiles_per_block - 1) / tiles_per_block);
-  lbs_points_kernel<<<grid, NT, smem, stream>>>(pj, feat, w, consts, out, J, B, F, Vp,
-                                                tiles_per_block);
-  return (int)cudaGetLastError();
+                               const float* consts, const int* verts, const int* seg_offset,
+                               const int* joints, const int* joint_offset, float* out, int J,
+                               int B, int F, int Vp, int n_seg, int segs_per_block, int covers,
+                               cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (covers < Vp) {
+    err = cudaMemset2DAsync(out + (size_t)covers * B, sizeof(float) * (size_t)Vp * B, 0,
+                            sizeof(float) * (size_t)(Vp - covers) * B, 3, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (n_seg == 0 || B == 0) return (int)cudaSuccess;
+  const bool vec = B % 4 == 0 && sgemm::aligned16(feat) && sgemm::aligned16(pj) &&
+                   sgemm::aligned16(out);
+  if (vec)
+    err = launch<true>(pj, feat, w, consts, verts, seg_offset, joints, joint_offset, out, J, B,
+                       F, Vp, n_seg, segs_per_block, stream);
+  else
+    err = launch<false>(pj, feat, w, consts, verts, seg_offset, joints, joint_offset, out, J, B,
+                        F, Vp, n_seg, segs_per_block, stream);
+  return (int)err;
 }

@@ -1,15 +1,16 @@
-// Shared tile routines of the extended-LBS kernels (lbs_points.cu,
-// rhs_moments.cu, recon_lbs_part_sums.cu).
+// Shared tile routines of the backward LBS kernels (lbs_bwd.cuh and the
+// kernels on it: lbs_points_bwd.cu, rhs_bwd.cu, recon_bwd.cu,
+// recon_lbs_part_sums_bwd.cu). The forward kernels K1, K2 and K6 walk vertex
+// segments through template_tile.cuh instead.
 //
 // A block of 256 threads owns a tile of TV vertices x TB batch columns; each
 // thread owns a 4 x 4 micro-tile: tile rows ty + 16 i and batch columns
 // b0 + tx + 16 k (ty = tid / 16, tx = tid % 16). A tile's rows are TV
-// consecutive vertices (TileRows) or a list of vertices (ListRows; the
-// per-part kernel walks each body part's vertex list). A warp's 16 tx lanes read
-// and write 16 consecutive batch columns (batch is the contiguous axis of every
-// (C, V, B) operand). All arithmetic is f32 on the CUDA cores: the homog dot
-// (K = F) and the blend (K = J) are shared-memory-tiled register-blocked loops,
-// no tensor cores and no TF32.
+// consecutive vertices (TileRows). A warp's 16 tx lanes read and write 16
+// consecutive batch columns (batch is the contiguous axis of every (C, V, B)
+// operand). All arithmetic is f32 on the CUDA cores: the homog dot (K = F)
+// and the blend (K = J) are shared-memory-tiled register-blocked loops, no
+// tensor cores and no TF32.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,12 +45,6 @@ __device__ inline void load_pj_tile(float* pj_s, const float* __restrict__ pj,
 struct TileRows {
   int v0, Vp;
   __device__ int operator()(int vv) const { return v0 + vv < Vp ? v0 + vv : -1; }
-};
-
-// The vertex of tile row vv from a list of TV entries in shared memory (-1 for none).
-struct ListRows {
-  const int* rows;
-  __device__ int operator()(int vv) const { return rows[vv]; }
 };
 
 // w_s[j * TVP + vv] = w[rows(vv), j] (zero for a row with no vertex).

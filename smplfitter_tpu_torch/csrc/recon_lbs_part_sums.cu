@@ -19,58 +19,36 @@
 //
 // Design: a block owns (segment of one part's vertex list, 128 batch
 // columns) and walks the segment in tiles of 32 listed vertices.
-// - The template dot is a register-tiled GEMM (the pattern of
-//   sgemm_tile.cuh): each thread owns 4 vertices x 4 columns x 3 channels,
-//   and per feature reads three float4 of the consts stage (4 vertices, one
-//   per channel) and one of the feat stage (4 columns): 48 FMAs per 4 shared
-//   loads, broadcasts within a warp (4 x 8 threads). Features go 16 at a
-//   time through a 4-stage cp.async ring that runs on across tile
-//   boundaries, so the next tile's first stages load while this tile's
-//   blend and sums run. consts rows are gathered through the segment's vertex
-//   list, each element by a 4-byte copy to its k-major place (F is odd: no
-//   16-byte copy fits), a warp copying 8 features of 4 rows into 32 banks;
-//   feat by 16-byte copies where B % 4 == 0.
-// - The blend runs over the segment's active joints only (the joints with a
-//   nonzero weight on any of its vertices, listed by the host with the part
-//   index: PartIndex in ops/lbs_kernels.py); the terms left out are products
-//   with exact zeros. The joints' [R|t] entries and weights are read from
-//   global memory (L1) as they are used: a long list (dense weights) runs
-//   the same loop.
+// - The template dot and the blend are those of template_tile.cuh: a 4 x 4
+//   x 3 register tile per thread fed by a 4-stage cp.async ring that runs on
+//   across tile boundaries (48 FMAs per 4 shared loads), then a blend over
+//   the segment's active joints only (the joints with a nonzero weight on
+//   any of its vertices, listed by the host with the part index: PartIndex
+//   in ops/lbs_kernels.py), their [R|t] entries and weights read through L1.
 // - The 15 sums of each thread's 4 columns stay in registers over the
 //   segment; the block sums its 8 vertex groups in order into the segment's
 //   partial, which part_sum_kernel (part_segments.cuh) sums per part in
 //   segment order. No atomics: runs repeat bit for bit. A tile's rows past
 //   the segment gather nothing (zero fill) and carry zero weights.
 #include "part_segments.cuh"
-#include "sgemm_tile.cuh"
+#include "template_tile.cuh"
 
 namespace {
 
-constexpr int K6_NT = 256;
-constexpr int TV = 32;               // listed vertices per tile
-constexpr int TB = 128;              // batch columns per block
-constexpr int KT = 16;               // features per k tile
-constexpr int NSTG = 4;              // stages of the copy ring
-constexpr int LDA = TV + 4;          // row stride of the k-major consts stage
-constexpr int A_FLOATS = 3 * KT * LDA;  // [c][k][LDA]
-constexpr int B_FLOATS = KT * TB;       // [k][TB]
-constexpr int STG_FLOATS = A_FLOATS + B_FLOATS;
+using tmpl::NT;
+using tmpl::TB;
+using tmpl::TV;
+
 constexpr int SEG_MAX = 512;         // vertices per segment at most (PartIndex)
 constexpr int RED_FLOATS = NS * 8 * TB;  // [NS][vertex group][TB]
-constexpr int BODY_FLOATS = NSTG * STG_FLOATS;
-constexpr size_t SMEM_BYTES =
-    sizeof(float) * (BODY_FLOATS > RED_FLOATS ? BODY_FLOATS : RED_FLOATS) + sizeof(int) * SEG_MAX;
-
-// consts copies: a warp covers 8 features of 4 rows, the block 16 rows (of
-// the 3 TV rows (c, vertex)) per pass.
-constexpr int A_ROWS_PER_PASS = 16;
-constexpr int A_PASSES = 3 * TV / A_ROWS_PER_PASS;  // 6
-constexpr int B_PASSES = B_FLOATS / 4 / K6_NT;      // 2 float4 copies per thread
+constexpr int BODY_FLOATS =
+    tmpl::RING_FLOATS > RED_FLOATS ? tmpl::RING_FLOATS : RED_FLOATS;
+constexpr size_t SMEM_BYTES = sizeof(float) * BODY_FLOATS + sizeof(int) * SEG_MAX;
 
 // VEC: B % 4 == 0 and 16-byte aligned feat, pj, tgt (and per-call ω):
 // float4 copies and loads; else 4-byte ones.
 template <bool VEC, bool W>
-__global__ void __launch_bounds__(K6_NT, 1)
+__global__ void __launch_bounds__(NT, 1)
 recon_lbs_segments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
                           const float* __restrict__ feat, const float* __restrict__ w,
                           const float* __restrict__ consts, const float* __restrict__ om,
@@ -79,9 +57,8 @@ recon_lbs_segments_kernel(const float* __restrict__ tgt, const float* __restrict
                           float* __restrict__ part, int J, int B, int F, int Vt, int Vp,
                           int om_rows, int om_rs, int om_bs) {
   extern __shared__ float4 smem4[];
-  float* const ring = reinterpret_cast<float*>(smem4);  // [NSTG][A | B]
-  const int body = BODY_FLOATS > RED_FLOATS ? BODY_FLOATS : RED_FLOATS;
-  int* const rows_s = reinterpret_cast<int*>(ring + body);  // [SEG_MAX]
+  float* const ring = reinterpret_cast<float*>(smem4);  // the template ring, then the sums
+  int* const rows_s = reinterpret_cast<int*>(ring + BODY_FLOATS);  // [SEG_MAX]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tm = 4 * (warp / 4) + lane / 8;   // vertex group: tile rows 4 tm .. 4 tm + 3
   const int tn = 8 * (warp % 4) + lane % 8;   // column group: 4 tn .. 4 tn + 3
@@ -91,137 +68,25 @@ recon_lbs_segments_kernel(const float* __restrict__ tgt, const float* __restrict
   const int beg = seg_offset[seg_id];
   const int n = seg_offset[seg_id + 1] - beg;
   const int j0 = joint_offset[seg_id], nA = joint_offset[seg_id + 1] - j0;
-  const int n_tiles = (n + TV - 1) / TV, nk = (F + KT - 1) / KT;
+  const int n_tiles = (n + TV - 1) / TV;
 
-  for (int i = threadIdx.x; i < SEG_MAX; i += K6_NT) rows_s[i] = i < n ? verts[beg + i] : -1;
+  for (int i = threadIdx.x; i < SEG_MAX; i += NT) rows_s[i] = i < n ? verts[beg + i] : -1;
   __syncthreads();
-
-  // The thread's consts copies: feature ka of rows ra + 16 q (q < 6); feat
-  // copies: columns 4 cb .. 4 cb + 3 of features kb + 8 q (q < 2).
-  const int ka = 8 * (warp % 2) + lane % 8;
-  const int ra = 4 * (warp / 2) + lane / 8;
-  const int kb = threadIdx.x / (TB / 4), cb = threadIdx.x % (TB / 4);
-  const bool live_b = b0 + 4 * cb < B;
-
-  auto issue = [&](int step) {
-    const int tile = step / nk, f0 = (step % nk) * KT;
-    float* as = ring + (step % NSTG) * STG_FLOATS;
-    float* bs = as + A_FLOATS;
-    const bool live_k = f0 + ka < F;
-#pragma unroll
-    for (int q = 0; q < A_PASSES; ++q) {
-      const int row = ra + A_ROWS_PER_PASS * q;  // (c, vertex) = (row / TV, row % TV)
-      const int c = row / TV, vv = row % TV;
-      const int v = rows_s[tile * TV + vv];
-      const bool live = live_k && v >= 0;
-      sgemm::cp_async4(as + (c * KT + ka) * LDA + vv,
-                       live ? consts + ((size_t)c * Vp + v) * F + f0 + ka : consts, live);
-    }
-    if (VEC) {
-#pragma unroll
-      for (int q = 0; q < B_PASSES; ++q) {
-        const int k = kb + (K6_NT / (TB / 4)) * q;
-        const bool live = live_b && f0 + k < F;
-        sgemm::cp_async16(bs + k * TB + 4 * cb,
-                          live ? feat + (size_t)(f0 + k) * B + b0 + 4 * cb : feat, live);
-      }
-    } else {
-      for (int e = threadIdx.x; e < B_FLOATS; e += K6_NT) {
-        const int k = e / TB, bb = e % TB;
-        const bool live = f0 + k < F && b0 + bb < B;
-        sgemm::cp_async4(bs + e, live ? feat + (size_t)(f0 + k) * B + b0 + bb : feat, live);
-      }
-    }
-  };
 
   float acc[NS][4];
 #pragma unroll
   for (int r = 0; r < NS; ++r)
 #pragma unroll
     for (int k = 0; k < 4; ++k) acc[r][k] = 0.f;
-  float h[3][4][4];
-#pragma unroll
-  for (int c = 0; c < 3; ++c)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) h[c][i][k] = 0.f;
 
-  const int n_steps = n_tiles * nk;
-#pragma unroll
-  for (int st = 0; st < NSTG - 1; ++st) {
-    if (st < n_steps) issue(st);
-    sgemm::cp_async_commit();
-  }
-  for (int step = 0; step < n_steps; ++step) {
-    // Step `step` has landed; step - 1 is consumed, so its slot takes step + NSTG - 1.
-    sgemm::cp_async_wait<NSTG - 2>();
-    __syncthreads();
-    if (step + NSTG - 1 < n_steps) issue(step + NSTG - 1);
-    sgemm::cp_async_commit();
-    const float* as = ring + (step % NSTG) * STG_FLOATS;
-    const float* bs = as + A_FLOATS;
-#pragma unroll 4
-    for (int k = 0; k < KT; ++k) {
-      const float4 fb = *reinterpret_cast<const float4*>(bs + k * TB + 4 * tn);
-      const float fv[4] = {fb.x, fb.y, fb.z, fb.w};
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float4 cv4 = *reinterpret_cast<const float4*>(as + (c * KT + k) * LDA + 4 * tm);
-        const float cv[4] = {cv4.x, cv4.y, cv4.z, cv4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk) h[c][i][kk] = fmaf(cv[i], fv[kk], h[c][i][kk]);
-      }
-    }
-    if ((step + 1) % nk != 0) continue;
-
+  const tmpl::Ring<VEC> rg(ring, rows_s, feat, consts, F, B, Vp, b0);
+  tmpl::walk_tiles(rg, n_tiles, tm, tn, [&](int tile, const float (&h)[3][4][4]) {
     // The tile's template is complete: blend over the active joints, then sums.
-    const int tile = step / nk;
     int vid[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) vid[i] = rows_s[tile * TV + 4 * tm + i];
     float pos[3][4][4];
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) pos[a][i][k] = 0.f;
-    for (int jj = 0; jj < nA; ++jj) {
-      const int j = joints[j0 + jj];
-      float wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wv[i] = vid[i] >= 0 ? __ldg(w + (size_t)vid[i] * J + j) : 0.f;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float p[4][4];  // [c][column]: entries a*4 + c of the 4 columns
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float* src = pj + ((size_t)(a * 4 + c) * J + j) * B + bc;
-          if (VEC) {
-            const float4 v4 = bc < B ? __ldg(reinterpret_cast<const float4*>(src))
-                                     : make_float4(0.f, 0.f, 0.f, 0.f);
-            p[c][0] = v4.x;
-            p[c][1] = v4.y;
-            p[c][2] = v4.z;
-            p[c][3] = v4.w;
-          } else {
-#pragma unroll
-            for (int k = 0; k < 4; ++k) p[c][k] = bc + k < B ? __ldg(src + k) : 0.f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const float t = fmaf(p[0][k], h[0][i][k],
-                            fmaf(p[1][k], h[1][i][k], fmaf(p[2][k], h[2][i][k], p[3][k])));
-            pos[a][i][k] = fmaf(wv[i], t, pos[a][i][k]);
-          }
-      }
-    }
+    tmpl::blend_pos<VEC>(pos, h, pj, w, joints + j0, nA, J, B, bc, vid);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int v = vid[i];
@@ -261,16 +126,9 @@ recon_lbs_segments_kernel(const float* __restrict__ tgt, const float* __restrict
         }
       }
     }
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) h[c][i][k] = 0.f;
-  }
+  });
 
   // Sum the 8 vertex groups (tm) of each column in order; the ring is free.
-  sgemm::cp_async_wait<0>();
   __syncthreads();
   float* red = ring;  // [NS][8][TB]
 #pragma unroll
@@ -278,7 +136,7 @@ recon_lbs_segments_kernel(const float* __restrict__ tgt, const float* __restrict
 #pragma unroll
     for (int k = 0; k < 4; ++k) red[(r * 8 + tm) * TB + 4 * tn + k] = acc[r][k];
   __syncthreads();
-  for (int idx = threadIdx.x; idx < NS * TB; idx += K6_NT) {
+  for (int idx = threadIdx.x; idx < NS * TB; idx += NT) {
     const int r = idx / TB, c = idx % TB;
     float s = 0.f;
     for (int g = 0; g < 8; ++g) s += red[(r * 8 + g) * TB + c];
@@ -297,7 +155,7 @@ cudaError_t launch_segments(const float* tgt, const float* pj, const float* feat
                                          (int)SMEM_BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid((B + TB - 1) / TB, n_seg);
-  recon_lbs_segments_kernel<VEC, W><<<grid, K6_NT, SMEM_BYTES, stream>>>(
+  recon_lbs_segments_kernel<VEC, W><<<grid, NT, SMEM_BYTES, stream>>>(
       tgt, pj, feat, w, consts, om, verts, seg_offset, joints, joint_offset, part, J, B, F, Vt,
       Vp, om_rows, om_rs, om_bs);
   return cudaGetLastError();

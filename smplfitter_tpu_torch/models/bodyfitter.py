@@ -379,9 +379,9 @@ def fit_global_rotations_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, reference_vm, r
 
 
 def _spec_points(spec):
-    """The mesh (3, V_pad, B) of a reconstruction spec, by K1."""
+    """The mesh (3, V_pad, B) of a reconstruction spec, by K1 on its cover."""
     return lbs_kernels.lbs_points(spec['pj_cm'], spec['feat_cols'], spec['weights_pad'],
-                                  spec['consts_pad'])
+                                  spec['consts_pad'], cover=spec['cover'])
 
 
 def fit_rotations_to_spec_lm(bm, plan: FitterPlan, tgt_vm, tj_lm, spec, rj_lm, jw_lm=None,

@@ -155,8 +155,12 @@ class BodyModel(nn.Module):
         kid4 = np.concatenate([np.asarray(data.kid_shapedir), np.zeros((V, 1))], axis=1)
         consts = np.concatenate(
             [posedirs4, v_template4[:, :, None], sd4, kid4[:, :, None]], axis=2)
-        buf('lbs_weights_pad', pad_rows(np.asarray(data.weights)))
+        weights_pad = pad_rows(np.asarray(data.weights))
+        buf('lbs_weights_pad', weights_pad)
         buf('lbs_consts', pad_rows(consts).transpose(1, 0, 2))
+        # K1's cover of the vertices: segments of at most 32 of one body part,
+        # each with its active joints (rows past V carry no weight).
+        self.lbs_cover = lbs_kernels.wgram_cover(weights_pad, V, device)
 
     @property
     def device(self) -> torch.device:
@@ -243,7 +247,8 @@ class BodyModel(nn.Module):
             betas,
             kid.reshape(-1, 1).expand(B, 1),
         ], dim=1).T.contiguous()
-        verts_vm = lbs_kernels.lbs_points(pj_cm, feat, self.lbs_weights_pad, consts)
+        verts_vm = lbs_kernels.lbs_points(pj_cm, feat, self.lbs_weights_pad, consts,
+                                          cover=self.lbs_cover)
         return dict(
             vertices=lbs_kernels.from_vertex_major(verts_vm, self.num_vertices),
             joints=glob_pos + trans[:, None],

@@ -60,26 +60,16 @@ class GramData:
     Kc: torch.Tensor  # (J, 3, P + 1 + E)  sum_v w_vj consts_v
     Msd: torch.Tensor  # (V, J*3*E)  w_vj SD_v[c, e], columns (j, c, e): the per-call ω mean
     n_ext: int  # E = number of betas (+1 with the kid column)
-    # K9's cover of the vertices (lbs_kernels.wgram_cover): segments of at
-    # most 32 vertices of one body part, each with its active joints.
-    wgram_verts: Optional[torch.Tensor] = None  # int32 (V,)
-    wgram_seg_offset: Optional[torch.Tensor] = None  # int32 (n_seg + 1,)
-    wgram_joints: Optional[torch.Tensor] = None  # int32
-    wgram_joint_offset: Optional[torch.Tensor] = None  # int32 (n_seg + 1,)
-    wgram_max_joints: int = 0
+    # The cover of the vertices that K1, K2 and K9 walk (lbs_kernels.wgram_cover):
+    # segments of at most 32 vertices of one body part, each with its active
+    # joints. One object per model, so the checks it records are made once.
+    wgram_cover: Optional[lbs_kernels.BlendSegments] = None
     # Static fit weights ω (None: unweighted). With them every moment above
     # except Msd is an ω-weighted vertex sum, and K2 weights the residual by
     # this column; the per-vertex operands stay unweighted (and are shared
     # with the fitter's unweighted GramData).
     omega_pad: Optional[torch.Tensor] = None  # (V_pad, 1), zero rows in the padding
     w_total: float = 0.0  # sum_v ω_v (V without weights)
-
-    @property
-    def wgram_cover(self) -> lbs_kernels.BlendSegments:
-        return lbs_kernels.BlendSegments(
-            verts=self.wgram_verts, seg_offset=self.wgram_seg_offset, joints=self.wgram_joints,
-            joint_offset=self.wgram_joint_offset, max_joints=self.wgram_max_joints,
-            covers=self.wgram_verts.shape[0])
 
 
 # The per-vertex operands, the same in the weighted and the unweighted GramData.
@@ -145,14 +135,9 @@ def build_gram_data(weights: np.ndarray, shapedirs: np.ndarray,
             Msd=f32(Msd),
         )
 
-    cover = lbs_kernels.wgram_cover(w, V, device)
     return GramData(
         **per_vertex,
-        wgram_verts=cover.verts,
-        wgram_seg_offset=cover.seg_offset,
-        wgram_joints=cover.joints,
-        wgram_joint_offset=cover.joint_offset,
-        wgram_max_joints=cover.max_joints,
+        wgram_cover=lbs_kernels.wgram_cover(w, V, device),
         Ksd=f32(Ksd),
         Lz_e=f32(np.transpose(Lsd, (0, 2, 3, 1)).reshape(J * 3, E * J)),
         sd1_2d=f32(sd1.reshape(J * 3, E)),
@@ -230,7 +215,9 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
     # the unweighted form) into the tensor ops below.
     weighted_joints = has_joints and jw_static is not None
     kernel_joints = has_joints and not weighted_joints
-    om = {} if gram.omega_pad is None else dict(omega=gram.omega_pad)
+    k2 = dict(cover=gram.wgram_cover)  # K2's keywords: its cover and static fit weights
+    if gram.omega_pad is not None:
+        k2['omega'] = gram.omega_pad
 
     pre = _fk_ext_prelude(bm, plan, glob_lm)
     p_j, P4, T4 = pre['p_j'], pre['P4'], pre['T4']
@@ -244,15 +231,15 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
         cached_args = (tgt_vm, pre['pj_cm'], homog_vm, gram.weights_pad, gram.sd_cm)
         if scale_col:
             rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments_cached(*cached_args, scale=True,
-                                                                   **om)
+                                                                   **k2)
         else:
-            rk, yk = lbs_kernels.rhs_moments_cached(*cached_args, **om)
+            rk, yk = lbs_kernels.rhs_moments_cached(*cached_args, **k2)
     elif scale_col:
-        rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments(*rhs_args, scale=True, **om)
+        rk, yk, rtk, ytk, sck = lbs_kernels.rhs_moments(*rhs_args, scale=True, **k2)
     elif 'recon_spec' in requested_keys:
-        rk, yk, homog_vm = lbs_kernels.rhs_moments_h(*rhs_args, **om)
+        rk, yk, homog_vm = lbs_kernels.rhs_moments_h(*rhs_args, **k2)
     else:
-        rk, yk = lbs_kernels.rhs_moments(*rhs_args, **om)
+        rk, yk = lbs_kernels.rhs_moments(*rhs_args, **k2)
 
     R_cm = torch.stack([
         torch.stack([glob_lm[a * 3 + c] for c in range(3)], dim=1).reshape(J * 3, batch)
@@ -387,10 +374,11 @@ def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regular
             result['recon_spec'] = dict(
                 pj_cm=pj2_cm, feat_cols=f2_cols, weights_pad=gram.weights_pad,
                 consts_pad=gram.consts_full, homog_vm=homog_vm, x_cols=x_T, sd_cm=gram.sd_cm,
+                cover=gram.wgram_cover,
             )
         if 'vertices_vm' in requested_keys:
             result['vertices_vm'] = lbs_kernels.lbs_points(
-                pj2_cm, f2_cols, gram.weights_pad, gram.consts_full)
+                pj2_cm, f2_cols, gram.weights_pad, gram.consts_full, cover=gram.wgram_cover)
     return result
 
 
@@ -500,7 +488,7 @@ def lbs_recon_spec_lm(bm, plan, gram: GramData, glob_lm, x_T):
         [glob_lm[a * 3 + c] if c < 3 else t2[a] for a in range(3) for c in range(4)])
     feat_cols = torch.cat([pre['feat_cols'], x_T], dim=0)
     spec = dict(pj_cm=pj_cm, feat_cols=feat_cols, weights_pad=gram.weights_pad,
-                consts_pad=gram.consts_full, homog_vm=None)
+                consts_pad=gram.consts_full, homog_vm=None, cover=gram.wgram_cover)
     # sum_v rec_v[a] = sum_j R_j[a, :] . (Kc_j @ feat) + W1_j t2[a, j]
     kq = torch.einsum('jcf,fb->cjb', gram.Kc, feat_cols)
     w1 = gram.W1_col[:, 0]

@@ -28,8 +28,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argument types; every launcher returns a cudaError_t as int.
 _SIGNATURES = {
-    'lbs_points_launch': [_P] * 5 + [_I] * 5 + [_P],
-    'rhs_moments_launch': [_P] * 14 + [_I] * 10 + [_P],
+    'lbs_points_launch': [_P] * 9 + [_I] * 7 + [_P],
+    'rhs_moments_launch': [_P] * 18 + [_I] * 12 + [_P],
     'gram_assembly_launch': [_P] * 14 + [_I] * 4 + [_P],
     'recon_part_sums_launch': [_P] * 14 + [_I] * 9 + [_P],
     'part_sums_launch': [_P] * 10 + [_I] * 9 + [_P],
@@ -45,10 +45,8 @@ _SIGNATURES = {
 }
 # name -> argument types of the shared-memory size queries (restype size_t).
 _SMEM_SIGNATURES = {
-    'lbs_points_smem_bytes': [_I],
     'recon_part_sums_smem_bytes': [_I],
     'gram_assembly_smem_bytes': [_I, _I],
-    'rhs_moments_smem_bytes': [_I, _I],
     'lbs_points_bwd_smem_bytes': [_I],
     'rhs_bwd_smem_bytes': [_I, _I, _I],
     'recon_bwd_smem_bytes': [_I, _I],

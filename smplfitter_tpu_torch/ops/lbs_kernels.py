@@ -30,6 +30,13 @@ under its own key, the unweighted key with ``_w`` appended.
 term1 (SMPL-X, SMPL+H), K8 plus :func:`gram_mparts_ref` in PyTorch ops, as
 the JAX package leaves those pieces to XLA.
 
+K1, K2 and K9 walk a cover of the vertices (:class:`BlendSegments`, built
+once per model on the host by :func:`wgram_cover`: segments of at most 32
+vertices of one body part, each with its active joints) and blend over each
+segment's joints only; their wrappers take it as ``cover=`` (None builds one
+from ``weights_pad`` on the host at every call, counted in ``HOST_COVERS``).
+K6 walks the part index's segments and lists (:class:`PartIndex`).
+
 Fit weights ω reach K2 as the static column (V_pad, 1) of a weighted fitter,
 and K4, K5 and K6 as that column or as per-call weights (V, B); K9 takes
 per-call weights only. Each form is a compile-time variant of its kernel.
@@ -84,7 +91,7 @@ raises ``NotImplementedError``.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -131,6 +138,10 @@ LAUNCHES = {
     'recon_part_sums_bwd_w': 0,
 }
 
+# Covers built on the host because a caller passed none (a copy of the
+# skinning weights from the card at every such call): by wrapper.
+HOST_COVERS = {'lbs_points': 0, 'rhs_moments': 0, 'wgram': 0}
+
 # Backward passes in torch ops, one count per backward call: K3, K7 and K8,
 # whose JAX VJPs are XLA, and the forms the JAX package differentiates through
 # its XLA formulation (no custom VJP there; per-call fit weights count under
@@ -154,8 +165,9 @@ TORCH_VJPS = {
 # package's vertex chunk so the precomputed fields compare directly.
 VC = 256
 
-_TV = 64  # vertex tile of the LBS kernels (csrc/lbs_tile.cuh)
-_TB = 64  # batch tile of the LBS kernels
+_TV = 64  # vertex tile of the backward LBS kernels (csrc/lbs_tile.cuh)
+_TB = 64  # batch tile of the backward LBS kernels
+_SEG_TB = 128  # batch columns per block of the kernels that walk a cover (csrc/template_tile.cuh)
 _SEG = 512  # max vertices per part segment of the recon kernel
 _WGRAM_SEG = 32  # max vertices per segment of K9's cover (csrc/wgram.cu: one tile)
 _BWD_MAXJ = 64  # joints of one reduction pass of the backward kernels (csrc/lbs_bwd.cuh)
@@ -178,8 +190,8 @@ TERM1_STREAM_MIN_BYTES = 2.75 * 2 ** 20
 
 
 def reset_launch_counts() -> None:
-    """Zero LAUNCHES and TORCH_VJPS."""
-    for counts in (LAUNCHES, TORCH_VJPS):
+    """Zero LAUNCHES, TORCH_VJPS and HOST_COVERS."""
+    for counts in (LAUNCHES, TORCH_VJPS, HOST_COVERS):
         for name in counts:
             counts[name] = 0
 
@@ -232,15 +244,62 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _vertex_splits(Vp: int, B: int, device) -> tuple[int, int]:
-    """(vertex tiles per block, number of vertex splits) of the rhs kernel:
-    enough splits of the vertex axis that the grid holds about four blocks
-    per SM."""
+    """(vertex tiles per block, number of vertex splits) of the backward
+    LBS kernels: enough splits of the vertex axis that the grid holds about
+    four blocks per SM."""
     n_vtiles = -(-Vp // _TV)
     grid_x = -(-B // _TB)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, min(n_vtiles, math.ceil(4 * sms / grid_x)))
     tiles_per_block = -(-n_vtiles // want)
     return tiles_per_block, -(-n_vtiles // tiles_per_block)
+
+
+def _segment_runs(n_seg: int, B: int, device, blocks_per_sm: int) -> tuple[int, int]:
+    """(segments per block, number of runs) of a kernel that walks a cover:
+    runs of the cover's segments such that the grid holds at most
+    ``blocks_per_sm`` blocks per SM (K2: one wave, one block per SM, so
+    its per-run partials stay few; K1: four waves of two blocks per SM)."""
+    grid_x = -(-B // _SEG_TB)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(n_seg, blocks_per_sm * sms // grid_x))
+    per_block = -(-n_seg // want)
+    return per_block, -(-n_seg // per_block)
+
+
+def _walk_cover(name: str, cover, weights_pad, rows: int, device, cuda: bool):
+    """The cover a kernel walks: ``cover``, or where a call on the card
+    passes None, one of every row of ``weights_pad`` built on the host
+    (counted in HOST_COVERS under ``name``); None for a CPU call without
+    one (the twin needs none). It must hold every vertex below ``rows`` and
+    none at or past V_pad."""
+    if cover is None:
+        if not cuda:
+            return None
+        HOST_COVERS[name] += 1
+        cover = wgram_cover(weights_pad.detach().cpu().numpy(), weights_pad.shape[0], device)
+    if not rows <= cover.covers <= weights_pad.shape[0]:
+        raise ValueError(f'{name}: the cover holds the vertices below {cover.covers}; the call '
+                         f'reads {rows} and has {weights_pad.shape[0]} rows')
+    _index_tensors(name, device, cover.verts, cover.seg_offset, cover.joints, cover.joint_offset)
+    return cover
+
+
+def _zero_past_cover(name: str, cover, arg: str, t: torch.Tensor) -> None:
+    """Rows (axis 1 of a (C, V_pad, ...) operand, axis 0 of a (V_pad, J) one)
+    from ``cover.covers`` on, which the kernel leaves out (its outputs there
+    are zeros), must be zero in ``t``. Checked once per cover and tensor
+    version (a copy from the card)."""
+    dim = 0 if arg == 'weights_pad' else 1
+    if cover.covers >= t.shape[dim]:
+        return
+    key = (arg, t.data_ptr(), t._version)
+    if key in cover.zero_past:
+        return
+    if bool(_rows(t, dim, cover.covers, t.shape[dim]).any()):
+        raise ValueError(f'{name}: {arg} has nonzero rows at or past {cover.covers}, which the '
+                         'cover leaves out')
+    cover.zero_past.add(key)
 
 
 def _omega_strides(name: str, omega, v_t: int, B: int, Vp: int, static_only: bool = False):
@@ -359,10 +418,16 @@ def lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad):
     return _apply_blend(blend, homog).contiguous()
 
 
-def lbs_points(pj_cm, feat_cols, weights_pad, consts_pad):
+def lbs_points(pj_cm, feat_cols, weights_pad, consts_pad, cover: BlendSegments | None = None):
     """Extended LBS: the per-joint ``[R|t]`` (12, J, B) blended by the skinning
     weights (V_pad, J) and applied to the homogeneous template
-    ``consts_pad[c] @ feat_cols`` (c = 0..2; channel 3 is 1) -> (3, V_pad, B)."""
+    ``consts_pad[c] @ feat_cols`` (c = 0..2; channel 3 is 1) -> (3, V_pad, B).
+
+    ``cover`` (:func:`wgram_cover` of ``weights_pad``, as ``BodyModel`` and
+    the fitter's GramData hold it) is the vertex cover the kernel walks; rows
+    from ``cover.covers`` on must have zero weights and come out zero. None
+    builds a cover of every row on the host (a copy from the card at every
+    call). The twin ignores it."""
     name = 'lbs_points'
     cuda = _on_cuda(name, pj_cm=pj_cm, feat_cols=feat_cols, weights_pad=weights_pad,
                     consts_pad=consts_pad)
@@ -377,19 +442,24 @@ def lbs_points(pj_cm, feat_cols, weights_pad, consts_pad):
         raise ValueError(f'{name}: consts_pad needs at least 3 channels')
     if _twin_for_constant_grads(name, cuda, weights_pad, consts_pad):
         return lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad)
-    return _LbsPoints.apply(pj_cm, feat_cols, weights_pad, consts_pad)
+    cover = _walk_cover(name, cover, weights_pad, 0, pj_cm.device, cuda)
+    if cover is not None:
+        _zero_past_cover(name, cover, 'weights_pad', weights_pad)
+    return _LbsPoints.apply(pj_cm, feat_cols, weights_pad, consts_pad, cover)
 
 
-def _lbs_points_run(pj_cm, feat_cols, weights_pad, consts_pad):
+def _lbs_points_run(pj_cm, feat_cols, weights_pad, consts_pad, cover):
     """K1 on CUDA tensors, its twin on CPU ones (operands checked)."""
     if not pj_cm.is_cuda:
         return lbs_points_ref(pj_cm, feat_cols, weights_pad, consts_pad)
     _, J, B = pj_cm.shape
     F, Vp = feat_cols.shape[0], weights_pad.shape[0]
     out = torch.empty((3, Vp, B), dtype=torch.float32, device=pj_cm.device)
+    per_block, _ = _segment_runs(cover.n_seg, B, pj_cm.device, 8)
     err = _build.library().lbs_points_launch(
-        _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad), _ptr(out),
-        J, B, F, Vp, 4, _stream(out))
+        _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad), _ptr(cover.verts),
+        _ptr(cover.seg_offset), _ptr(cover.joints), _ptr(cover.joint_offset), _ptr(out),
+        J, B, F, Vp, cover.n_seg, per_block, cover.covers, _stream(out))
     _build.check(err, 'lbs_points')
     LAUNCHES['lbs_points'] += 1
     return out
@@ -399,15 +469,15 @@ class _LbsPoints(torch.autograd.Function):
     """K1 with K10 as its backward (the JAX package's _lbs_points_diff)."""
 
     @staticmethod
-    def forward(ctx, pj_cm, feat_cols, weights_pad, consts_pad):
+    def forward(ctx, pj_cm, feat_cols, weights_pad, consts_pad, cover=None):
         ctx.save_for_backward(pj_cm, feat_cols, weights_pad, consts_pad)
-        return _lbs_points_run(pj_cm, feat_cols, weights_pad, consts_pad)
+        return _lbs_points_run(pj_cm, feat_cols, weights_pad, consts_pad, cover)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         dpj, dfeat = lbs_points_bwd(g.contiguous(), *ctx.saved_tensors)
-        return dpj, dfeat, None, None
+        return dpj, dfeat, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -573,10 +643,11 @@ def rhs_moments_cached_ref(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: b
 
 
 def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
-              emit_homog: bool, scale: bool, omega=None):
+              emit_homog: bool, scale: bool, omega=None, cover=None):
     """Checks, then one K2 form: its kernel on CUDA tensors, its twin on CPU
     ones. The cached form takes ``homog_vm`` in place of feat and consts; a
-    static ω column selects the weighted form (its own launch count)."""
+    static ω column selects the weighted form (its own launch count). On the
+    card the kernel walks ``cover`` (None: built on the host)."""
     cached = homog_vm is not None
     if omega is not None:
         name += '_w'
@@ -610,25 +681,28 @@ def _rhs_call(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, ho
         _omega_strides(name, omega, v_t, B, Vp, static_only=True)
     if cuda and E > 32:
         raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
+    cover = _walk_cover('rhs_moments', cover, weights_pad, v_t, tgt_vm.device, cuda)
+    if cover is not None and emit_homog:
+        _zero_past_cover(name, cover, 'consts_pad', consts_pad[:3])
     args = (name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm, emit_homog,
-            scale, omega)
+            scale, omega, cover)
     if scale:  # no backward kernel: the VJP of the twin in torch ops (ω included)
         if _twin_for_constant_grads(name, cuda, weights_pad, consts_pad, sd_cm):
             return _rhs_run(*args)
-        return _rhs_scale_vjp(*args[:8], omega)
+        return _rhs_scale_vjp(*args[:8], omega, cover)
     if _twin_for_constant_grads(name, cuda, weights_pad, consts_pad, sd_cm, omega):
         return _rhs_run(*args)
     return _RhsMoments.apply(*args)
 
 
 def _rhs_scale_vjp(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
-                   omega):
+                   omega, cover=None):
     """K2's scale forms (plain or cached, unweighted or static ω) as a
     _ChunkedVjp: tgt, pj, feat or the cached template, and ω differentiate."""
     cached = homog_vm is not None
 
     def run(tgt, pj, feat, w, consts, sd, homog, om):
-        return _rhs_run(name, tgt, pj, feat, w, consts, sd, homog, False, True, om)
+        return _rhs_run(name, tgt, pj, feat, w, consts, sd, homog, False, True, om, cover)
 
     def chunk(tgt, pj, feat, w, consts, sd, homog, om):
         h = homog if cached else posed_template_ref(feat, consts)
@@ -646,12 +720,12 @@ class _RhsMoments(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
-                emit_homog, scale, omega):
+                emit_homog, scale, omega, cover=None):
         ctx.emit_homog = emit_homog
         ctx.save_for_backward(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
                               omega)
         return _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
-                        emit_homog, scale, omega)
+                        emit_homog, scale, omega, cover)
 
     @staticmethod
     @once_differentiable
@@ -662,15 +736,15 @@ class _RhsMoments(torch.autograd.Function):
         if homog_vm is not None:
             dtgt, dpj, dh = rhs_moments_cached_bwd(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad,
                                                    sd_cm, omega=omega)
-            return (None, dtgt, dpj, None, None, None, None, dh, None, None, None)
+            return (None, dtgt, dpj, None, None, None, None, dh, None, None, None, None)
         dtgt, dpj, dfeat = rhs_moments_bwd(
             gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
             gh=gh.contiguous() if ctx.emit_homog else None, omega=omega)
-        return (None, dtgt, dpj, dfeat, None, None, None, None, None, None, None)
+        return (None, dtgt, dpj, dfeat, None, None, None, None, None, None, None, None)
 
 
 def _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
-             emit_homog: bool, scale: bool, omega):
+             emit_homog: bool, scale: bool, omega, cover):
     """One checked K2 form: its kernel on CUDA tensors, its twin on CPU ones."""
     cached = homog_vm is not None
     extra = {} if omega is None else dict(omega=omega)
@@ -693,7 +767,7 @@ def _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, hom
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
+    per_block, n_splits = _segment_runs(cover.n_seg, B, dev, 1)
     r, y = empty(E, B), empty(3, J, B)
     homog = empty(3, Vp, B) if emit_homog else homog_vm
     rt, yt, sc = (empty(E, B), empty(3, J, B), empty(3, B)) if scale else (None,) * 3
@@ -705,9 +779,10 @@ def _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, hom
 
     err = lib.rhs_moments_launch(
         _ptr(tgt_vm), _ptr(pj_cm), ptr(feat_cols), _ptr(weights_pad), ptr(consts_pad),
-        _ptr(sd_cm), ptr(omega), _ptr(r), _ptr(y), ptr(homog), ptr(rt), ptr(yt), ptr(sc),
-        _ptr(part), J, B, F, E, v_t, Vp, tiles_per_block, int(emit_homog), int(scale),
-        int(cached), _stream(r))
+        _ptr(sd_cm), ptr(omega), _ptr(cover.verts), _ptr(cover.seg_offset), _ptr(cover.joints),
+        _ptr(cover.joint_offset), _ptr(r), _ptr(y), ptr(homog), ptr(rt), ptr(yt), ptr(sc),
+        _ptr(part), J, B, F, E, v_t, Vp, cover.n_seg, per_block, cover.covers,
+        int(emit_homog), int(scale), int(cached), _stream(r))
     _build.check(err, name)
     LAUNCHES[name] += 1
     if emit_homog:
@@ -715,19 +790,27 @@ def _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, hom
     return (r, y, rt, yt, sc) if scale else (r, y)
 
 
-def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, omega=None):
+def rhs_moments_h(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, omega=None,
+                  cover: BlendSegments | None = None):
     """Residual projection of the shape solve.
 
     With pos = the extended LBS of :func:`lbs_points` and b = tgt - pos (zero
     past the target's V rows): r (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T b_v)_c,
     y (3, J, B) = sum_v w_vj b_v, and the posed template homog (3, V_pad, B).
-    A static fit-weight column ``omega`` (V_pad, 1) multiplies b."""
+    A static fit-weight column ``omega`` (V_pad, 1) multiplies b.
+
+    ``cover`` (:func:`wgram_cover` of ``weights_pad``, the fitter's
+    ``GramData.wgram_cover``) is the vertex cover the kernel walks; it must
+    hold every target row, and where it stops short of V_pad the template's
+    rows past it must be zero (so are homog's). None builds a cover of every
+    row on the host (a copy from the card at every call). The twin ignores
+    it; so do the forms below, which take it the same way."""
     return _rhs_call('rhs_moments_h', tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
-                     None, emit_homog=True, scale=False, omega=omega)
+                     None, emit_homog=True, scale=False, omega=omega, cover=cover)
 
 
 def rhs_moments(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale: bool = False,
-                omega=None):
+                omega=None, cover: BlendSegments | None = None):
     """:func:`rhs_moments_h` without the posed template: (r, y). With
     ``scale=True`` also the target-side moments of the scale column,
     rt (E, B) = sum_v sum_c SD_v[c, :] (Rbar_v^T t_v)_c, yt (3, J, B) =
@@ -736,17 +819,17 @@ def rhs_moments(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, scale:
     weights every vertex sum."""
     return _rhs_call('rhs_moments_scale' if scale else 'rhs_moments', tgt_vm, pj_cm, feat_cols,
                      weights_pad, consts_pad, sd_cm, None, emit_homog=False, scale=scale,
-                     omega=omega)
+                     omega=omega, cover=cover)
 
 
 def rhs_moments_cached(tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, scale: bool = False,
-                       omega=None):
+                       omega=None, cover: BlendSegments | None = None):
     """:func:`rhs_moments` from the cached posed template ``homog_vm``
     (3, V_pad, B) of :func:`posed_template_lm` instead of feat and consts:
     the same outputs, (r, y) or with ``scale=True`` (r, y, rt, yt, sc)."""
     return _rhs_call('rhs_moments_cached_scale' if scale else 'rhs_moments_cached', tgt_vm,
                      pj_cm, None, weights_pad, None, sd_cm, homog_vm, emit_homog=False,
-                     scale=scale, omega=omega)
+                     scale=scale, omega=omega, cover=cover)
 
 
 # ---------------------------------------------------------------------------
@@ -1140,7 +1223,7 @@ class BlendSegments:
     longest list. Every vertex below ``covers`` appears exactly once. A
     blend over a segment's list is exact: the joints left out weigh 0 on all
     of its vertices. Built once per model on the host
-    (:func:`wgram_cover`)."""
+    (:func:`wgram_cover`); K1, K2 and K9 walk it."""
 
     verts: torch.Tensor
     seg_offset: torch.Tensor
@@ -1148,6 +1231,8 @@ class BlendSegments:
     joint_offset: torch.Tensor
     max_joints: int
     covers: int
+    # (operand, storage, version) of the operands found zero past `covers`
+    zero_past: set = field(default_factory=set, repr=False)
 
     @property
     def n_seg(self) -> int:
@@ -1908,6 +1993,7 @@ def wgram_moments(tgt_vm, pj_cm, homog_vm, t4_cm, weights_pad, sd_cm, mu_cm, ome
         return wgram_moments_ref(*args, scale_mode)
     if cuda:
         if cover is None:
+            HOST_COVERS[name] += 1
             cover = wgram_cover(weights_pad.detach().cpu().numpy(), V, tgt_vm.device)
         if cover.covers < V:
             raise ValueError(f'{name}: the cover holds vertices < {cover.covers}, not all < {V}')
@@ -2057,7 +2143,8 @@ TWINS = {
 
 def twin_call(wrapper: str, args, kwargs) -> tuple:
     """The plain twin of ``wrapper`` on the wrapper's own arguments (a
-    PartIndex becomes its membership matrix), as a tuple of outputs."""
+    PartIndex becomes its membership matrix, a cover is left out), as a
+    tuple of outputs."""
     args = [a.pm if isinstance(a, PartIndex) else a for a in args]
-    out = TWINS[wrapper](*args, **kwargs)
+    out = TWINS[wrapper](*args, **{k: v for k, v in kwargs.items() if k != 'cover'})
     return out if isinstance(out, tuple) else (out,)

@@ -644,7 +644,7 @@ def _skinning(seed, V, J, dense):
 
 def _hold_all(wrapper, args, kwargs, launches_key):
     """Every output within REL_TOL of its error scale of the twin's, and bit
-    for bit on a second call; one launch per call."""
+    for bit on a second call; one launch per call. Returns the outputs."""
     lbs_kernels.reset_launch_counts()
     with torch.no_grad():
         got = getattr(lbs_kernels, wrapper)(*args, **kwargs)
@@ -652,10 +652,12 @@ def _hold_all(wrapper, args, kwargs, launches_key):
         want = lbs_kernels.twin_call(wrapper, args, kwargs)
     torch.cuda.synchronize()
     assert lbs_kernels.LAUNCHES[launches_key] == 2
+    got, again = (x if isinstance(x, tuple) else (x,) for x in (got, again))
     for g, a, t, scale in zip(got, again, want, _error_scales(wrapper, args, want), strict=True):
         assert g.shape == t.shape and g.is_cuda and torch.isfinite(g).all()
         assert (g - t).abs().max().item() <= REL_TOL * scale
         assert torch.equal(g, a)
+    return got
 
 
 @pytest.mark.parametrize('dense', [False, True])
@@ -723,6 +725,85 @@ def test_recon_part_sums_kernel_at_edges(card, F, omega, dense):
             kw['omega'] = torch.as_tensor(om, dtype=torch.float32, device='cuda')
         _hold_all('recon_part_sums_lm', args, kw,
                   'recon_part_sums' + ('' if omega is None else '_w'))
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 at their edges: covers of 32-vertex segments with active joints
+# ---------------------------------------------------------------------------
+
+COVER_V = 1001  # V % 32 != 0: partial segments; V_pad = 1024
+COVER_BATCHES = [1, 33, 130, 256]  # B % 4 != 0 (4-byte paths), a partial and a full 128-column tile
+K2_FORMS = {'emit': ('rhs_moments_h', {}, 'rhs_moments_h'),
+            'plain': ('rhs_moments', {}, 'rhs_moments'),
+            'scale': ('rhs_moments', dict(scale=True), 'rhs_moments_scale'),
+            'cached': ('rhs_moments_cached', {}, 'rhs_moments_cached'),
+            'cached_scale': ('rhs_moments_cached', dict(scale=True), 'rhs_moments_cached_scale')}
+
+
+def _template(seed, F, vp, V):
+    """consts (4, V_pad, F), zero rows past V as a model's."""
+    consts = _normal(seed, 4, vp, F, scale=0.05)
+    consts[:, V:] = 0.0
+    return consts
+
+
+@pytest.mark.parametrize('dense', [False, True])
+@pytest.mark.parametrize('F', [219, 503])
+def test_lbs_points_kernel_at_edges(card, F, dense):
+    """K1 on seeded operands at both template widths, sparse and dense
+    weights, every batch of COVER_BATCHES: within REL_TOL of the twin, bit
+    for bit on a repeat, rows past the cover exactly zero; and with no cover
+    (built on the host, counted)."""
+    J = 24
+    w = _skinning(F + J + 1, COVER_V, J, dense)
+    vp = w.shape[0]
+    cover = lbs_kernels.wgram_cover(w.cpu().numpy(), COVER_V, 'cuda')
+    consts = _template(F, F, vp, COVER_V)
+    for batch in COVER_BATCHES:
+        seed = 10 * F + batch
+        args = (_normal(seed, 12, J, batch, scale=0.5), _normal(seed + 1, F, batch), w, consts)
+        (got,) = _hold_all('lbs_points', args, dict(cover=cover), 'lbs_points')
+        assert torch.equal(got[:, COVER_V:], torch.zeros_like(got[:, COVER_V:]))
+    with torch.no_grad():
+        built = lbs_kernels.lbs_points(*args)
+    assert lbs_kernels.HOST_COVERS['lbs_points'] == 1
+    assert torch.equal(built, got)
+
+
+@pytest.mark.parametrize('dense', [False, True])
+@pytest.mark.parametrize('omega', [False, True])
+@pytest.mark.parametrize('E', [10, 32])
+@pytest.mark.parametrize('form', list(K2_FORMS))
+def test_rhs_moments_kernel_at_edges(card, form, E, omega, dense):
+    """Every K2 form on seeded operands: E = 10 and 32, unweighted and
+    static ω (zero rows), sparse and dense weights, targets of all V rows
+    and of fewer (Vt < V), every batch of COVER_BATCHES; within REL_TOL of
+    the twin, bit for bit on a repeat, the emitted template's rows past the
+    cover exactly zero."""
+    wrapper, extra, key = K2_FORMS[form]
+    J, F = 24, 208
+    w = _skinning(J + E + 2, COVER_V, J, dense)
+    vp = w.shape[0]
+    cover = lbs_kernels.wgram_cover(w.cpu().numpy(), COVER_V, 'cuda')
+    consts = _template(F + E, F, vp, COVER_V)
+    sd = _normal(E, 3, vp, E, scale=0.05)
+    kw = dict(extra, cover=cover)
+    if omega:
+        om = np.random.default_rng(E).uniform(0.1, 2.0, (vp, 1))
+        om[::5] = 0.0
+        om[COVER_V:] = 0.0
+        kw['omega'] = torch.as_tensor(om, dtype=torch.float32, device='cuda')
+    for batch, v_t in zip(COVER_BATCHES, (COVER_V, COVER_V - 37, COVER_V, COVER_V - 300)):
+        seed = 1000 * E + batch
+        tgt, pj = _normal(seed, 3, v_t, batch), _normal(seed + 1, 12, J, batch, scale=0.5)
+        feat = _normal(seed + 2, F, batch)
+        if wrapper == 'rhs_moments_cached':
+            args = (tgt, pj, lbs_kernels.posed_template_ref(feat, consts), w, sd)
+        else:
+            args = (tgt, pj, feat, w, consts, sd)
+        out = _hold_all(wrapper, args, kw, key + ('_w' if omega else ''))
+        if form == 'emit':
+            assert torch.equal(out[2][:, COVER_V:], torch.zeros_like(out[2][:, COVER_V:]))
 
 
 def test_call_weighted_fit_at_32_betas(tmp_path_factory):
