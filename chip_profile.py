@@ -4,13 +4,17 @@
 Usage, from the repository root on a machine with a CUDA device:
 
     python3 chip_profile.py [--model smplx] [--path headline] [--grad] [--gram-routes]
+    python3 chip_profile.py [--model smplx] --grad-path c_known_shape
 
 ``--path`` takes the headline, ``chip_smoke.PATHS`` (a-e) or the fit-weight
 paths ``chip_smoke.WPATHS`` (f-l, with ``chip_smoke``'s seeded weights).
 ``--grad`` profiles the path's value and gradient instead: the summed squares
 of its pose rotation vectors, betas and translation (the default loss of
 ``get_fit_grad_fn``) differentiated with respect to the targets, for the
-paths that return them (the headline, h).
+paths that return them (the headline, h). ``--grad-path`` profiles the value
+and gradient of a ``chip_smoke.GRAD_PATHS`` path instead (``chip_smoke.path_vg``:
+its loss and inputs, the gradient in the targets it differentiates), as
+``chip_smoke.py`` phase 14 times it.
 
 It builds the kernels, loads the synthetic model at full width (as
 ``chip_smoke.py`` does), makes one target set of ``chip_smoke.BATCH`` (4096)
@@ -49,6 +53,7 @@ def main() -> int:
                         choices=['headline', *chip_smoke.PATHS, *chip_smoke.WPATHS])
     parser.add_argument('--grad', action='store_true')
     parser.add_argument('--gram-routes', action='store_true')
+    parser.add_argument('--grad-path', choices=sorted(chip_smoke.GRAD_PATHS))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_profile: no CUDA device available', file=sys.stderr)
@@ -73,7 +78,12 @@ def main() -> int:
     p += (torch.as_tensor(chip_smoke.kid_factors(rng, chip_smoke.BATCH), device=dev),)
     out = bm(*p[:3])
     tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
-    if args.path in chip_smoke.WPATHS:
+    if args.grad_path:
+        fs = dict(chip_smoke.weighted_fitters(port, bm, args.model, rng, fitter), kid=fitter_kid)
+        p += tuple(chip_smoke.fit_weights(torch, rng, chip_smoke.BATCH, n, dev)
+                   for n in (bm.num_vertices, bm.num_joints))
+        vg = chip_smoke.path_vg(torch, args.grad_path, fs, p)
+    elif args.path in chip_smoke.WPATHS:
         path = chip_smoke.WPATHS[args.path]
         fs = chip_smoke.weighted_fitters(port, bm, args.model, rng, fitter)
         p += tuple(chip_smoke.fit_weights(torch, rng, chip_smoke.BATCH, n, dev)
@@ -88,12 +98,16 @@ def main() -> int:
             return path['run'](fitter, fitter_kid, tv, tj, p)
 
     def run():
+        if args.grad_path:
+            return vg(tv, tj)
         if not args.grad:
             return call(tv, tj)
         tv_g, tj_g = tv.detach().requires_grad_(), tj.detach().requires_grad_()
         return torch.autograd.grad(port.api.default_loss(call(tv_g, tj_g)), (tv_g, tj_g))
 
-    what = f'{args.model} {args.path}{" value+grad" if args.grad else ""} B={chip_smoke.BATCH}'
+    what = (f'{args.model} {args.grad_path} value+grad' if args.grad_path else
+            f'{args.model} {args.path}{" value+grad" if args.grad else ""}')
+    what += f' B={chip_smoke.BATCH}'
     run()
     torch.cuda.synchronize()
     times = []

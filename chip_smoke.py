@@ -74,7 +74,10 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     whose V % 256 = 10 puts a partial last vertex tile in every kernel) at
     B=4096 and B=1000, and K15's summed form on operands derived from the
     batched form's, asserting which kernels each model's gradients reach
-    (BWD_CAPTURED), with times, twin times and bounds at B=4096;
+    (BWD_CAPTURED), with times, twin times and bounds at B=4096; K10 and
+    K14 (which walk a cover's and a part index's active-joint lists) also
+    repeat bit for bit, and on SMPL-X are held and timed the same way with
+    dense skinning weights (dense_bwd_variants);
 14. the value and gradient at B=4096, with the fit's ms and the peak memory
     in the same call and the launches and torch-op backward passes
     (TORCH_VJPS) per gradient asserted: ``get_fit_grad_fn`` on the SMPL and
@@ -583,12 +586,13 @@ def twin_call(lbs_kernels, key, args, kwargs):
 
 
 # Besides the kernels with a library call (K7, K8), the kernels redesigned
-# for Hopper (K9, K6, K1 and every form of K2) also repeat bit for bit on the
-# same operands.
+# for Hopper (K9, K6, K1, every form of K2, K10 and K14) also repeat bit for
+# bit on the same operands.
 K2_KEYS = ('rhs_moments_h', 'rhs_moments', 'rhs_moments_scale', 'rhs_moments_cached',
            'rhs_moments_cached_scale')
 REPEAT_KEYS = ('wgram', 'recon_part_sums', 'recon_part_sums_w', 'lbs_points', *K2_KEYS,
-               *(key + '_w' for key in K2_KEYS))
+               *(key + '_w' for key in K2_KEYS), 'lbs_points_bwd', 'recon_part_sums_bwd',
+               'recon_part_sums_bwd_w')
 
 
 def library_call(torch, key):
@@ -1210,9 +1214,35 @@ def check_backward_kernels(torch, lbs_kernels, label, bm, fitters, path_fitters,
                 captured.add(key)
         for key in [k for k in SPECS if k in captured]:
             hold_to_twin(torch, lbs_kernels, label, key, calls[key], batch, results)
+        if model == 'smplx':
+            variants = results.setdefault('variants', {})
+            for name, (key, args, kw) in dense_bwd_variants(torch, lbs_kernels, calls).items():
+                hold_to_twin(torch, lbs_kernels, f'{label} {name}', key, [(args, kw)], batch,
+                             variants.setdefault(name, {}))
         del calls
         torch.cuda.empty_cache()
     return results
+
+
+def dense_bwd_variants(torch, lbs_kernels, calls) -> dict:
+    """K10 and K14 (unweighted and ω) on the first captured call of each,
+    with dense skinning weights (every joint on every vertex: the longest
+    lists) and the lists of those weights: a cover for K10, a part index
+    for K14. name -> (key, args, kwargs)."""
+    sets = {}
+    args, kw = calls['lbs_points_bwd'][0]
+    dev = args[0].device
+    V = kw['cover'].covers
+    wd = dense_weights(torch, args[3], V)
+    sets['lbs_points_bwd dense'] = ('lbs_points_bwd', args[:3] + (wd, args[4]), dict(
+        kw, cover=lbs_kernels.wgram_cover(wd.cpu().numpy(), V, dev)))
+    for key in ('recon_part_sums_bwd', 'recon_part_sums_bwd_w'):
+        args, kw = calls[key][0]
+        wd = dense_weights(torch, args[6], args[3].shape[1])
+        parts = lbs_kernels.PartIndex.from_membership(args[8].pm.cpu().numpy(), dev,
+                                                      weights=wd.cpu().numpy())
+        sets[f'{key} dense'] = (key, args[:6] + (wd, args[7], parts), kw)
+    return sets
 
 
 def grad_parity(name, vg_card, vg_cpu, tv, tj, failures, noise_floor=False) -> None:

@@ -1,5 +1,5 @@
-// Shared pieces of the backward kernels (lbs_points_bwd.cu: K10, rhs_bwd.cu:
-// K11 and K12, recon_bwd.cu: K13).
+// Shared pieces of the backward kernels K11 and K12 (rhs_bwd.cu) and K13
+// (recon_bwd.cu). K10 and K14 walk vertex segments instead (bwd_front.cuh).
 //
 // Each backward kernel walks the same tiles as its forward kernel (lbs_tile.cuh:
 // a block of 256 threads owns 64 batch columns and a split of the vertex
@@ -162,25 +162,4 @@ __device__ inline void store_field(float* dst, const float f[3][4][4], int Vx, i
 
 }  // namespace bwd
 
-namespace {
-
-// out[idx] = sum over splits of part[sp * n + idx], in split order.
-__global__ void split_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                 int n_splits, size_t n) {
-  for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
-       idx += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int sp = 0; sp < n_splits; ++sp) s += part[(size_t)sp * n + idx];
-    out[idx] = s;
-  }
-}
-
-inline cudaError_t launch_split_sum(const float* part, float* out, int n_splits, size_t n,
-                                    cudaStream_t stream) {
-  const int threads = 256;
-  const int blocks = (int)((n + threads - 1) / threads);
-  split_sum_kernel<<<blocks, threads, 0, stream>>>(part, out, n_splits, n);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "split_sum.cuh"

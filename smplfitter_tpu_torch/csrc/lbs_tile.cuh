@@ -1,7 +1,7 @@
-// Shared tile routines of the backward LBS kernels (lbs_bwd.cuh and the
-// kernels on it: lbs_points_bwd.cu, rhs_bwd.cu, recon_bwd.cu,
-// recon_lbs_part_sums_bwd.cu). The forward kernels K1, K2 and K6 walk vertex
-// segments through template_tile.cuh instead.
+// Shared tile routines of the backward LBS kernels K11-K13 (lbs_bwd.cuh and
+// the kernels on it: rhs_bwd.cu, recon_bwd.cu). The forward kernels K1, K2
+// and K6 and the backward kernels K10 and K14 walk vertex segments through
+// template_tile.cuh instead.
 //
 // A block of 256 threads owns a tile of TV vertices x TB batch columns; each
 // thread owns a 4 x 4 micro-tile: tile rows ty + 16 i and batch columns

@@ -73,32 +73,13 @@ using tmpl::TV;
 constexpr int MAXE = 32;      // E <= 32
 constexpr int EP = MAXE / 2;  // shape-row pairs
 constexpr int SDL = TV + 4;   // row stride of the staged shape directions
-constexpr unsigned FULL = 0xffffffffu;
 
 // Output rows of the partials: y (3J), r (E) [, yt (3J), rt (E), sc (3)].
 __host__ __device__ inline int rhs_rows(int J, int E, bool scale) {
   return scale ? 6 * J + 2 * E + 3 : 3 * J + E;
 }
 
-// Sum over the warp's 8 vertex groups (lane = 4 tm + q) of x[0..8), scattered:
-// the lane of vertex group tm returns the sum of x[tm]. A fixed tree, so the
-// result repeats bit for bit.
-__device__ __forceinline__ float reduce_scatter8(const float (&x)[8], int tm) {
-  const bool b2 = tm & 4, b1 = tm & 2, b0 = tm & 1;
-  float y[4], z[2];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float keep = b2 ? x[q + 4] : x[q], send = b2 ? x[q] : x[q + 4];
-    y[q] = keep + __shfl_xor_sync(FULL, send, 16);
-  }
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const float keep = b1 ? y[q + 2] : y[q], send = b1 ? y[q] : y[q + 2];
-    z[q] = keep + __shfl_xor_sync(FULL, send, 8);
-  }
-  const float keep = b0 ? z[1] : z[0], send = b0 ? z[0] : z[1];
-  return keep + __shfl_xor_sync(FULL, send, 4);
-}
+using tmpl::reduce_scatter8;
 
 // part[row0 + a*J + j, col] += sum over the tile's vertices of w[v, j] f_a(v)
 // for the segment's active joints jl[0 .. nA), two joints per pass; the lane

@@ -1,6 +1,7 @@
 // The template dot and the active-joint blend of the kernels that walk
 // vertex segments: K1 (lbs_points.cu), K2 (rhs_moments.cu) and K6
-// (recon_lbs_part_sums.cu).
+// (recon_lbs_part_sums.cu); the blends and the warp reduce-scatter also serve
+// the backward fronts of K10 and K14 (bwd_front.cuh).
 //
 // A block of 256 threads owns 128 batch columns and walks tiles of 32 listed
 // vertices (a tile's rows are a list in shared memory: the vertex of each
@@ -48,6 +49,27 @@ constexpr int RING_FLOATS = NSTG * STG_FLOATS;
 constexpr int A_ROWS_PER_PASS = 16;
 constexpr int A_PASSES = 3 * TV / A_ROWS_PER_PASS;  // 6
 constexpr int B_PASSES = B_FLOATS / 4 / NT;         // 2 float4 copies per thread
+constexpr unsigned FULL = 0xffffffffu;
+
+// Sum over the warp's 8 vertex groups (lane = 4 tm + q) of x[0..8), scattered:
+// the lane of vertex group tm returns the sum of x[tm]. A fixed tree, so the
+// result repeats bit for bit.
+__device__ __forceinline__ float reduce_scatter8(const float (&x)[8], int tm) {
+  const bool b2 = tm & 4, b1 = tm & 2, b0 = tm & 1;
+  float y[4], z[2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float keep = b2 ? x[q + 4] : x[q], send = b2 ? x[q] : x[q + 4];
+    y[q] = keep + __shfl_xor_sync(FULL, send, 16);
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float keep = b1 ? y[q + 2] : y[q], send = b1 ? y[q] : y[q + 2];
+    z[q] = keep + __shfl_xor_sync(FULL, send, 8);
+  }
+  const float keep = b0 ? z[1] : z[0], send = b0 ? z[0] : z[1];
+  return keep + __shfl_xor_sync(FULL, send, 4);
+}
 
 // The copy ring of the template dot: step s is k tile s % nk of tile s / nk,
 // in slot s % NSTG of `ring` (RING_FLOATS floats of shared memory).

@@ -33,10 +33,10 @@
 // as at the kid factor's E^2 = 289): stage s + 2 is in flight while stage
 // s + 1's X is built and stage s's FMAs run, with one barrier per stage. Each
 // split writes its partial to a scratch (S, E^2, B) and split_sum_kernel
-// (lbs_bwd.cuh) adds the splits in order: no atomics, two runs give the same
+// (split_sum.cuh) adds the splits in order: no atomics, two runs give the same
 // bits. E^2 <= 1024; any J3 and B; the j, k, row and batch edges are masked.
-#include "lbs_bwd.cuh"
 #include "sgemm_tile.cuh"
+#include "split_sum.cuh"
 
 namespace {
 

@@ -63,6 +63,9 @@ class FitterPlan:
     part_of_vertex: torch.Tensor  # int32 (V_pad,): each vertex's part, -1 for none
     part_seg_joints: torch.Tensor  # int32: each segment's active joints (K6's blend)
     part_seg_joint_offset: torch.Tensor  # int32 (n_seg + 1,)
+    part_tile_offset: torch.Tensor  # int32 (n_tiles + 1,): K14's 32-vertex tiles of the segments
+    part_tile_seg: torch.Tensor  # int32 (n_tiles,)
+    part_unused: torch.Tensor  # int32: the vertices below V_pad in no part
 
     bone_parts: tuple
     leaf_parts: tuple
@@ -85,7 +88,9 @@ class FitterPlan:
         return lbs_kernels.PartIndex(pm=self.pm_t_pad, verts=self.part_verts,
                                      seg_offset=self.part_seg_offset, part_seg=self.part_seg,
                                      vpart=self.part_of_vertex, joints=self.part_seg_joints,
-                                     joint_offset=self.part_seg_joint_offset)
+                                     joint_offset=self.part_seg_joint_offset,
+                                     tile_offset=self.part_tile_offset,
+                                     tile_seg=self.part_tile_seg, unused=self.part_unused)
 
 
 def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int] = None,
@@ -217,6 +222,9 @@ def build_plan(bm: BodyModel, enable_kid: bool = False, num_betas: Optional[int]
         part_of_vertex=parts.vpart,
         part_seg_joints=parts.joints,
         part_seg_joint_offset=parts.joint_offset,
+        part_tile_offset=parts.tile_offset,
+        part_tile_seg=parts.tile_seg,
+        part_unused=parts.unused,
         bone_parts=tuple(bone_parts),
         leaf_parts=tuple(leaf_parts),
         bone_pairs=bone_pairs,

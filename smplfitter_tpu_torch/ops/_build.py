@@ -37,20 +37,18 @@ _SIGNATURES = {
     'posed_template_launch': [_P] * 3 + [_I] * 3 + [_P],
     'term1_launch': [_P] * 4 + [_I] * 4 + [_P],
     'wgram_launch': [_P] * 19 + [_I] * 13 + [_P],
-    'lbs_points_bwd_launch': [_P] * 7 + [_I] * 5 + [_P],
+    'lbs_points_bwd_launch': [_P] * 14 + [_I] * 8 + [_P],
     'rhs_bwd_launch': [_P] * 15 + [_I] * 8 + [_P],
     'recon_bwd_launch': [_P] * 15 + [_I] * 6 + [_P],
-    'recon_lbs_bwd_launch': [_P] * 13 + [_I] * 6 + [_P],
+    'recon_lbs_bwd_launch': [_P] * 22 + [_I] * 9 + [_P],
     'part_sums_bwd_launch': [_P] * 10 + [_I] * 5 + [_P],
 }
 # name -> argument types of the shared-memory size queries (restype size_t).
 _SMEM_SIGNATURES = {
     'recon_part_sums_smem_bytes': [_I],
     'gram_assembly_smem_bytes': [_I, _I],
-    'lbs_points_bwd_smem_bytes': [_I],
     'rhs_bwd_smem_bytes': [_I, _I, _I],
     'recon_bwd_smem_bytes': [_I, _I],
-    'recon_lbs_bwd_smem_bytes': [_I],
 }
 
 _lib = None

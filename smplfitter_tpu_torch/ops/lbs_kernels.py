@@ -35,7 +35,12 @@ once per model on the host by :func:`wgram_cover`: segments of at most 32
 vertices of one body part, each with its active joints) and blend over each
 segment's joints only; their wrappers take it as ``cover=`` (None builds one
 from ``weights_pad`` on the host at every call, counted in ``HOST_COVERS``).
-K6 walks the part index's segments and lists (:class:`PartIndex`).
+K6 walks the part index's segments and lists (:class:`PartIndex`). Their
+backward kernels walk the same: K10 the cover its K1 call walked (``cover=``
+again, kept by the autograd Function; None builds one, counted under
+``lbs_points_bwd``), K14 the part index's 32-vertex tiles; both take the posed
+template from K7 and dfeat from a split-K GEMM (csrc/dfeat_gemm.cu) over a
+(3, V_pad, B) workspace the kernel's front writes.
 
 Fit weights ω reach K2 as the static column (V_pad, 1) of a weighted fitter,
 and K4, K5 and K6 as that column or as per-call weights (V, B); K9 takes
@@ -140,7 +145,7 @@ LAUNCHES = {
 
 # Covers built on the host because a caller passed none (a copy of the
 # skinning weights from the card at every such call): by wrapper.
-HOST_COVERS = {'lbs_points': 0, 'rhs_moments': 0, 'wgram': 0}
+HOST_COVERS = {'lbs_points': 0, 'rhs_moments': 0, 'wgram': 0, 'lbs_points_bwd': 0}
 
 # Backward passes in torch ops, one count per backward call: K3, K7 and K8,
 # whose JAX VJPs are XLA, and the forms the JAX package differentiates through
@@ -165,16 +170,19 @@ TORCH_VJPS = {
 # package's vertex chunk so the precomputed fields compare directly.
 VC = 256
 
-_TV = 64  # vertex tile of the backward LBS kernels (csrc/lbs_tile.cuh)
-_TB = 64  # batch tile of the backward LBS kernels
+_TV = 64  # vertex tile of the backward LBS kernels K11-K13 (csrc/lbs_tile.cuh)
+_TB = 64  # batch tile of the backward LBS kernels K11-K13
 _SEG_TB = 128  # batch columns per block of the kernels that walk a cover (csrc/template_tile.cuh)
+_PART_TILE = 32  # vertices per tile of a part index's segments (K14's front, csrc/bwd_front.cuh)
 _SEG = 512  # max vertices per part segment of the recon kernel
 _WGRAM_SEG = 32  # max vertices per segment of K9's cover (csrc/wgram.cu: one tile)
-_BWD_MAXJ = 64  # joints of one reduction pass of the backward kernels (csrc/lbs_bwd.cuh)
+_BWD_MAXJ = 64  # joints of one reduction pass of K11-K13 (csrc/lbs_bwd.cuh)
 _SUM_COLS = 256  # batch columns per split of K15's summed form (csrc/part_sums_bwd.cu)
 _VJP_VCHUNK = 512  # vertices per step of a backward in torch ops (bounds its memory)
 _TERM1_TILE = (256, 128)  # K8's block tile: rows of G1, batch columns (csrc/term1.cu)
 _TERM1_KB, _TERM1_JS = 8, 5  # k and j values per k stage of K8
+_DFEAT_TILE = (128, 256)  # the dfeat GEMM's block tile: features, batch columns (csrc/dfeat_gemm.cu)
+_DFEAT_KT = 16  # k rows per stage of the dfeat GEMM
 
 # The JAX package's route for the shape solve of models whose pose template
 # has more features than this (SMPL-X F=487, SMPL+H F=460): the posed template
@@ -258,13 +266,29 @@ def _vertex_splits(Vp: int, B: int, device) -> tuple[int, int]:
 def _segment_runs(n_seg: int, B: int, device, blocks_per_sm: int) -> tuple[int, int]:
     """(segments per block, number of runs) of a kernel that walks a cover:
     runs of the cover's segments such that the grid holds at most
-    ``blocks_per_sm`` blocks per SM (K2: one wave, one block per SM, so
-    its per-run partials stay few; K1: four waves of two blocks per SM)."""
+    ``blocks_per_sm`` blocks per SM (K2 and the fronts of K10 and K14: one
+    wave, one block per SM, so their per-run partials stay few; K1: four
+    waves of two blocks per SM). No segments: no runs."""
     grid_x = -(-B // _SEG_TB)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, min(n_seg, blocks_per_sm * sms // grid_x))
-    per_block = -(-n_seg // want)
+    per_block = max(1, -(-n_seg // want))
     return per_block, -(-n_seg // per_block)
+
+
+def dfeat_splits(F: int, B: int, Vp: int, device) -> int:
+    """Splits of the dfeat GEMM's K = 3 V_pad sum (K10, K14): as many as fill
+    one wave of the card (one resident block per SM) with the grid's
+    (feature, batch) tiles, at most one per 16-row k stage (2 at SMPL-X
+    b4096 on 132 SMs, 4 at SMPL)."""
+    tiles = -(-F // _DFEAT_TILE[0]) * -(-B // _DFEAT_TILE[1])
+    stages = -(-3 * Vp // _DFEAT_KT)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(stages, sms // max(tiles, 1)))
+
+
+def _f32(device, *shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=device)
 
 
 def _walk_cover(name: str, cover, weights_pad, rows: int, device, cuda: bool):
@@ -466,17 +490,19 @@ def _lbs_points_run(pj_cm, feat_cols, weights_pad, consts_pad, cover):
 
 
 class _LbsPoints(torch.autograd.Function):
-    """K1 with K10 as its backward (the JAX package's _lbs_points_diff)."""
+    """K1 with K10 as its backward (the JAX package's _lbs_points_diff); the
+    backward walks the forward's cover."""
 
     @staticmethod
     def forward(ctx, pj_cm, feat_cols, weights_pad, consts_pad, cover=None):
+        ctx.cover = cover
         ctx.save_for_backward(pj_cm, feat_cols, weights_pad, consts_pad)
         return _lbs_points_run(pj_cm, feat_cols, weights_pad, consts_pad, cover)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        dpj, dfeat = lbs_points_bwd(g.contiguous(), *ctx.saved_tensors)
+        dpj, dfeat = lbs_points_bwd(g.contiguous(), *ctx.saved_tensors, cover=ctx.cover)
         return dpj, dfeat, None, None, None
 
 
@@ -495,12 +521,20 @@ def lbs_points_bwd_ref(g, pj_cm, feat_cols, weights_pad, consts_pad):
     return dpj.contiguous(), dfeat.contiguous()
 
 
-def lbs_points_bwd(g, pj_cm, feat_cols, weights_pad, consts_pad):
+def lbs_points_bwd(g, pj_cm, feat_cols, weights_pad, consts_pad,
+                   cover: BlendSegments | None = None):
     """The VJP of :func:`lbs_points` for the cotangent g (3, V_pad, B) of the
     points: dpj (12, J, B) = sum_v w_vj g_a h_c (h_3 = 1; rows a*4+c) and
     dfeat (F, B) = sum_c consts_c^T (Rbar^T g)_c, h = the posed template and
     Rbar the blended rotation. The homogeneous channel 3 is the constant 1 of
-    the forward and adds nothing to dfeat."""
+    the forward and adds nothing to dfeat.
+
+    ``cover`` is the vertex cover the kernel walks, as for :func:`lbs_points`
+    (the forward's, which ``_LbsPoints`` passes on): rows from
+    ``cover.covers`` on must have zero weights. None builds one on the host
+    at every call on the card (counted in HOST_COVERS). The twin ignores it.
+    The kernel also takes two (3, V_pad, B) workspaces: the posed template
+    and Rbar^T g."""
     name = 'lbs_points_bwd'
     cuda = _on_cuda(name, g=g, pj_cm=pj_cm, feat_cols=feat_cols, weights_pad=weights_pad,
                     consts_pad=consts_pad)
@@ -511,16 +545,24 @@ def lbs_points_bwd(g, pj_cm, feat_cols, weights_pad, consts_pad):
     _expect(name, 'feat_cols', feat_cols, (F, B))
     _expect(name, 'weights_pad', weights_pad, (Vp, J))
     _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    if consts_pad.shape[0] < 3:
+        raise ValueError(f'{name}: consts_pad needs at least 3 channels')
     if not cuda:
         return lbs_points_bwd_ref(g, pj_cm, feat_cols, weights_pad, consts_pad)
-    if J > _BWD_MAXJ:
-        raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ}, got {J}')
-    tiles_per_block, n_splits = _vertex_splits(Vp, B, g.device)
-    out = torch.empty((12 * J + F, B), dtype=torch.float32, device=g.device)
-    part = torch.empty((n_splits, 12 * J + F, B), dtype=torch.float32, device=g.device)
+    dev = g.device
+    cover = _walk_cover(name, cover, weights_pad, 0, dev, cuda)
+    _zero_past_cover(name, cover, 'weights_pad', weights_pad)
+    per_run, n_runs = _segment_runs(cover.n_seg, B, dev, 1)
+    splits = dfeat_splits(F, B, Vp, dev)
+    out = _f32(dev, 12 * J + F, B)
+    H, U = _f32(dev, 3, Vp, B), _f32(dev, 3, Vp, B)
+    part = _f32(dev, n_runs, 12 * J, B)
+    part_feat = _f32(dev, splits, F, B) if splits > 1 else None
     err = _build.library().lbs_points_bwd_launch(
-        _ptr(g), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad), _ptr(out),
-        _ptr(part), J, B, F, Vp, tiles_per_block, _stream(out))
+        _ptr(g), _ptr(pj_cm), _ptr(feat_cols), _ptr(weights_pad), _ptr(consts_pad),
+        _ptr(cover.verts), _ptr(cover.seg_offset), _ptr(cover.joints), _ptr(cover.joint_offset),
+        _ptr(H), _ptr(U), _ptr(part), None if part_feat is None else _ptr(part_feat), _ptr(out),
+        J, B, F, Vp, cover.n_seg, cover.covers, per_run, splits, _stream(out))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return out[:12 * J].view(12, J, B), out[12 * J:]
@@ -1267,12 +1309,15 @@ class PartIndex:
     vertex lists cut into segments of at most 512 for the kernel
     (``verts``: used vertices grouped by part; ``seg_offset`` (n_seg + 1):
     segment bounds in ``verts``; ``part_seg`` (J + 1): each part's segments),
-    for the backward kernel each vertex's part (``vpart`` (V_pad,), -1 for
+    for the backward kernels each vertex's part (``vpart`` (V_pad,), -1 for
     none), and each segment's active joints for K6's blend (``joints``,
     ``joint_offset`` (n_seg + 1), as :class:`BlendSegments`'): those of the
     skinning weights the index was built with, every joint without them.
-    K6 blends over these lists only, so they must come from the same
-    weights as its ``weights_pad``."""
+    K6 and K14 blend over these lists only, so they must come from the same
+    weights as their ``weights_pad``. K14 walks the segments in tiles of at
+    most 32 vertices (``tile_offset`` (n_tiles + 1): tile bounds in
+    ``verts``; ``tile_seg`` (n_tiles): each tile's segment) and zeroes the
+    rows of ``unused``, the vertices below V_pad in no part."""
 
     pm: torch.Tensor
     verts: torch.Tensor
@@ -1281,10 +1326,17 @@ class PartIndex:
     vpart: torch.Tensor
     joints: torch.Tensor
     joint_offset: torch.Tensor
+    tile_offset: torch.Tensor
+    tile_seg: torch.Tensor
+    unused: torch.Tensor
 
     @property
     def n_seg(self) -> int:
         return self.seg_offset.shape[0] - 1
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tile_offset.shape[0] - 1
 
     @classmethod
     def from_membership(cls, pm: np.ndarray, device, weights=None) -> 'PartIndex':
@@ -1305,10 +1357,15 @@ class PartIndex:
         w = None if weights is None else np.asarray(weights)
         joints, joint_offset, _ = _active_joints(w, verts, np.asarray(seg_offset), pm.shape[0])
         vpart = np.where(pm.any(axis=0), pm.argmax(axis=0), -1)
+        tiles = [(b, s) for s in range(len(seg_offset) - 1)
+                 for b in range(seg_offset[s], seg_offset[s + 1], _PART_TILE)]
         return cls(pm=torch.as_tensor(pm, device=device), verts=_i32(verts, device),
                    seg_offset=_i32(seg_offset, device), part_seg=_i32(part_seg, device),
                    vpart=_i32(vpart, device), joints=_i32(joints, device),
-                   joint_offset=_i32(joint_offset, device))
+                   joint_offset=_i32(joint_offset, device),
+                   tile_offset=_i32([b for b, _ in tiles] + [len(verts)], device),
+                   tile_seg=_i32([s for _, s in tiles], device),
+                   unused=_i32(np.nonzero(vpart < 0)[0], device))
 
 
 def recon_part_sums_cached_ref(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, pm, weights_pad,
@@ -1874,21 +1931,31 @@ def recon_part_sums_bwd(graw, gst, gsa, tgt_vm, pj_cm, feat_cols, weights_pad, c
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
     if omega is not None:
         _omega_strides(name, omega, v_t, B, Vp, static_only=True)
+    if consts_pad.shape[0] < 3:
+        raise ValueError(f'{name}: consts_pad needs at least 3 channels')
     if not cuda:
         return recon_part_sums_bwd_ref(graw, gst, gsa, tgt_vm, pj_cm, feat_cols, weights_pad,
                                        consts_pad, parts.pm, **extra)
-    if J > _BWD_MAXJ:
-        raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ}, got {J}')
-    vp = _vpart(name, parts, Vp, graw.device)
     dev = graw.device
-    tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
-    dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
-    out = torch.empty((12 * J + F, B), dtype=torch.float32, device=dev)
-    part = torch.empty((n_splits, 12 * J + F, B), dtype=torch.float32, device=dev)
+    vp = _vpart(name, parts, Vp, dev)
+    _index_tensors(name, dev, parts.verts, parts.tile_offset, parts.tile_seg, parts.joints,
+                   parts.joint_offset, parts.unused)
+    if parts.verts.shape[0] + parts.unused.shape[0] != Vp:
+        raise ValueError(f'{name}: the part index does not hold each of the {Vp} rows once')
+    per_run, n_runs = _segment_runs(parts.n_tiles, B, dev, 1)
+    n_runs = max(n_runs, 1)
+    splits = dfeat_splits(F, B, Vp, dev)
+    dtgt, out = _f32(dev, 3, v_t, B), _f32(dev, 12 * J + F, B)
+    H, U = _f32(dev, 3, Vp, B), _f32(dev, 3, Vp, B)
+    part = _f32(dev, n_runs, 12 * J, B)
+    part_feat = _f32(dev, splits, F, B) if splits > 1 else None
     err = _build.library().recon_lbs_bwd_launch(
         _ptr(graw), _ptr(gst), _ptr(gsa), _ptr(tgt_vm), _ptr(pj_cm), _ptr(feat_cols),
-        _ptr(weights_pad), _ptr(consts_pad), None if omega is None else _ptr(omega), _ptr(vp),
-        _ptr(dtgt), _ptr(out), _ptr(part), J, B, F, v_t, Vp, tiles_per_block, _stream(out))
+        _ptr(weights_pad), _ptr(consts_pad), None if omega is None else _ptr(omega),
+        _ptr(parts.verts), _ptr(parts.tile_offset), _ptr(parts.tile_seg), _ptr(parts.joints),
+        _ptr(parts.joint_offset), _ptr(vp), _ptr(parts.unused), _ptr(dtgt), _ptr(H), _ptr(U),
+        _ptr(part), None if part_feat is None else _ptr(part_feat), _ptr(out), J, B, F, v_t, Vp,
+        parts.n_tiles, parts.unused.shape[0], per_run, splits, _stream(out))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return dtgt, out[:12 * J].view(12, J, B), out[12 * J:]

@@ -6,7 +6,9 @@ and static: K9 and the ω forms of K2, K4, K5 and K6); the backward kernels
 K10-K15 against their twins, the launches and torch-op backward passes of
 every gradient path, and gradients on the card against the CPU; the GEMM
 kernels K7 and K8 on seeded operands at the shapes whose edges they mask,
-against their twins and bit for bit against a second call.
+against their twins and bit for bit against a second call; the kernels that
+walk active-joint lists (K9, K6, K1, K2, and the backward kernels K10 and
+K14 at MANO, SMPL and SMPL-X widths) the same way.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -804,6 +806,75 @@ def test_rhs_moments_kernel_at_edges(card, form, E, omega, dense):
         out = _hold_all(wrapper, args, kw, key + ('_w' if omega else ''))
         if form == 'emit':
             assert torch.equal(out[2][:, COVER_V:], torch.zeros_like(out[2][:, COVER_V:]))
+
+
+# ---------------------------------------------------------------------------
+# K10 and K14 at their edges: fronts over a cover's or a part index's tiles
+# ---------------------------------------------------------------------------
+
+# (V, J, F): MANO V = 778 (V % 256 = 10: a short last segment), SMPL and
+# SMPL-X widths with their fitted meshes' template widths.
+BWD_SHAPES = {'mano': (778, 16, 146), 'smpl': (6890, 24, 219), 'smplx': (10475, 55, 503)}
+BWD_BATCHES = [1, 33, 256]
+
+
+def _bwd_model(name, dense):
+    V, J, F = BWD_SHAPES[name]
+    w = _skinning(V + J, V, J, dense)
+    return V, J, F, w, _template(F + 3, F, w.shape[0], V)
+
+
+@pytest.mark.parametrize('name, dense', [('mano', False), ('smpl', False), ('smplx', False),
+                                         ('smplx', True)])
+def test_lbs_points_bwd_kernel_at_edges(card, name, dense):
+    """K10 on seeded operands over the model's cover: within REL_TOL of the
+    twin and bit for bit on a repeat at every batch of BWD_BATCHES; without
+    a cover (one of every V_pad row built on the host, counted; its segments
+    group the rows otherwise, so its sums run in another order) within
+    REL_TOL of the twin."""
+    V, J, F, w, consts = _bwd_model(name, dense)
+    vp = w.shape[0]
+    cover = lbs_kernels.wgram_cover(w.cpu().numpy(), V, 'cuda')
+    for batch in BWD_BATCHES:
+        seed = 10 * V + batch
+        args = (_normal(seed, 3, vp, batch), _normal(seed + 1, 12, J, batch, scale=0.5),
+                _normal(seed + 2, F, batch), w, consts)
+        _hold_all('lbs_points_bwd', args, dict(cover=cover), 'lbs_points_bwd')
+    with torch.no_grad():
+        built = lbs_kernels.lbs_points_bwd(*args)
+        want = lbs_kernels.twin_call('lbs_points_bwd', args, {})
+    assert lbs_kernels.HOST_COVERS['lbs_points_bwd'] == 1
+    for b, t in zip(built, want, strict=True):
+        assert (b - t).abs().max().item() <= REL_TOL * t.abs().max().item()
+
+
+@pytest.mark.parametrize('omega', [False, True])
+@pytest.mark.parametrize('name, dense', [('mano', False), ('smpl', False), ('smplx', False),
+                                         ('smplx', True)])
+def test_recon_part_sums_bwd_kernel_at_edges(card, name, dense, omega):
+    """K14 (unweighted and static ω) on seeded operands over a part index of
+    parts of 1, 63 and 513 vertices and every 11th vertex in none (their
+    dtgt rows zero), targets of all V rows and of fewer: within REL_TOL of
+    the twin and bit for bit on a repeat at every batch of BWD_BATCHES."""
+    V, J, F, w, consts = _bwd_model(name, dense)
+    vp = w.shape[0]
+    parts = lbs_kernels.PartIndex.from_membership(_parts(V, J), 'cuda', weights=w.cpu().numpy())
+    kw = {}
+    if omega:
+        om = np.random.default_rng(V).uniform(0.1, 2.0, (vp, 1))
+        om[::5] = 0.0
+        om[V:] = 0.0
+        kw['omega'] = torch.as_tensor(om, dtype=torch.float32, device='cuda')
+    for batch, v_t in zip(BWD_BATCHES, (V, V - 37, V)):
+        seed = 10 * V + batch
+        args = (_normal(seed, 9, J, batch), _normal(seed + 1, 3, J, batch),
+                _normal(seed + 2, 3, J, batch), _normal(seed + 3, 3, v_t, batch),
+                _normal(seed + 4, 12, J, batch, scale=0.5), _normal(seed + 5, F, batch), w,
+                consts, parts)
+        (dtgt, _, _) = _hold_all('recon_part_sums_bwd', args, kw,
+                                 'recon_part_sums_bwd' + ('_w' if omega else ''))
+        none = parts.unused[parts.unused < v_t].long()
+        assert torch.equal(dtgt[:, none], torch.zeros_like(dtgt[:, none]))
 
 
 def test_call_weighted_fit_at_32_betas(tmp_path_factory):
