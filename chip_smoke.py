@@ -20,12 +20,12 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     reckoned from the same operands, its blends counted at the operands'
     nonzero skinning weights; the kernels that have such a call (K7 and K8,
     the GEMMs of csrc/sgemm_tile.cuh) and the kernels that blend over each
-    segment's active joints (K9, K6 in its three forms) also repeat bit for
-    bit on the same operands, as do K1 and every form of K2, and a line
-    gives K7's and K8's TFLOP/s beside the call's; K9 in scale modes 1 and
-    2, K6's ω forms where no path reached them, on SMPL-X K9, K6, K1 and K2's
-    cached forms with dense skinning weights (every joint on every vertex)
-    and K9 and K2's cached forms at E = 32, on SMPL K2's emit form with
+    segment's active joints (K9, K6 and K4 in their three forms) also repeat
+    bit for bit on the same operands, as do K1 and every form of K2, and a
+    line gives K7's and K8's TFLOP/s beside the call's; K9 in scale modes 1
+    and 2, K6's ω forms where no path reached them, on SMPL-X K9, K6, K4, K1
+    and K2's cached forms with dense skinning weights (every joint on every
+    vertex) and K9 and K2's cached forms at E = 32, on SMPL K2's emit form with
     dense weights, each held and timed the same way (hold_blend_variants),
     K6 beside the same function from K7 and K4's cached form, and K1 beside
     K7 on K1's own (feat, consts); and times each torch-op backward pass
@@ -74,10 +74,10 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     whose V % 256 = 10 puts a partial last vertex tile in every kernel) at
     B=4096 and B=1000, and K15's summed form on operands derived from the
     batched form's, asserting which kernels each model's gradients reach
-    (BWD_CAPTURED), with times, twin times and bounds at B=4096; K10 and
-    K14 (which walk a cover's and a part index's active-joint lists) also
-    repeat bit for bit, and on SMPL-X are held and timed the same way with
-    dense skinning weights (dense_bwd_variants);
+    (BWD_CAPTURED), with times, twin times and bounds at B=4096; K10, K13
+    and K14 (which walk a cover's and a part index's active-joint lists)
+    also repeat bit for bit, and on SMPL-X are held and timed the same way
+    with dense skinning weights (dense_bwd_variants);
 14. the value and gradient at B=4096, with the fit's ms and the peak memory
     in the same call and the launches and torch-op backward passes
     (TORCH_VJPS) per gradient asserted: ``get_fit_grad_fn`` on the SMPL and
@@ -586,13 +586,15 @@ def twin_call(lbs_kernels, key, args, kwargs):
 
 
 # Besides the kernels with a library call (K7, K8), the kernels redesigned
-# for Hopper (K9, K6, K1, every form of K2, K10 and K14) also repeat bit for
-# bit on the same operands.
+# for Hopper (K9, K6, K1, every form of K2, K4, K10, K13 and K14) also repeat
+# bit for bit on the same operands.
 K2_KEYS = ('rhs_moments_h', 'rhs_moments', 'rhs_moments_scale', 'rhs_moments_cached',
            'rhs_moments_cached_scale')
 REPEAT_KEYS = ('wgram', 'recon_part_sums', 'recon_part_sums_w', 'lbs_points', *K2_KEYS,
-               *(key + '_w' for key in K2_KEYS), 'lbs_points_bwd', 'recon_part_sums_bwd',
-               'recon_part_sums_bwd_w')
+               *(key + '_w' for key in K2_KEYS), 'recon_part_sums_cached',
+               'recon_part_sums_cached_w', 'lbs_points_bwd', 'recon_part_sums_bwd',
+               'recon_part_sums_bwd_w', 'recon_part_sums_cached_bwd',
+               'recon_part_sums_cached_bwd_w')
 
 
 def library_call(torch, key):
@@ -961,14 +963,32 @@ def k6_forms(torch, calls):
     return forms
 
 
+def dense_parts(torch, lbs_kernels, parts, w, V):
+    """Dense skinning weights (dense_weights) in place of ``w`` and a part
+    index of the same membership with those weights' lists: (parts, w)."""
+    wd = dense_weights(torch, w, V)
+    return (lbs_kernels.PartIndex.from_membership(parts.pm.cpu().numpy(), w.device,
+                                                  weights=wd.cpu().numpy()), wd)
+
+
+def k4_forms(calls):
+    """K4's forms on the paths' operands: the first captured call
+    unweighted, with static ω and with per-call ω. name -> (key, args, kw)."""
+    forms = {'': ('recon_part_sums_cached',) + calls['recon_part_sums_cached'][0]}
+    for a, k in calls['recon_part_sums_cached_w']:
+        form = ' static' if k['omega'].shape[1] == 1 else ' per-call'
+        forms.setdefault(form, ('recon_part_sums_cached_w', a, k))
+    return forms
+
+
 def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model) -> None:
-    """The operand sets of this slice's redesigned kernels beyond the fitting
-    paths' own calls, each held to its twin (and to a second call, bit for
-    bit) and, at B=4096, timed (hold_to_twin): K9 in scale modes 1 and 2 (on
+    """The operand sets of the redesigned kernels beyond the fitting paths'
+    own calls, each held to its twin (and to a second call, bit for bit)
+    and, at B=4096, timed (hold_to_twin): K9 in scale modes 1 and 2 (on
     the first captured call, centred as the fitter centres them) and K6's ω
     forms where no path captured them (k6_forms); on SMPL-X also dense
-    skinning weights for K9 (modes 0-2) and K6 (its three forms), and K9 at
-    E = 32 with the scale column, and K1 and K2 (cover_variants); and at
+    skinning weights for K9 (modes 0-2), K6 and K4 (their three forms), and
+    K9 at E = 32 with the scale column, and K1 and K2 (cover_variants); and at
     B=4096 K6's yardstick: the same function from the port's own kernels, K7
     into a (3, V_pad, B) workspace and K4's cached form, held to K6's twin and
     timed beside K6, and K1 beside K7 on K1's own (feat, consts), a
@@ -999,10 +1019,11 @@ def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model)
         sets['wgram E=32 mode 2'] = ('wgram', wide, dict(kw9, scale_mode=2,
                                                          mu_s=scale_mean(torch, tgt, om, 2)))
         for form, (key, a, k) in forms.items():
-            wd = dense_weights(torch, a[3], a[0].shape[1])
-            parts = lbs_kernels.PartIndex.from_membership(a[5].pm.cpu().numpy(), dev,
-                                                          weights=wd.cpu().numpy())
+            parts, wd = dense_parts(torch, lbs_kernels, a[5], a[3], a[0].shape[1])
             sets[f'recon_part_sums dense{form}'] = (key, a[:3] + (wd, a[4], parts), k)
+        for form, (key, a, k) in k4_forms(calls).items():
+            parts, wd = dense_parts(torch, lbs_kernels, a[5], a[6], a[0].shape[1])
+            sets[f'recon_part_sums_cached dense{form}'] = (key, a[:5] + (parts, wd), k)
     sets.update(cover_variants(torch, lbs_kernels, calls, model))
     for name, (key, args, kw) in sets.items():
         hold_to_twin(torch, lbs_kernels, f'{label} {name}', key, [(args, kw)], batch,
@@ -1225,10 +1246,10 @@ def check_backward_kernels(torch, lbs_kernels, label, bm, fitters, path_fitters,
 
 
 def dense_bwd_variants(torch, lbs_kernels, calls) -> dict:
-    """K10 and K14 (unweighted and ω) on the first captured call of each,
-    with dense skinning weights (every joint on every vertex: the longest
-    lists) and the lists of those weights: a cover for K10, a part index
-    for K14. name -> (key, args, kwargs)."""
+    """K10, K13 and K14 (unweighted and ω) on the first captured call of
+    each, with dense skinning weights (every joint on every vertex: the
+    longest lists) and the lists of those weights: a cover for K10, a part
+    index for K13 and K14. name -> (key, args, kwargs)."""
     sets = {}
     args, kw = calls['lbs_points_bwd'][0]
     dev = args[0].device
@@ -1238,10 +1259,12 @@ def dense_bwd_variants(torch, lbs_kernels, calls) -> dict:
         kw, cover=lbs_kernels.wgram_cover(wd.cpu().numpy(), V, dev)))
     for key in ('recon_part_sums_bwd', 'recon_part_sums_bwd_w'):
         args, kw = calls[key][0]
-        wd = dense_weights(torch, args[6], args[3].shape[1])
-        parts = lbs_kernels.PartIndex.from_membership(args[8].pm.cpu().numpy(), dev,
-                                                      weights=wd.cpu().numpy())
+        parts, wd = dense_parts(torch, lbs_kernels, args[8], args[6], args[3].shape[1])
         sets[f'{key} dense'] = (key, args[:6] + (wd, args[7], parts), kw)
+    for key in ('recon_part_sums_cached_bwd', 'recon_part_sums_cached_bwd_w'):
+        args, kw = calls[key][0]
+        parts, wd = dense_parts(torch, lbs_kernels, args[8], args[9], args[3].shape[1])
+        sets[f'{key} dense'] = (key, args[:8] + (parts, wd), kw)
     return sets
 
 

@@ -1,6 +1,7 @@
-// The front of the backward LBS kernels K10 (lbs_points_bwd.cu) and K14
-// (recon_lbs_part_sums_bwd.cu): the pieces a block uses on one tile of listed
-// vertices, and the two GEMMs around it.
+// The front of the backward LBS kernels K10 (lbs_points_bwd.cu), K13
+// (recon_bwd.cu) and K14 (recon_lbs_part_sums_bwd.cu): the pieces a block
+// uses on one tile of listed vertices, and the two GEMMs around it (K10 and
+// K14; K13 reads a cached template and sums its shape rows in the front).
 //
 // A kernel computes, for a vertex cotangent g of the points (K10: given; K14:
 // dpos, from the part cotangents), the joint cotangents
@@ -26,6 +27,9 @@
 //    entry is the same lane for every tile, so no barrier orders the adds);
 //    the runs' partials are added in run order by split_sum_kernel;
 // 3. dfeat by the split-K GEMM of dfeat_gemm.cu over U, K = 3 V_pad.
+// The part index's fronts (K13, K14) take dpos and dtgt from the 15
+// cotangent rows of the tile's one part (part_dpos, store_dtgt) and zero the
+// rows that no part holds (zero_unused).
 // No atomics: two runs give the same bits.
 #pragma once
 
@@ -60,39 +64,6 @@ __device__ __forceinline__ void tile_vertices(int vid[4], const int* __restrict_
                                               Tile tl, int tm) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) vid[i] = 4 * tm + i < tl.n ? __ldg(verts + tl.beg + 4 * tm + i) : -1;
-}
-
-// x[c][i][k] = src[c, vid_i, bc + k] of a (3, Vx, B) array, zero for a row
-// with no vertex and past the batch edge.
-template <bool VEC>
-__device__ __forceinline__ void load3(float (&x)[3][4][4], const float* __restrict__ src, int Vx,
-                                      const int vid[4], int B, int bc) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if (vid[i] >= 0) {
-        tmpl::load4<VEC>(x[c][i], src + ((size_t)c * Vx + vid[i]) * B + bc, bc, B);
-      } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) x[c][i][k] = 0.f;
-      }
-    }
-}
-
-// dst[c, vid_i, bc + k] = x[c][i][k] of a (3, Vx, B) array (nothing for a row
-// with no vertex).
-template <bool VEC>
-__device__ __forceinline__ void store3(float* __restrict__ dst, int Vx,
-                                       const float (&x)[3][4][4], const int vid[4], int B,
-                                       int bc) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (vid[i] < 0) continue;
-#pragma unroll
-    for (int c = 0; c < 3; ++c)
-      tmpl::store4<VEC>(dst + ((size_t)c * Vx + vid[i]) * B + bc, x[c][i], bc, B);
-  }
 }
 
 // The lane's own dpj entries: rows a*4 + 2q + tm / 4 (a < 3, q < 2) of every
@@ -154,6 +125,108 @@ __device__ inline void add_dpj(float* __restrict__ part, const float (&g)[3][4][
         if (col < B) part[((size_t)(a * 4 + 2 * q + (tm >> 2)) * J + j) * B + col] += r;
       }
     }
+  }
+}
+
+// The part cotangents' pull on the positions of the thread's vertices, all
+// of one part p (its rows of gsa (3, J, B) and graw (9, J, B) read once per
+// tile and column): dpos_d = ω (gsa[d, p] + sum_c graw[c*3+d, p] t_c), with
+// the targets t (3, Vt, B) zero past their rows.
+template <bool VEC>
+__device__ inline void part_dpos(float (&dpos)[3][4][4], const float* __restrict__ graw,
+                                 const float* __restrict__ gsa, const float* __restrict__ tgt,
+                                 int p, const float om_v[4], const int vid[4], int J, int B,
+                                 int Vt, int bc) {
+  float tv[3][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (vid[i] >= 0 && vid[i] < Vt) {
+        tmpl::load4<VEC>(tv[c][i], tgt + ((size_t)c * Vt + vid[i]) * B + bc, bc, B);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) tv[c][i][k] = 0.f;
+      }
+    }
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float gs[4];
+    tmpl::load4<VEC>(gs, gsa + ((size_t)d * J + p) * B + bc, bc, B);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dpos[d][i][k] = gs[k];
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float wcd[4];
+      tmpl::load4<VEC>(wcd, graw + ((size_t)(c * 3 + d) * J + p) * B + bc, bc, B);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dpos[d][i][k] = fmaf(wcd[k], tv[c][i][k], dpos[d][i][k]);
+    }
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dpos[d][i][k] *= om_v[i];
+}
+
+// dtgt_c = ω (gst[c, p] + sum_d graw[c*3+d, p] pos_d) at the thread's
+// vertices below Vt, of one part p.
+template <bool VEC>
+__device__ inline void store_dtgt(float* __restrict__ dtgt, const float (&pos)[3][4][4],
+                                  const float* __restrict__ graw, const float* __restrict__ gst,
+                                  int p, const float om_v[4], const int vid[4], int J, int B,
+                                  int Vt, int bc) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float dt[4][4], gs[4];
+    tmpl::load4<VEC>(gs, gst + ((size_t)c * J + p) * B + bc, bc, B);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dt[i][k] = gs[k];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      float wcd[4];
+      tmpl::load4<VEC>(wcd, graw + ((size_t)(c * 3 + d) * J + p) * B + bc, bc, B);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dt[i][k] = fmaf(wcd[k], pos[d][i][k], dt[i][k]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (vid[i] < 0 || vid[i] >= Vt) continue;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dt[i][k] *= om_v[i];
+      tmpl::store4<VEC>(dtgt + ((size_t)c * Vt + vid[i]) * B + bc, dt[i], bc, B);
+    }
+  }
+}
+
+// This block's share (by blockIdx.y of gridDim.y) of the rows that no part
+// holds, unused[0 .. n_unused): zero there dtgt (3, Vt, B) below Vt and a
+// (3, Vp, B) field U, at the block's 128 columns from b0.
+template <bool VEC>
+__device__ inline void zero_unused(float* __restrict__ dtgt, float* __restrict__ U,
+                                   const int* __restrict__ unused, int n_unused, int Vt, int Vp,
+                                   int B, int b0) {
+  const int u0 = (int)((long)n_unused * blockIdx.y / gridDim.y);
+  const int u1 = (int)((long)n_unused * (blockIdx.y + 1) / gridDim.y);
+  for (int idx = threadIdx.x; idx < (u1 - u0) * 3 * (TB / 4); idx += NT) {
+    const int row = u0 + idx / (3 * (TB / 4)), c = (idx / (TB / 4)) % 3;
+    const int b = b0 + 4 * (idx % (TB / 4));
+    const int v = __ldg(unused + row);
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    if (v < Vt) tmpl::store4<VEC>(dtgt + ((size_t)c * Vt + v) * B + b, zero, b, B);
+    tmpl::store4<VEC>(U + ((size_t)c * Vp + v) * B + b, zero, b, B);
   }
 }
 

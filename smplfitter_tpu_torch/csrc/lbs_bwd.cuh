@@ -1,5 +1,5 @@
-// Shared pieces of the backward kernels K11 and K12 (rhs_bwd.cu) and K13
-// (recon_bwd.cu). K10 and K14 walk vertex segments instead (bwd_front.cuh).
+// Shared pieces of the backward kernels K11 and K12 (rhs_bwd.cu). K10, K13
+// and K14 walk vertex segments instead (bwd_front.cuh).
 //
 // Each backward kernel walks the same tiles as its forward kernel (lbs_tile.cuh:
 // a block of 256 threads owns 64 batch columns and a split of the vertex

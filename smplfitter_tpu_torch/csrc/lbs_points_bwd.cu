@@ -58,14 +58,14 @@ lbs_points_bwd_front(const float* __restrict__ g, const float* __restrict__ H,
     int vid[4];
     front::tile_vertices(vid, verts, tl, tm);
     float gv[3][4][4];
-    front::load3<VEC>(gv, g, Vp, vid, B, bc);
+    tmpl::load3<VEC>(gv, g, Vp, vid, B, bc);
     {
       float u[3][4][4];
       tmpl::blend_project<VEC>(u, gv, pj, w, joints + j0, nA, J, B, bc, vid);
-      front::store3<VEC>(U, Vp, u, vid, B, bc);
+      tmpl::store3<VEC>(U, Vp, u, vid, B, bc);
     }
     float h[3][4][4];
-    front::load3<VEC>(h, H, Vp, vid, B, bc);
+    tmpl::load3<VEC>(h, H, Vp, vid, B, bc);
     front::add_dpj(part_run, gv, h, w, joints + j0, nA, J, B, bc, vid, tm);
   }
 }

@@ -1,6 +1,6 @@
-// Shared tile routines of the backward LBS kernels K11-K13 (lbs_bwd.cuh and
-// the kernels on it: rhs_bwd.cu, recon_bwd.cu). The forward kernels K1, K2
-// and K6 and the backward kernels K10 and K14 walk vertex segments through
+// Shared tile routines of the backward LBS kernels K11 and K12 (lbs_bwd.cuh
+// and the kernel on it: rhs_bwd.cu). The forward kernels K1, K2, K4 and K6
+// and the backward kernels K10, K13 and K14 walk vertex segments through
 // template_tile.cuh instead.
 //
 // A block of 256 threads owns a tile of TV vertices x TB batch columns; each

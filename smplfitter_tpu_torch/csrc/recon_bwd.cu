@@ -6,217 +6,201 @@
 // computes, per vertex v and column, hfull = homog + SD_v x, pos = blended
 // [R|t] . hfull, and with p(v) the vertex's body part the sums raw[c*3+d, p] of
 // t_c pos_d ω, s_t[c, p] of t_c ω and s_a[d, p] of pos_d ω (ω = 1 without fit
-// weights; with them zero past the targets' rows). With the cotangents graw
-// (9, J, B), gst and gsa (3, J, B), read at the vertex's own part row
-// (W = graw[:, p(v)]: the membership is one-hot, so the per-vertex weight of
-// the part sums is a gather, no product over the joints),
+// weights; with them the static column, zero past the targets' rows). With
+// the cotangents graw (9, J, B), gst and gsa (3, J, B), read at the vertex's
+// own part row (W = graw[:, p(v)]: the membership is one-hot, so this is a
+// gather),
 //     dtgt_c = ω (gst[c, p] + sum_d W[c*3+d] pos_d)                  (3, V_t, B)
 //     dpos_d = ω (gsa[d, p] + sum_c W[c*3+d] t_c)
-//     dh_c   = sum_a blend_ac dpos_a                                  (3, V_pad, B)
+//     dh_c   = (Rbar^T dpos)_c                                        (3, V_pad, B)
 //     dx[e]  = sum_v sum_c SD_v[c, e] dh_c                            (E, B)
 //     dpj[a*4+c, j] = sum_v w_vj dpos_a hfull_c  (hfull_3 = 1)         (12, J, B)
-// A vertex outside every part contributes nothing. dh is the cotangent of the
-// cached template; K2's and K7's backward passes fold it onto their inputs.
+// A vertex outside every part contributes nothing (its dtgt and dh rows are
+// zero). dh is the cotangent of the cached template; K2's and K7's backward
+// passes fold it onto their inputs.
 //
-// What bounds it on an H100: f32 arithmetic. Per (vertex, column): SD x (3E),
-// the position (12J), the projection of dpos (9J), 12 joint reductions (12J)
-// and 3 shape reductions (3E): at SMPL b4096 (J = 24, E = 10) about 7168 * 4096
-// * 880 * 2 = 52 GFLOP; the 15 gathered cotangents per (vertex, column) come
-// through the cache (the block's slice is 15 J 64 floats).
+// What bounds it on an H100: bytes. tgt and homog are read and dtgt and dh
+// written once, 4 x 3 x V x B floats (2.06 GB at SMPL-X b4096, 0.62 ms at
+// 3.35 TB/s), against 24 FMAs per joint that skins the vertex (the blend and
+// the dpj fields), 6E (SD x and dx) and about 45 more per (vertex, column).
 //
-// Design: K2's vertex tiles (lbs_tile.cuh) rather than K4's part segments: the
-// dpj reduction spans all parts, and per-segment partials of (12 J + E) rows
-// would be n_seg times larger than per-split ones. Each vertex's part comes
-// from a per-vertex index (-1 for none). dtgt and dh are written once per
-// vertex; dpj and dx go to the split's partials, summed in split order.
-#include "lbs_bwd.cuh"
-
-using namespace lbs;
-using namespace bwd;
+// Design: K14's front (bwd_front.cuh) over the part index's tiles (PartIndex
+// in ops/lbs_kernels.py: each part's vertex list in segments of at most 512,
+// cut into tiles of 32, each segment with the joints that skin one of its
+// vertices), a run of tiles and 128 columns per block, a thread 4 vertices x
+// 4 columns (lane = 4 tm + column group: a warp holds the tile's 32 vertices
+// of 16 columns). There is no template GEMM: hfull is the cached template
+// plus SD x (template_tile.cuh: x staged once per block, the tile's shape
+// directions k-major in one of two shared stages, the next tile's copied by
+// cp.async under this one). A tile's vertices share one part, so its 15
+// cotangent rows are read once per tile and column. Per tile: dpos, dh =
+// Rbar^T dpos over the segment's joints (written out), dx by the warp
+// reduce-scatter of SD^T dh (one owner lane per (e, column), in registers
+// over the run), pos and dtgt, and the dpj sums over the segment's joints
+// into the run's partial; the run's dx goes into its partial after dpj's 12J
+// rows, and split_sum_kernel adds the runs in run order. Each block also
+// zeroes its share of the dtgt and dh rows that no part holds. No atomics: a
+// call repeats bit for bit.
+#include "bwd_front.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
-constexpr int MAXE = 32;
+using front::NT;
+using front::TB;
+using tmpl::EP;
+using tmpl::SD_FLOATS;
 
-template <bool W>
+// x [MAXE][TB], then two stages of shape directions.
+constexpr size_t SMEM_BYTES = sizeof(float) * (tmpl::MAXE * TB + 2 * SD_FLOATS);
+
+template <bool VEC, bool W>
 __global__ void __launch_bounds__(NT, 1)
-recon_bwd_kernel(const float* __restrict__ graw, const float* __restrict__ gst,
-                 const float* __restrict__ gsa, const float* __restrict__ tgt,
-                 const float* __restrict__ pj, const float* __restrict__ x,
-                 const float* __restrict__ sd, const float* __restrict__ homog,
-                 const float* __restrict__ w, const float* __restrict__ om,
-                 const int* __restrict__ vpart, float* __restrict__ dtgt,
-                 float* __restrict__ dh_out, float* __restrict__ part, int J, int E, int B,
-                 int Vt, int Vp, int tiles_per_block) {
-  extern __shared__ float smem[];
-  float* pj_s = smem;                  // [12][J][TB]
-  float* w_s = pj_s + 12 * J * TB;     // [J][TVP]
-  float* sd_s = w_s + J * TVP;         // [3][E][TVP]
-  float* x_s = sd_s + 3 * E * TVP;     // [E][TB]
-  float* work = x_s + E * TB;          // [TV][TB]
-  int* part_s = reinterpret_cast<int*>(work + TV * TB);  // [TV]
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+recon_cached_bwd_front(const float* __restrict__ graw, const float* __restrict__ gst,
+                       const float* __restrict__ gsa, const float* __restrict__ tgt,
+                       const float* __restrict__ pj, const float* __restrict__ x,
+                       const float* __restrict__ sd, const float* __restrict__ homog,
+                       const float* __restrict__ w, const float* __restrict__ om,
+                       const int* __restrict__ verts, const int* __restrict__ tile_offset,
+                       const int* __restrict__ tile_seg, const int* __restrict__ joints,
+                       const int* __restrict__ joint_offset, const int* __restrict__ vpart,
+                       const int* __restrict__ unused, float* __restrict__ dtgt,
+                       float* __restrict__ dh, float* __restrict__ part, int J, int E, int B,
+                       int Vt, int Vp, int n_tiles, int n_unused, int tiles_per_run) {
+  extern __shared__ float4 smem4[];
+  float* const x_s = reinterpret_cast<float*>(smem4);  // [E][TB]
+  float* const sd_s = x_s + tmpl::MAXE * TB;           // [2][3][E][SDL]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tm = lane / 4;             // vertex group: tile rows 4 tm .. 4 tm + 3
+  const int tn = 4 * warp + lane % 4;  // column group: 4 tn .. 4 tn + 3
   const int b0 = blockIdx.x * TB;
-  const int R = 12 * J + E;
-  float* part_blk = part + (size_t)blockIdx.y * R * B;
+  const int bc = b0 + 4 * tn;
+  const int t0 = blockIdx.y * tiles_per_run;
+  const int t1 = min(n_tiles, t0 + tiles_per_run);
+  float* const part_run = part + (size_t)blockIdx.y * (12 * J + E) * B;
 
-  load_pj_tile(pj_s, pj, J, B, b0);
-  for (int idx = threadIdx.x; idx < E * TB; idx += NT) {
-    const int b = b0 + idx % TB;
-    x_s[idx] = b < B ? x[(size_t)(idx / TB) * B + b] : 0.f;
+  front::zero_dpj(part_run, J, B, bc, tm);
+  tmpl::stage_columns(x_s, x, E, B, b0);
+  if (t0 < t1) {
+    const front::Tile tl = front::tile_at(tile_offset, tile_seg, t0);
+    tmpl::stage_shape_rows(sd_s, sd, verts + tl.beg, tl.n, E, Vp);
   }
-  zero_split(part_blk, R, B, b0);
+  sgemm::cp_async_commit();
 
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int v0 = (blockIdx.y * tiles_per_block + t) * TV;
-    if (v0 >= Vp) break;  // uniform across the block
-    __syncthreads();      // the previous tile is done with w_s, sd_s, part_s and work
-    const TileRows rows{v0, Vp};
-    load_w_tile(w_s, w, J, rows);
-    for (int idx = threadIdx.x; idx < TV * 3 * E; idx += NT) {
-      const int ce = idx % (3 * E), vv = idx / (3 * E);
-      const int v = v0 + vv;
-      sd_s[ce * TVP + vv] = (v < Vp) ? sd[((size_t)(ce / E) * Vp + v) * E + ce % E] : 0.f;
-    }
-    for (int vv = threadIdx.x; vv < TV; vv += NT) part_s[vv] = v0 + vv < Vp ? vpart[v0 + vv] : -1;
+  float dx[EP];
+#pragma unroll
+  for (int q = 0; q < EP; ++q) dx[q] = 0.f;
+
+  for (int t = t0; t < t1; ++t) {
+    const front::Tile tl = front::tile_at(tile_offset, tile_seg, t);
+    const int j0 = __ldg(joint_offset + tl.seg), nA = __ldg(joint_offset + tl.seg + 1) - j0;
+    const int* const jl = joints + j0;
+    int vid[4];
+    front::tile_vertices(vid, verts, tl, tm);
+    const int p = __ldg(vpart + __ldg(verts + tl.beg));  // the tile's part
+    float om_v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) om_v[i] = W ? (vid[i] >= 0 && vid[i] < Vt ? om[vid[i]] : 0.f) : 1.f;
+    float h[3][4][4], dpos[3][4][4];
+    tmpl::load3<VEC>(h, homog, Vp, vid, B, bc);
+    front::part_dpos<VEC>(dpos, graw, gsa, tgt, p, om_v, vid, J, B, Vt, bc);
+
+    // This tile's shape directions are in (and x, on the first tile); the
+    // other stage was last read by the previous tile, which every thread has
+    // finished.
+    sgemm::cp_async_wait<0>();
     __syncthreads();
-
-    // hfull = homog + SD x.
-    float hf[3][4][4];
-    load_field(hf, homog, Vp, Vp, v0, B, b0);
-    for (int e = 0; e < E; ++e) {
-      float xv[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) xv[k] = x_s[e * TB + tx + 16 * k];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float s = sd_s[(c * E + e) * TVP + ty + 16 * i];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) hf[c][i][k] = fmaf(s, xv[k], hf[c][i][k]);
-        }
+    if (t + 1 < t1) {
+      const front::Tile nx = front::tile_at(tile_offset, tile_seg, t + 1);
+      tmpl::stage_shape_rows(sd_s + ((t + 1 - t0) & 1) * SD_FLOATS, sd, verts + nx.beg, nx.n,
+                             E, Vp);
     }
+    sgemm::cp_async_commit();
+    const float* const sd_t = sd_s + ((t - t0) & 1) * SD_FLOATS;
+    tmpl::add_shape_dot(h, sd_t, x_s, E, tm, tn);  // h: hfull
 
-    // dtgt and dpos from the cotangents of the vertex's part.
-    float dpos[3][4][4];
+    // dh = Rbar^T dpos, written out and reduced onto dx.
+    {
+      float u[3][4][4];
+      tmpl::blend_project<VEC>(u, dpos, pj, w, jl, nA, J, B, bc, vid);
+      tmpl::store3<VEC>(dh, Vp, u, vid, B, bc);
+      tmpl::add_shape_rows(dx, u, sd_t, E, tm);
+    }
+    // dtgt from pos, blended from hfull.
     {
       float pos[3][4][4];
-      pos_tile(pos, hf, pj_s, w_s, J);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int v = v0 + ty + 16 * i;
-        const int p = part_s[ty + 16 * i];
-        const float wv = W ? (v < Vt ? om[v] : 0.f) : 1.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int b = b0 + tx + 16 * k;
-          float dt[3] = {0.f, 0.f, 0.f}, dp[3] = {0.f, 0.f, 0.f};
-          if (p >= 0 && b < B) {
-            float tc[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) tc[c] = v < Vt ? tgt[((size_t)c * Vt + v) * B + b] : 0.f;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-              dt[c] = __ldg(&gst[((size_t)c * J + p) * B + b]);
-              dp[c] = __ldg(&gsa[((size_t)c * J + p) * B + b]);
-            }
-#pragma unroll
-            for (int c = 0; c < 3; ++c)
-#pragma unroll
-              for (int d = 0; d < 3; ++d) {
-                const float wcd = __ldg(&graw[((size_t)(c * 3 + d) * J + p) * B + b]);
-                dt[c] = fmaf(wcd, pos[d][i][k], dt[c]);
-                dp[d] = fmaf(wcd, tc[c], dp[d]);
-              }
-          }
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            if (v < Vt && b < B) dtgt[((size_t)c * Vt + v) * B + b] = dt[c] * wv;
-            dpos[c][i][k] = dp[c] * wv;
-          }
-        }
-      }
+      tmpl::blend_pos<VEC>(pos, h, pj, w, jl, nA, J, B, bc, vid);
+      front::store_dtgt<VEC>(dtgt, pos, graw, gst, p, om_v, vid, J, B, Vt, bc);
     }
-
-    // dh = Rbar^T dpos, written per vertex and reduced onto dx.
-    {
-      float dh[3][4][4];
-      project_rbar(dh, dpos, pj_s, w_s, J);
-      store_field(dh_out, dh, Vp, Vp, v0, B, b0);
-      float acc[4][4];
-      zero4(acc);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        stage_coord(work, dh[c]);
-        rows_dot(acc, sd_s + c * E * TVP, work, E);
-        __syncthreads();
-      }
-      flush_rows(part_blk, 12 * J, acc, E, B, b0);
-    }
-
-    // dpj: the blend applied to hfull (channel 3 is 1).
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float f[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            f[i][k] = dpos[a][i][k] * (c < 3 ? hf[c % 3][i][k] : 1.f);
-        reduce_joint_field(part_blk, (a * 4 + c) * J, f, w_s, work, J, B, b0);
-      }
+    front::add_dpj(part_run, dpos, h, w, jl, nA, J, B, bc, vid, tm);
   }
+  sgemm::cp_async_wait<0>();
+
+  // The lane's own dx entries: rows 12 J + 2q + tm / 4, column bc + tm % 4.
+  const int col = bc + (tm & 3);
+  if (col < B) {
+#pragma unroll
+    for (int q = 0; q < EP; ++q) {
+      const int e = 2 * q + tm / 4;
+      if (e < E) part_run[(size_t)(12 * J + e) * B + col] = dx[q];
+    }
+  }
+  front::zero_unused<VEC>(dtgt, dh, unused, n_unused, Vt, Vp, B, b0);
 }
 
-template <bool W>
-cudaError_t launch_variant(const float* graw, const float* gst, const float* gsa,
-                           const float* tgt, const float* pj, const float* x, const float* sd,
-                           const float* homog, const float* w, const float* om,
-                           const int* vpart, float* dtgt, float* dh, float* part, int J, int E,
-                           int B, int Vt, int Vp, int tiles_per_block, size_t smem,
-                           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(recon_bwd_kernel<W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int n_vtiles = (Vp + TV - 1) / TV;
-  dim3 grid((B + TB - 1) / TB, (n_vtiles + tiles_per_block - 1) / tiles_per_block);
-  recon_bwd_kernel<W><<<grid, NT, smem, stream>>>(graw, gst, gsa, tgt, pj, x, sd, homog, w, om,
-                                                  vpart, dtgt, dh, part, J, E, B, Vt, Vp,
-                                                  tiles_per_block);
+template <bool VEC, bool W>
+cudaError_t launch_front(dim3 grid, cudaStream_t stream, const float* graw, const float* gst,
+                         const float* gsa, const float* tgt, const float* pj, const float* x,
+                         const float* sd, const float* homog, const float* w, const float* om,
+                         const int* verts, const int* tile_offset, const int* tile_seg,
+                         const int* joints, const int* joint_offset, const int* vpart,
+                         const int* unused, float* dtgt, float* dh, float* part, int J, int E,
+                         int B, int Vt, int Vp, int n_tiles, int n_unused, int tiles_per_run) {
+  recon_cached_bwd_front<VEC, W><<<grid, NT, SMEM_BYTES, stream>>>(
+      graw, gst, gsa, tgt, pj, x, sd, homog, w, om, verts, tile_offset, tile_seg, joints,
+      joint_offset, vpart, unused, dtgt, dh, part, J, E, B, Vt, Vp, n_tiles, n_unused,
+      tiles_per_run);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-SMPL_API size_t recon_bwd_smem_bytes(int J, int E) {
-  return sizeof(float) * (12 * J * TB + J * TVP + 3 * E * TVP + E * TB + TV * TB) +
-         sizeof(int) * TV;
-}
-
 // graw (9, J, B), gst (3, J, B), gsa (3, J, B), tgt (3, Vt, B), pj (12, J, B),
 // x (E, B), sd (3, Vp, E), homog (3, Vp, B), w (Vp, J), om null or the static
-// fit weights (Vp, 1), vpart (Vp) int32: each vertex's part or -1 -> dtgt
-// (3, Vt, B), dh (3, Vp, B), out (12 J + E, B): dpj (12, J, B) then dx (E, B).
-// part is scratch of n_splits * (12 J + E) * B floats. Requires J <= 64, E <= 32.
+// fit weights (Vp, 1), the part index's tiles (verts, tile_offset
+// (n_tiles + 1), tile_seg (n_tiles), joints, joint_offset: each segment's
+// active joints), vpart (Vp) each vertex's part or -1, unused (n_unused) the
+// vertices below Vp in no part (with the tiles' vertices, every row below Vp
+// once) -> dtgt (3, Vt, B), dh (3, Vp, B), out (12 J + E, B): dpj (12, J, B)
+// then dx (E, B). part is scratch of n_runs * (12 J + E) * B floats, n_runs =
+// max(1, ceil(n_tiles / tiles_per_run)). Requires E <= 32.
 SMPL_API int recon_bwd_launch(const float* graw, const float* gst, const float* gsa,
                               const float* tgt, const float* pj, const float* x, const float* sd,
                               const float* homog, const float* w, const float* om,
-                              const int* vpart, float* dtgt, float* dh, float* out, float* part,
-                              int J, int E, int B, int Vt, int Vp, int tiles_per_block,
-                              cudaStream_t stream) {
-  if (J > ROWS || E > MAXE) return (int)cudaErrorInvalidValue;
-  const size_t smem = recon_bwd_smem_bytes(J, E);
-  const cudaError_t err =
-      om == nullptr
-          ? launch_variant<false>(graw, gst, gsa, tgt, pj, x, sd, homog, w, om, vpart, dtgt, dh,
-                                  part, J, E, B, Vt, Vp, tiles_per_block, smem, stream)
-          : launch_variant<true>(graw, gst, gsa, tgt, pj, x, sd, homog, w, om, vpart, dtgt, dh,
-                                 part, J, E, B, Vt, Vp, tiles_per_block, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  const int n_vtiles = (Vp + TV - 1) / TV;
-  const int n_splits = (n_vtiles + tiles_per_block - 1) / tiles_per_block;
-  return (int)launch_split_sum(part, out, n_splits, (size_t)(12 * J + E) * B, stream);
+                              const int* verts, const int* tile_offset, const int* tile_seg,
+                              const int* joints, const int* joint_offset, const int* vpart,
+                              const int* unused, float* dtgt, float* dh, float* out, float* part,
+                              int J, int E, int B, int Vt, int Vp, int n_tiles, int n_unused,
+                              int tiles_per_run, cudaStream_t stream) {
+  if (E > tmpl::MAXE || E < 0 || tiles_per_run < 1) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  const bool vec = B % 4 == 0 && sgemm::aligned16(graw) && sgemm::aligned16(gst) &&
+                   sgemm::aligned16(gsa) && sgemm::aligned16(tgt) && sgemm::aligned16(pj) &&
+                   sgemm::aligned16(homog) && sgemm::aligned16(dh) && sgemm::aligned16(dtgt);
+  const int n_runs = n_tiles > 0 ? (n_tiles + tiles_per_run - 1) / tiles_per_run : 1;
+  const dim3 grid((B + TB - 1) / TB, n_runs);
+  int err = 0;
+#define K13_FRONT(v, wt)                                                                       \
+  err = (int)launch_front<v, wt>(grid, stream, graw, gst, gsa, tgt, pj, x, sd, homog, w, om,  \
+                                 verts, tile_offset, tile_seg, joints, joint_offset, vpart,   \
+                                 unused, dtgt, dh, part, J, E, B, Vt, Vp, n_tiles, n_unused,  \
+                                 tiles_per_run);
+  if (vec) {
+    if (om == nullptr) { K13_FRONT(true, false) } else { K13_FRONT(true, true) }
+  } else {
+    if (om == nullptr) { K13_FRONT(false, false) } else { K13_FRONT(false, true) }
+  }
+#undef K13_FRONT
+  if (err != 0) return err;
+  return (int)launch_split_sum(part, out, n_runs, (size_t)(12 * J + E) * B, stream);
 }

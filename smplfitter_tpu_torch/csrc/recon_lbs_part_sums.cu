@@ -27,8 +27,8 @@
 //   in ops/lbs_kernels.py), their [R|t] entries and weights read through L1.
 // - The 15 sums of each thread's 4 columns stay in registers over the
 //   segment; the block sums its 8 vertex groups in order into the segment's
-//   partial, which part_sum_kernel (part_segments.cuh) sums per part in
-//   segment order. No atomics: runs repeat bit for bit. A tile's rows past
+//   partial, which part_sum_kernel sums per part in segment order (both
+//   shared with K4: part_segments.cuh, tile_sums and part_sum_kernel). No atomics: runs repeat bit for bit. A tile's rows past
 //   the segment gather nothing (zero fill) and carry zero weights.
 #include "part_segments.cuh"
 #include "template_tile.cuh"
@@ -39,10 +39,8 @@ using tmpl::NT;
 using tmpl::TB;
 using tmpl::TV;
 
-constexpr int SEG_MAX = 512;         // vertices per segment at most (PartIndex)
-constexpr int RED_FLOATS = NS * 8 * TB;  // [NS][vertex group][TB]
-constexpr int BODY_FLOATS =
-    tmpl::RING_FLOATS > RED_FLOATS ? tmpl::RING_FLOATS : RED_FLOATS;
+constexpr int BODY_FLOATS = tmpl::RING_FLOATS > tile_sums::RED_FLOATS ? tmpl::RING_FLOATS
+                                                                      : tile_sums::RED_FLOATS;
 constexpr size_t SMEM_BYTES = sizeof(float) * BODY_FLOATS + sizeof(int) * SEG_MAX;
 
 // VEC: B % 4 == 0 and 16-byte aligned feat, pj, tgt (and per-call ω):
@@ -87,61 +85,9 @@ recon_lbs_segments_kernel(const float* __restrict__ tgt, const float* __restrict
     for (int i = 0; i < 4; ++i) vid[i] = rows_s[tile * TV + 4 * tm + i];
     float pos[3][4][4];
     tmpl::blend_pos<VEC>(pos, h, pj, w, joints + j0, nA, J, B, bc, vid);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int v = vid[i];
-      float tv[3][4], wk[4];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float* src = tgt + ((size_t)c * Vt + (v >= 0 ? v : 0)) * B + bc;
-        const bool row_ok = v >= 0 && v < Vt;
-        if (VEC) {
-          const float4 v4 = row_ok && bc < B ? __ldg(reinterpret_cast<const float4*>(src))
-                                             : make_float4(0.f, 0.f, 0.f, 0.f);
-          tv[c][0] = v4.x;
-          tv[c][1] = v4.y;
-          tv[c][2] = v4.z;
-          tv[c][3] = v4.w;
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) tv[c][k] = row_ok && bc + k < B ? __ldg(src + k) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        wk[k] = W ? (v >= 0 && bc + k < B ? fit_weight(om, v, bc + k, Vt, om_rows, om_rs, om_bs)
-                                          : 0.f)
-                  : 1.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float pw[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) pw[c] = W ? pos[c][i][k] * wk[k] : pos[c][i][k];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-#pragma unroll
-          for (int d = 0; d < 3; ++d) acc[c * 3 + d][k] = fmaf(tv[c][k], pw[d], acc[c * 3 + d][k]);
-          acc[9 + c][k] = W ? fmaf(tv[c][k], wk[k], acc[9 + c][k]) : acc[9 + c][k] + tv[c][k];
-          acc[12 + c][k] += pw[c];
-        }
-      }
-    }
+    tile_sums::add<VEC, W>(acc, pos, tgt, om, vid, bc, B, Vt, om_rows, om_rs, om_bs);
   });
-
-  // Sum the 8 vertex groups (tm) of each column in order; the ring is free.
-  __syncthreads();
-  float* red = ring;  // [NS][8][TB]
-#pragma unroll
-  for (int r = 0; r < NS; ++r)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) red[(r * 8 + tm) * TB + 4 * tn + k] = acc[r][k];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < NS * TB; idx += NT) {
-    const int r = idx / TB, c = idx % TB;
-    float s = 0.f;
-    for (int g = 0; g < 8; ++g) s += red[(r * 8 + g) * TB + c];
-    if (b0 + c < B) part[((size_t)seg_id * NS + r) * B + b0 + c] = s;
-  }
+  tile_sums::store(acc, ring, part, seg_id, b0, B, tm, tn);  // the ring is free
 }
 
 template <bool VEC, bool W>

@@ -76,105 +76,27 @@ recon_lbs_bwd_front(const float* __restrict__ graw, const float* __restrict__ gs
     float om_v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) om_v[i] = W ? (vid[i] >= 0 && vid[i] < Vt ? om[vid[i]] : 0.f) : 1.f;
-    // The part's cotangent row r (graw rows 0..8, then gst, gsa) at the thread's columns.
-    auto cot = [&](float x[4], const float* src, int r) {
-      tmpl::load4<VEC>(x, src + ((size_t)r * J + p) * B + bc, bc, B);
-    };
-
-    // dpos_d = ω (gsa[d, p] + sum_c W[c*3+d] t_c), then U = Rbar^T dpos.
+    // dpos from the targets and the part's cotangents, then U = Rbar^T dpos.
     float dpos[3][4][4];
-    {
-      float tv[3][4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          if (vid[i] >= 0 && vid[i] < Vt) {
-            tmpl::load4<VEC>(tv[c][i], tgt + ((size_t)c * Vt + vid[i]) * B + bc, bc, B);
-          } else {
-#pragma unroll
-            for (int k = 0; k < 4; ++k) tv[c][i][k] = 0.f;
-          }
-        }
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        float gs[4];
-        cot(gs, gsa, d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) dpos[d][i][k] = gs[k];
-      }
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          float wcd[4];
-          cot(wcd, graw, c * 3 + d);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) dpos[d][i][k] = fmaf(wcd[k], tv[c][i][k], dpos[d][i][k]);
-        }
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) dpos[d][i][k] *= om_v[i];
-    }
+    front::part_dpos<VEC>(dpos, graw, gsa, tgt, p, om_v, vid, J, B, Vt, bc);
     {
       float u[3][4][4];
       tmpl::blend_project<VEC>(u, dpos, pj, w, jl, nA, J, B, bc, vid);
-      front::store3<VEC>(U, Vp, u, vid, B, bc);
+      tmpl::store3<VEC>(U, Vp, u, vid, B, bc);
     }
 
-    // dtgt_c = ω (gst[c, p] + sum_d W[c*3+d] pos_d), pos blended from H.
+    // dtgt from pos, blended from H.
     float h[3][4][4];
-    front::load3<VEC>(h, H, Vp, vid, B, bc);
+    tmpl::load3<VEC>(h, H, Vp, vid, B, bc);
     {
       float pos[3][4][4];
       tmpl::blend_pos<VEC>(pos, h, pj, w, jl, nA, J, B, bc, vid);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float dt[4][4], gs[4];
-        cot(gs, gst, c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) dt[i][k] = gs[k];
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          float wcd[4];
-          cot(wcd, graw, c * 3 + d);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) dt[i][k] = fmaf(wcd[k], pos[d][i][k], dt[i][k]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (vid[i] < 0 || vid[i] >= Vt) continue;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) dt[i][k] *= om_v[i];
-          tmpl::store4<VEC>(dtgt + ((size_t)c * Vt + vid[i]) * B + bc, dt[i], bc, B);
-        }
-      }
+      front::store_dtgt<VEC>(dtgt, pos, graw, gst, p, om_v, vid, J, B, Vt, bc);
     }
     front::add_dpj(part_run, dpos, h, w, jl, nA, J, B, bc, vid, tm);
   }
 
-  // This block's share of the rows that no part holds: zero dtgt and U there.
-  const int u0 = (int)((long)n_unused * blockIdx.y / gridDim.y);
-  const int u1 = (int)((long)n_unused * (blockIdx.y + 1) / gridDim.y);
-  for (int idx = threadIdx.x; idx < (u1 - u0) * 3 * (TB / 4); idx += NT) {
-    const int row = u0 + idx / (3 * (TB / 4)), c = (idx / (TB / 4)) % 3;
-    const int b = b0 + 4 * (idx % (TB / 4));
-    const int v = __ldg(unused + row);
-    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
-    if (v < Vt) tmpl::store4<VEC>(dtgt + ((size_t)c * Vt + v) * B + b, zero, b, B);
-    tmpl::store4<VEC>(U + ((size_t)c * Vp + v) * B + b, zero, b, B);
-  }
+  front::zero_unused<VEC>(dtgt, U, unused, n_unused, Vt, Vp, B, b0);
 }
 
 template <bool VEC, bool W>

@@ -70,9 +70,9 @@ using tmpl::NT;
 using tmpl::TB;
 using tmpl::TV;
 
-constexpr int MAXE = 32;      // E <= 32
-constexpr int EP = MAXE / 2;  // shape-row pairs
-constexpr int SDL = TV + 4;   // row stride of the staged shape directions
+using tmpl::EP;
+using tmpl::MAXE;
+using tmpl::SDL;
 
 // Output rows of the partials: y (3J), r (E) [, yt (3J), rt (E), sc (3)].
 __host__ __device__ inline int rhs_rows(int J, int E, bool scale) {
@@ -120,34 +120,7 @@ __device__ inline void add_joint_rows(float* part, int row0, const float (&f)[3]
   }
 }
 
-// acc[p] += sum over the tile's vertices of sum_c SD[c, v, e] g_c(v), e =
-// 2p + tm / 4, column bc + tm % 4 (the lane's own entries), with the tile's
-// shape directions in sd_s[(c * E + e) * SDL + vertex row].
-__device__ inline void add_shape_rows(float (&acc)[EP], const float (&g)[3][4][4],
-                                      const float* sd_s, int E, int tm) {
-#pragma unroll
-  for (int p = 0; p < EP; ++p) {
-    if (2 * p >= E) break;  // uniform across the block
-    float x[8];
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int e = 2 * p + q;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) x[4 * q + k] = 0.f;
-      if (e >= E) continue;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float4 s4 = *reinterpret_cast<const float4*>(sd_s + (c * E + e) * SDL + 4 * tm);
-        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) x[4 * q + k] = fmaf(sv[i], g[c][i][k], x[4 * q + k]);
-      }
-    }
-    acc[p] += reduce_scatter8(x, tm);
-  }
-}
+using tmpl::add_shape_rows;
 
 // Loads the targets of the thread's 4 vertices x 4 columns: t[a][i][k], zero
 // outside the target's rows and the batch.
@@ -218,12 +191,7 @@ rhs_moments_kernel(const float* __restrict__ tgt, const float* __restrict__ pj,
 #pragma unroll
     for (int i = 0; i < 4; ++i) vid[i] = rows_s[tile * TV + 4 * tm + i];
     // The tile's shape directions, k-major, copied under the blend below.
-    for (int idx = threadIdx.x; idx < 3 * E * TV; idx += NT) {
-      const int e = idx % E, c = (idx / E) % 3, vv = idx / (3 * E);
-      const int v = rows_s[tile * TV + vv];
-      sgemm::cp_async4(sd_s + (c * E + e) * SDL + vv,
-                       v >= 0 ? sd + ((size_t)c * Vp + v) * E + e : sd, v >= 0);
-    }
+    tmpl::stage_shape_rows(sd_s, sd, rows_s + tile * TV, TV, E, Vp);
     sgemm::cp_async_commit();
     if (EMIT) {
 #pragma unroll

@@ -1,7 +1,8 @@
 // The template dot and the active-joint blend of the kernels that walk
-// vertex segments: K1 (lbs_points.cu), K2 (rhs_moments.cu) and K6
-// (recon_lbs_part_sums.cu); the blends and the warp reduce-scatter also serve
-// the backward fronts of K10 and K14 (bwd_front.cuh).
+// vertex segments: K1 (lbs_points.cu), K2 (rhs_moments.cu), K4
+// (recon_part_sums.cu) and K6 (recon_lbs_part_sums.cu); the blends and the
+// warp reduce-scatter also serve the backward fronts of K10, K13 and K14
+// (bwd_front.cuh).
 //
 // A block of 256 threads owns 128 batch columns and walks tiles of 32 listed
 // vertices (a tile's rows are a list in shared memory: the vertex of each
@@ -26,6 +27,11 @@
 //   are products with exact zeros. The joints' [R|t] entries and weights are
 //   read from global memory (L1) as they are used, so a long list (dense
 //   weights) runs the same loop.
+// - The shape terms of the cached forms (K2 cached, K4, K13): a tile's shape
+//   directions SD (3, V_pad, E) staged k-major ([c][e][vertex row], by 4-byte
+//   cp.async), the solve's coefficients x (E, B) staged once per block
+//   ([e][column]); the template h += SD x as a register-tiled dot (48 FMAs per
+//   4 shared loads), and sum_v SD_v^T g_v by the warp reduce-scatter below.
 // All arithmetic is f32 FMAs on the CUDA cores (no TF32, no tensor cores).
 #pragma once
 
@@ -43,6 +49,10 @@ constexpr int A_FLOATS = 3 * KT * LDA;  // [c][k][LDA]
 constexpr int B_FLOATS = KT * TB;       // [k][TB]
 constexpr int STG_FLOATS = A_FLOATS + B_FLOATS;
 constexpr int RING_FLOATS = NSTG * STG_FLOATS;
+constexpr int MAXE = 32;                 // shape columns E <= 32
+constexpr int EP = MAXE / 2;             // shape-row pairs of a reduce-scatter
+constexpr int SDL = TV + 4;              // row stride of the staged shape directions
+constexpr int SD_FLOATS = 3 * MAXE * SDL;  // one tile's shape directions: [c][e][SDL]
 
 // consts copies: a warp covers 8 features of 4 rows, the block 16 rows (of
 // the 3 TV rows (c, vertex)) per pass.
@@ -276,6 +286,112 @@ __device__ inline void blend_project(float (&g)[3][4][4], const float (&f)[3][4]
           g[c][i][k] = fmaf(wv[i], s, g[c][i][k]);
         }
     }
+  }
+}
+
+// x[c][i][k] = src[c, vid_i, bc + k] of a (3, Vx, B) array, zero for a row
+// with no vertex and past the batch edge.
+template <bool VEC>
+__device__ __forceinline__ void load3(float (&x)[3][4][4], const float* __restrict__ src, int Vx,
+                                      const int vid[4], int B, int bc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (vid[i] >= 0) {
+        load4<VEC>(x[c][i], src + ((size_t)c * Vx + vid[i]) * B + bc, bc, B);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) x[c][i][k] = 0.f;
+      }
+    }
+}
+
+// dst[c, vid_i, bc + k] = x[c][i][k] of a (3, Vx, B) array (nothing for a row
+// with no vertex).
+template <bool VEC>
+__device__ __forceinline__ void store3(float* __restrict__ dst, int Vx,
+                                       const float (&x)[3][4][4], const int vid[4], int B,
+                                       int bc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (vid[i] < 0) continue;
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      store4<VEC>(dst + ((size_t)c * Vx + vid[i]) * B + bc, x[c][i], bc, B);
+  }
+}
+
+// Copies a tile's shape directions into sd_s[(c * E + e) * SDL + row] by
+// 4-byte cp.async (zero fill for the rows past n): rows[0 .. n) are the
+// tile's vertices, sd (3, Vp, E). The caller commits the group.
+__device__ inline void stage_shape_rows(float* sd_s, const float* __restrict__ sd,
+                                        const int* rows, int n, int E, int Vp) {
+  for (int idx = threadIdx.x; idx < 3 * E * TV; idx += NT) {
+    const int e = idx % E, c = (idx / E) % 3, vv = idx / (3 * E);
+    const int v = vv < n ? rows[vv] : -1;
+    sgemm::cp_async4(sd_s + (c * E + e) * SDL + vv,
+                     v >= 0 ? sd + ((size_t)c * Vp + v) * E + e : sd, v >= 0);
+  }
+}
+
+// x_s[e * TB + c] = x[e, b0 + c] of an (E, B) array, zero past the batch edge.
+__device__ inline void stage_columns(float* x_s, const float* __restrict__ x, int E, int B,
+                                     int b0) {
+  for (int idx = threadIdx.x; idx < E * TB; idx += NT) {
+    const int e = idx / TB, b = b0 + idx % TB;
+    x_s[idx] = b < B ? __ldg(x + (size_t)e * B + b) : 0.f;
+  }
+}
+
+// h[c][i][k] += sum_e SD[c, vertex 4 tm + i, e] x[e, column 4 tn + k], one
+// FMA per term in e order, from the staged shape directions (sd_s) and
+// coefficients (x_s).
+__device__ inline void add_shape_dot(float (&h)[3][4][4], const float* sd_s, const float* x_s,
+                                     int E, int tm, int tn) {
+#pragma unroll 4
+  for (int e = 0; e < E; ++e) {
+    const float4 x4 = *reinterpret_cast<const float4*>(x_s + e * TB + 4 * tn);
+    const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float4 s4 = *reinterpret_cast<const float4*>(sd_s + (c * E + e) * SDL + 4 * tm);
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) h[c][i][k] = fmaf(sv[i], xv[k], h[c][i][k]);
+    }
+  }
+}
+
+// acc[p] += sum over the tile's vertices of sum_c SD[c, v, e] g_c(v), e =
+// 2p + tm / 4, column bc + tm % 4 (the lane's own entries; the warp holds the
+// tile's 32 vertices of 16 columns, lane = 4 tm + column group), with the
+// tile's shape directions in sd_s.
+__device__ inline void add_shape_rows(float (&acc)[EP], const float (&g)[3][4][4],
+                                      const float* sd_s, int E, int tm) {
+#pragma unroll
+  for (int p = 0; p < EP; ++p) {
+    if (2 * p >= E) break;  // uniform across the block
+    float x[8];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int e = 2 * p + q;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[4 * q + k] = 0.f;
+      if (e >= E) continue;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float4 s4 = *reinterpret_cast<const float4*>(sd_s + (c * E + e) * SDL + 4 * tm);
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) x[4 * q + k] = fmaf(sv[i], g[c][i][k], x[4 * q + k]);
+      }
+    }
+    acc[p] += reduce_scatter8(x, tm);
   }
 }
 

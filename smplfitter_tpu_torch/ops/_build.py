@@ -31,7 +31,7 @@ _SIGNATURES = {
     'lbs_points_launch': [_P] * 9 + [_I] * 7 + [_P],
     'rhs_moments_launch': [_P] * 18 + [_I] * 12 + [_P],
     'gram_assembly_launch': [_P] * 14 + [_I] * 4 + [_P],
-    'recon_part_sums_launch': [_P] * 14 + [_I] * 9 + [_P],
+    'recon_part_sums_launch': [_P] * 16 + [_I] * 9 + [_P],
     'part_sums_launch': [_P] * 10 + [_I] * 9 + [_P],
     'recon_lbs_part_sums_launch': [_P] * 15 + [_I] * 9 + [_P],
     'posed_template_launch': [_P] * 3 + [_I] * 3 + [_P],
@@ -39,16 +39,14 @@ _SIGNATURES = {
     'wgram_launch': [_P] * 19 + [_I] * 13 + [_P],
     'lbs_points_bwd_launch': [_P] * 14 + [_I] * 8 + [_P],
     'rhs_bwd_launch': [_P] * 15 + [_I] * 8 + [_P],
-    'recon_bwd_launch': [_P] * 15 + [_I] * 6 + [_P],
+    'recon_bwd_launch': [_P] * 21 + [_I] * 8 + [_P],
     'recon_lbs_bwd_launch': [_P] * 22 + [_I] * 9 + [_P],
     'part_sums_bwd_launch': [_P] * 10 + [_I] * 5 + [_P],
 }
 # name -> argument types of the shared-memory size queries (restype size_t).
 _SMEM_SIGNATURES = {
-    'recon_part_sums_smem_bytes': [_I],
     'gram_assembly_smem_bytes': [_I, _I],
     'rhs_bwd_smem_bytes': [_I, _I, _I],
-    'recon_bwd_smem_bytes': [_I, _I],
 }
 
 _lib = None

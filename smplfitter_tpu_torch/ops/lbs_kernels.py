@@ -35,12 +35,14 @@ once per model on the host by :func:`wgram_cover`: segments of at most 32
 vertices of one body part, each with its active joints) and blend over each
 segment's joints only; their wrappers take it as ``cover=`` (None builds one
 from ``weights_pad`` on the host at every call, counted in ``HOST_COVERS``).
-K6 walks the part index's segments and lists (:class:`PartIndex`). Their
-backward kernels walk the same: K10 the cover its K1 call walked (``cover=``
-again, kept by the autograd Function; None builds one, counted under
-``lbs_points_bwd``), K14 the part index's 32-vertex tiles; both take the posed
-template from K7 and dfeat from a split-K GEMM (csrc/dfeat_gemm.cu) over a
-(3, V_pad, B) workspace the kernel's front writes.
+K4 and K6 walk the part index's segments and lists (:class:`PartIndex`).
+Their backward kernels walk the same: K10 the cover its K1 call walked
+(``cover=`` again, kept by the autograd Function; None builds one, counted
+under ``lbs_points_bwd``), K13 and K14 the part index's 32-vertex tiles. K10
+and K14 take the posed template from K7 and dfeat from a split-K GEMM
+(csrc/dfeat_gemm.cu) over a (3, V_pad, B) workspace the kernel's front
+writes; K13's front reads the cached template, writes its cotangent dh where
+they write that workspace, and sums dx itself.
 
 Fit weights ω reach K2 as the static column (V_pad, 1) of a weighted fitter,
 and K4, K5 and K6 as that column or as per-call weights (V, B); K9 takes
@@ -170,13 +172,13 @@ TORCH_VJPS = {
 # package's vertex chunk so the precomputed fields compare directly.
 VC = 256
 
-_TV = 64  # vertex tile of the backward LBS kernels K11-K13 (csrc/lbs_tile.cuh)
-_TB = 64  # batch tile of the backward LBS kernels K11-K13
+_TV = 64  # vertex tile of the backward LBS kernels K11-K12 (csrc/lbs_tile.cuh)
+_TB = 64  # batch tile of the backward LBS kernels K11-K12
 _SEG_TB = 128  # batch columns per block of the kernels that walk a cover (csrc/template_tile.cuh)
-_PART_TILE = 32  # vertices per tile of a part index's segments (K14's front, csrc/bwd_front.cuh)
-_SEG = 512  # max vertices per part segment of the recon kernel
+_PART_TILE = 32  # vertices per tile of a part index's segments (K13's and K14's fronts, csrc/bwd_front.cuh)
+_SEG = 512  # max vertices per part segment of the recon kernels K4 and K6
 _WGRAM_SEG = 32  # max vertices per segment of K9's cover (csrc/wgram.cu: one tile)
-_BWD_MAXJ = 64  # joints of one reduction pass of K11-K13 (csrc/lbs_bwd.cuh)
+_BWD_MAXJ = 64  # joints of one reduction pass of K11-K12 (csrc/lbs_bwd.cuh)
 _SUM_COLS = 256  # batch columns per split of K15's summed form (csrc/part_sums_bwd.cu)
 _VJP_VCHUNK = 512  # vertices per step of a backward in torch ops (bounds its memory)
 _TERM1_TILE = (256, 128)  # K8's block tile: rows of G1, batch columns (csrc/term1.cu)
@@ -266,7 +268,7 @@ def _vertex_splits(Vp: int, B: int, device) -> tuple[int, int]:
 def _segment_runs(n_seg: int, B: int, device, blocks_per_sm: int) -> tuple[int, int]:
     """(segments per block, number of runs) of a kernel that walks a cover:
     runs of the cover's segments such that the grid holds at most
-    ``blocks_per_sm`` blocks per SM (K2 and the fronts of K10 and K14: one
+    ``blocks_per_sm`` blocks per SM (K2 and the fronts of K10, K13 and K14: one
     wave, one block per SM, so their per-run partials stay few; K1: four
     waves of two blocks per SM). No segments: no runs."""
     grid_x = -(-B // _SEG_TB)
@@ -1392,7 +1394,11 @@ def recon_part_sums_cached_lm(tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts: Par
     raw (9, J, B) = sum_v pm_jv t_c pos_d (rows c*3+d), s_t (3, J, B) =
     sum_v pm_jv t, s_a (3, J, B) = sum_v pm_jv pos. Fit weights ``omega``,
     static (V_pad, 1) or per call (V_t, B), multiply pos in every sum and t
-    in s_t."""
+    in s_t. The kernel, like K6's, blends over each of ``parts``' segments'
+    active joints only, so the index must come from the same skinning
+    weights as ``weights_pad`` (``PartIndex.from_membership(..., weights=)``).
+    Gradients: unweighted or with static ω, K13
+    (:func:`recon_part_sums_cached_bwd`); with per-call ω, torch ops."""
     name = 'recon_part_sums_cached' + ('' if omega is None else '_w')
     extra = {} if omega is None else dict(omega=omega)
     cuda = _on_cuda(name, tgt_vm=tgt_vm, pj_cm=pj_cm, x_cols=x_cols, sd_cm=sd_cm,
@@ -1446,12 +1452,14 @@ def _recon_cached_run(name, tgt_vm, pj_cm, x_cols, sd_cm, homog_vm, parts, weigh
     v_t = tgt_vm.shape[1]
     E = x_cols.shape[0]
     om_ptr, om_rows, om_rs, om_bs = _omega_args(name, omega, v_t, B, Vp)
+    _index_tensors(name, tgt_vm.device, parts.joints, parts.joint_offset)
     raw, s_t, s_a, part = _part_sums_outputs(name, parts, J, B, tgt_vm.device)
     err = _build.library().recon_part_sums_launch(
         _ptr(tgt_vm), _ptr(pj_cm), _ptr(x_cols), _ptr(sd_cm), _ptr(homog_vm),
         _ptr(weights_pad), om_ptr, _ptr(parts.verts), _ptr(parts.seg_offset),
-        _ptr(parts.part_seg), _ptr(raw), _ptr(s_t), _ptr(s_a), _ptr(part), J, E, B, v_t, Vp,
-        parts.n_seg, om_rows, om_rs, om_bs, _stream(raw))
+        _ptr(parts.joints), _ptr(parts.joint_offset), _ptr(parts.part_seg), _ptr(raw),
+        _ptr(s_t), _ptr(s_a), _ptr(part), J, E, B, v_t, Vp, parts.n_seg, om_rows, om_rs, om_bs,
+        _stream(raw))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return raw, s_t, s_a
@@ -1542,19 +1550,20 @@ def recon_part_sums_cached_bwd(graw, gst, gsa, tgt_vm, pj_cm, x_cols, sd_cm, hom
     if not cuda:
         return recon_part_sums_cached_bwd_ref(graw, gst, gsa, tgt_vm, pj_cm, x_cols, sd_cm,
                                               homog_vm, parts.pm, weights_pad, **extra)
-    if J > _BWD_MAXJ or E > 32:
-        raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ} and E <= 32, got {J}, {E}')
-    vp = _vpart(name, parts, Vp, graw.device)
+    if E > 32:
+        raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
     dev = graw.device
-    tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
-    dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
-    dh = torch.empty((3, Vp, B), dtype=torch.float32, device=dev)
-    out = torch.empty((12 * J + E, B), dtype=torch.float32, device=dev)
-    part = torch.empty((n_splits, 12 * J + E, B), dtype=torch.float32, device=dev)
+    vp = _front_index(name, parts, Vp, dev)
+    per_run, n_runs = _segment_runs(parts.n_tiles, B, dev, 1)
+    n_runs = max(n_runs, 1)
+    dtgt, dh = _f32(dev, 3, v_t, B), _f32(dev, 3, Vp, B)
+    out, part = _f32(dev, 12 * J + E, B), _f32(dev, n_runs, 12 * J + E, B)
     err = _build.library().recon_bwd_launch(
         _ptr(graw), _ptr(gst), _ptr(gsa), _ptr(tgt_vm), _ptr(pj_cm), _ptr(x_cols), _ptr(sd_cm),
-        _ptr(homog_vm), _ptr(weights_pad), None if omega is None else _ptr(omega), _ptr(vp),
-        _ptr(dtgt), _ptr(dh), _ptr(out), _ptr(part), J, E, B, v_t, Vp, tiles_per_block,
+        _ptr(homog_vm), _ptr(weights_pad), None if omega is None else _ptr(omega),
+        _ptr(parts.verts), _ptr(parts.tile_offset), _ptr(parts.tile_seg), _ptr(parts.joints),
+        _ptr(parts.joint_offset), _ptr(vp), _ptr(parts.unused), _ptr(dtgt), _ptr(dh), _ptr(out),
+        _ptr(part), J, E, B, v_t, Vp, parts.n_tiles, parts.unused.shape[0], per_run,
         _stream(out))
     _build.check(err, name)
     LAUNCHES[name] += 1
@@ -1789,6 +1798,18 @@ def _vpart(name: str, parts: PartIndex, Vp: int, device) -> torch.Tensor:
     return vp
 
 
+def _front_index(name: str, parts: PartIndex, Vp: int, device) -> torch.Tensor:
+    """Check the part index for a backward front (K13, K14): its tiles and
+    lists on the kernel's device, every row below V_pad once in a tile or in
+    ``unused``; returns the per-vertex parts."""
+    vp = _vpart(name, parts, Vp, device)
+    _index_tensors(name, device, parts.verts, parts.tile_offset, parts.tile_seg, parts.joints,
+                   parts.joint_offset, parts.unused)
+    if parts.verts.shape[0] + parts.unused.shape[0] != Vp:
+        raise ValueError(f'{name}: the part index does not hold each of the {Vp} rows once')
+    return vp
+
+
 # ---------------------------------------------------------------------------
 # K6: extended-LBS reconstruction fused into per-part sums
 # ---------------------------------------------------------------------------
@@ -1937,11 +1958,7 @@ def recon_part_sums_bwd(graw, gst, gsa, tgt_vm, pj_cm, feat_cols, weights_pad, c
         return recon_part_sums_bwd_ref(graw, gst, gsa, tgt_vm, pj_cm, feat_cols, weights_pad,
                                        consts_pad, parts.pm, **extra)
     dev = graw.device
-    vp = _vpart(name, parts, Vp, dev)
-    _index_tensors(name, dev, parts.verts, parts.tile_offset, parts.tile_seg, parts.joints,
-                   parts.joint_offset, parts.unused)
-    if parts.verts.shape[0] + parts.unused.shape[0] != Vp:
-        raise ValueError(f'{name}: the part index does not hold each of the {Vp} rows once')
+    vp = _front_index(name, parts, Vp, dev)
     per_run, n_runs = _segment_runs(parts.n_tiles, B, dev, 1)
     n_runs = max(n_runs, 1)
     splits = dfeat_splits(F, B, Vp, dev)

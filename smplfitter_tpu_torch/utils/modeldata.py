@@ -236,7 +236,7 @@ def initialize(
         if not osp.exists(subset_path):
             raise NotImplementedError(
                 f'{subset_path} is missing and mesh decimation is not ported yet '
-                '(ROADMAP Queue 1, item 10)'
+                '(ROADMAP Queue 1, item 12)'
             )
         subset_dict = np.load(subset_path)
         vertex_subset = subset_dict['i_verts']

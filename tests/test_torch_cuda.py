@@ -7,8 +7,9 @@ K10-K15 against their twins, the launches and torch-op backward passes of
 every gradient path, and gradients on the card against the CPU; the GEMM
 kernels K7 and K8 on seeded operands at the shapes whose edges they mask,
 against their twins and bit for bit against a second call; the kernels that
-walk active-joint lists (K9, K6, K1, K2, and the backward kernels K10 and
-K14 at MANO, SMPL and SMPL-X widths) the same way.
+walk active-joint lists (K9, K6, K1, K2, K4 in its three forms, and the
+backward kernels K10, K13 and K14 at MANO, SMPL and SMPL-X widths) the same
+way.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -874,6 +875,79 @@ def test_recon_part_sums_bwd_kernel_at_edges(card, name, dense, omega):
         (dtgt, _, _) = _hold_all('recon_part_sums_bwd', args, kw,
                                  'recon_part_sums_bwd' + ('_w' if omega else ''))
         none = parts.unused[parts.unused < v_t].long()
+        assert torch.equal(dtgt[:, none], torch.zeros_like(dtgt[:, none]))
+
+
+# ---------------------------------------------------------------------------
+# K4 and K13 at their edges: the part index's segments over a cached template
+# ---------------------------------------------------------------------------
+
+RECON_CACHED_E = {'mano': 10, 'smpl': 10, 'smplx': 17}  # SMPL-X with the kid column
+RECON_CACHED_BATCHES = [1000, 4097]  # B % 4 != 0: the 4-byte paths
+
+
+def _recon_cached_args(name, batch, v_t):
+    """K4's operands at a model's widths (BWD_SHAPES, E of RECON_CACHED_E)
+    over a part index of parts of 1, 63 and 513 vertices and every 11th
+    vertex in none, targets of v_t rows: (tgt, pj, x, sd, homog, parts, w)."""
+    V, J, _ = BWD_SHAPES[name]
+    E = RECON_CACHED_E[name]
+    w = _skinning(V + E, V, J, False)
+    vp = w.shape[0]
+    parts = lbs_kernels.PartIndex.from_membership(_parts(V, J), 'cuda', weights=w.cpu().numpy())
+    seed = 10 * V + batch
+    return (_normal(seed, 3, v_t, batch), _normal(seed + 1, 12, J, batch, scale=0.5),
+            _normal(seed + 2, E, batch), _normal(seed + 3, 3, vp, E, scale=0.05),
+            _normal(seed + 4, 3, vp, batch), parts, w)
+
+
+def _static_omega(V, vp, seed):
+    om = np.random.default_rng(seed).uniform(0.1, 2.0, (vp, 1))
+    om[::5] = 0.0
+    om[V:] = 0.0
+    return torch.as_tensor(om, dtype=torch.float32, device='cuda')
+
+
+@pytest.mark.parametrize('omega', [None, 'static', 'call'])
+@pytest.mark.parametrize('name', list(RECON_CACHED_E))
+def test_recon_part_sums_cached_kernel_at_edges(card, name, omega):
+    """K4 unweighted and in both ω forms on seeded operands at MANO, SMPL and
+    SMPL-X widths (E = 17), targets of all V rows and of fewer: within
+    REL_TOL of the twin and bit for bit on a repeat at every batch of
+    RECON_CACHED_BATCHES."""
+    V = BWD_SHAPES[name][0]
+    for batch, v_t in zip(RECON_CACHED_BATCHES, (V, V - 37)):
+        args = _recon_cached_args(name, batch, v_t)
+        kw = {}
+        if omega == 'static':
+            kw['omega'] = _static_omega(V, args[6].shape[0], batch)
+        elif omega == 'call':
+            om = np.random.default_rng(batch).uniform(0.1, 2.0, (v_t, batch))
+            om[::5] = 0.0
+            kw['omega'] = torch.as_tensor(om, dtype=torch.float32, device='cuda')
+        _hold_all('recon_part_sums_cached_lm', args, kw,
+                  'recon_part_sums_cached' + ('' if omega is None else '_w'))
+
+
+@pytest.mark.parametrize('omega', [False, True])
+@pytest.mark.parametrize('name', list(RECON_CACHED_E))
+def test_recon_part_sums_cached_bwd_kernel_at_edges(card, name, omega):
+    """K13 (unweighted and static ω) on K4's operands at MANO, SMPL and
+    SMPL-X widths (J = 55, E = 17), targets of all V rows and of fewer:
+    within REL_TOL of the twin and bit for bit on a repeat at every batch of
+    RECON_CACHED_BATCHES, the rows in no part zero in dtgt and dh."""
+    V, J, _ = BWD_SHAPES[name]
+    for batch, v_t in zip(RECON_CACHED_BATCHES, (V, V - 37)):
+        tgt, pj, x, sd, homog, parts, w = _recon_cached_args(name, batch, v_t)
+        kw = dict(omega=_static_omega(V, w.shape[0], batch)) if omega else {}
+        seed = 10 * V + batch + 5
+        args = (_normal(seed, 9, J, batch), _normal(seed + 1, 3, J, batch),
+                _normal(seed + 2, 3, J, batch), tgt, pj, x, sd, homog, parts, w)
+        dtgt, _, _, dh = _hold_all('recon_part_sums_cached_bwd', args, kw,
+                                   'recon_part_sums_cached_bwd' + ('_w' if omega else ''))
+        none = parts.unused.long()
+        assert torch.equal(dh[:, none], torch.zeros_like(dh[:, none]))
+        none = none[none < v_t]
         assert torch.equal(dtgt[:, none], torch.zeros_like(dtgt[:, none]))
 
 
