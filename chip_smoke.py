@@ -74,10 +74,11 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     whose V % 256 = 10 puts a partial last vertex tile in every kernel) at
     B=4096 and B=1000, and K15's summed form on operands derived from the
     batched form's, asserting which kernels each model's gradients reach
-    (BWD_CAPTURED), with times, twin times and bounds at B=4096; K10, K13
-    and K14 (which walk a cover's and a part index's active-joint lists)
-    also repeat bit for bit, and on SMPL-X are held and timed the same way
-    with dense skinning weights (dense_bwd_variants);
+    (BWD_CAPTURED) and that none built a cover on the host, with times, twin
+    times and bounds at B=4096; K10-K14 (which walk a cover's and a part
+    index's active-joint lists) also repeat bit for bit, and K10, K12, K13
+    and K14 on SMPL-X and K11's emit form on SMPL are held and timed the
+    same way with dense skinning weights (dense_bwd_variants);
 14. the value and gradient at B=4096, with the fit's ms and the peak memory
     in the same call and the launches and torch-op backward passes
     (TORCH_VJPS) per gradient asserted: ``get_fit_grad_fn`` on the SMPL and
@@ -93,7 +94,7 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     static-weight, SMPL-X (also with one iteration and GRAD_PARITY_PATHS_X)
     and SMPL+H fits' within the larger of that and 4x the gradient's own
     spread (as phase 10: the rotation fits amplify rounding on the hand
-    models).
+    models); no gradient builds a cover on the host.
 
 It prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -586,15 +587,17 @@ def twin_call(lbs_kernels, key, args, kwargs):
 
 
 # Besides the kernels with a library call (K7, K8), the kernels redesigned
-# for Hopper (K9, K6, K1, every form of K2, K4, K10, K13 and K14) also repeat
-# bit for bit on the same operands.
+# for Hopper (K9, K6, K1, every form of K2, K4 and K10-K14) also repeat bit
+# for bit on the same operands.
 K2_KEYS = ('rhs_moments_h', 'rhs_moments', 'rhs_moments_scale', 'rhs_moments_cached',
            'rhs_moments_cached_scale')
 REPEAT_KEYS = ('wgram', 'recon_part_sums', 'recon_part_sums_w', 'lbs_points', *K2_KEYS,
                *(key + '_w' for key in K2_KEYS), 'recon_part_sums_cached',
                'recon_part_sums_cached_w', 'lbs_points_bwd', 'recon_part_sums_bwd',
                'recon_part_sums_bwd_w', 'recon_part_sums_cached_bwd',
-               'recon_part_sums_cached_bwd_w')
+               'recon_part_sums_cached_bwd_w', 'rhs_moments_h_bwd', 'rhs_moments_bwd',
+               'rhs_moments_cached_bwd', 'rhs_moments_h_bwd_w', 'rhs_moments_bwd_w',
+               'rhs_moments_cached_bwd_w')
 
 
 def library_call(torch, key):
@@ -1221,9 +1224,11 @@ def check_backward_kernels(torch, lbs_kernels, label, bm, fitters, path_fitters,
     results = {}
     for batch in (BATCH, RAGGED_BATCH):
         params = [torch.as_tensor(x, device=dev) for x in random_params(rng, batch, model)]
+        lbs_kernels.reset_launch_counts()
         calls = record_calls(lbs_kernels, BWD_WRAPPERS,
                              lambda: backward_pass(torch, bm, fitters, params, path_fitters),
                              bwd_key)
+        check_host_covers(lbs_kernels, f'{label} backward passes at B={batch}')
         captured = {key for key, arg_sets in calls.items() if arg_sets}
         if captured != BWD_CAPTURED[model]:
             raise AssertionError(f'{label} at B={batch}: the gradients reached {sorted(captured)},'
@@ -1235,9 +1240,10 @@ def check_backward_kernels(torch, lbs_kernels, label, bm, fitters, path_fitters,
                 captured.add(key)
         for key in [k for k in SPECS if k in captured]:
             hold_to_twin(torch, lbs_kernels, label, key, calls[key], batch, results)
-        if model == 'smplx':
+        if model in ('smpl', 'smplx'):
             variants = results.setdefault('variants', {})
-            for name, (key, args, kw) in dense_bwd_variants(torch, lbs_kernels, calls).items():
+            for name, (key, args, kw) in dense_bwd_variants(torch, lbs_kernels, calls,
+                                                            model).items():
                 hold_to_twin(torch, lbs_kernels, f'{label} {name}', key, [(args, kw)], batch,
                              variants.setdefault(name, {}))
         del calls
@@ -1245,18 +1251,28 @@ def check_backward_kernels(torch, lbs_kernels, label, bm, fitters, path_fitters,
     return results
 
 
-def dense_bwd_variants(torch, lbs_kernels, calls) -> dict:
-    """K10, K13 and K14 (unweighted and ω) on the first captured call of
-    each, with dense skinning weights (every joint on every vertex: the
-    longest lists) and the lists of those weights: a cover for K10, a part
-    index for K13 and K14. name -> (key, args, kwargs)."""
+def dense_bwd_variants(torch, lbs_kernels, calls, model) -> dict:
+    """The kernels that walk active-joint lists on the first captured call
+    of each, with dense skinning weights (every joint on every vertex: the
+    longest lists) and the lists of those weights: on SMPL K11's emit form
+    (a cover); on SMPL-X K10 and K12 and its ω form (a cover), K13 and K14
+    (unweighted and ω; a part index). name -> (key, args, kwargs)."""
     sets = {}
-    args, kw = calls['lbs_points_bwd'][0]
-    dev = args[0].device
-    V = kw['cover'].covers
-    wd = dense_weights(torch, args[3], V)
-    sets['lbs_points_bwd dense'] = ('lbs_points_bwd', args[:3] + (wd, args[4]), dict(
-        kw, cover=lbs_kernels.wgram_cover(wd.cpu().numpy(), V, dev)))
+
+    def dense_cover(key, w_at):
+        """The key's first call, its weights (argument w_at) dense, on their cover."""
+        args, kw = calls[key][0]
+        V = kw['cover'].covers
+        wd = dense_weights(torch, args[w_at], V)
+        cover = lbs_kernels.wgram_cover(wd.cpu().numpy(), V, wd.device)
+        return (args[:w_at] + (wd,) + args[w_at + 1:], dict(kw, cover=cover))
+
+    if model == 'smpl':
+        return {'rhs_moments_h_bwd dense': ('rhs_moments_h_bwd',
+                                            *dense_cover('rhs_moments_h_bwd', 5))}
+    for key in ('rhs_moments_cached_bwd', 'rhs_moments_cached_bwd_w'):
+        sets[f'{key} dense'] = (key, *dense_cover(key, 5))
+    sets['lbs_points_bwd dense'] = ('lbs_points_bwd', *dense_cover('lbs_points_bwd', 3))
     for key in ('recon_part_sums_bwd', 'recon_part_sums_bwd_w'):
         args, kw = calls[key][0]
         parts, wd = dense_parts(torch, lbs_kernels, args[8], args[6], args[3].shape[1])
@@ -1797,6 +1813,7 @@ def main() -> int:
 
     # 15. Gradients on the card against the CPU at B=32.
     log(f'== phase 15: gradients, B={PARITY_BATCH}, card vs CPU')
+    lbs_kernels.reset_launch_counts()
     rng = np.random.default_rng(SEED + 15)  # targets independent of earlier phases' draws
     params = [torch.as_tensor(x, device=dev) for x in random_params(rng, PARITY_BATCH)]
     cpu_fitter = cpu_fitters('smpl', bm, True)[0]
@@ -1853,6 +1870,7 @@ def main() -> int:
             grad_parity(f'{model} {name} gradient', path_vg(torch, name, path_fitters[model], p),
                         path_vg(torch, name, cpu_fs, p), tv_g, tj_g, failures,
                         noise_floor=model != 'smpl')
+    check_host_covers(lbs_kernels, 'phase 15')
     if failures:
         raise AssertionError(f'the card disagrees with the CPU on: {failures}')
 

@@ -1,7 +1,7 @@
-// The front of the backward LBS kernels K10 (lbs_points_bwd.cu), K13
-// (recon_bwd.cu) and K14 (recon_lbs_part_sums_bwd.cu): the pieces a block
-// uses on one tile of listed vertices, and the two GEMMs around it (K10 and
-// K14; K13 reads a cached template and sums its shape rows in the front).
+// The front of the backward LBS kernels K10 (lbs_points_bwd.cu), K11 and K12
+// (rhs_bwd.cu), K13 (recon_bwd.cu) and K14 (recon_lbs_part_sums_bwd.cu): the
+// pieces a block uses on one tile of listed vertices, and the two GEMMs
+// around it (K10, K11 and K14; K12 and K13 read a cached template).
 //
 // A kernel computes, for a vertex cotangent g of the points (K10: given; K14:
 // dpos, from the part cotangents), the joint cotangents
@@ -29,7 +29,8 @@
 // 3. dfeat by the split-K GEMM of dfeat_gemm.cu over U, K = 3 V_pad.
 // The part index's fronts (K13, K14) take dpos and dtgt from the 15
 // cotangent rows of the tile's one part (part_dpos, store_dtgt) and zero the
-// rows that no part holds (zero_unused).
+// rows that no part holds (zero_unused). K11 and K12 sum two rank-1 fields
+// per joint, -db h and G b, in the same reduce-scatters (add_dpj2).
 // No atomics: two runs give the same bits.
 #pragma once
 
@@ -80,11 +81,57 @@ __device__ inline void zero_dpj(float* __restrict__ part, int J, int B, int bc, 
     }
 }
 
-// part[a*4+c, j, col] += sum over the tile's vertices of w[v, j] g_a(v) h_c(v)
-// (h_3 = 1) for the segment's active joints jl[0 .. nA): per joint and a,
-// the 4 x 4 sums of the thread's vertices in registers, then two
+// part[a*4+c, j, col] += sum over the tile's vertices of w[v, j] (g_a h_c
+// [+ g2_a h2_c]) (h_3 = 1, h2_3 = 0) for one joint j and row group a: the
+// 4 x 4 sums of the thread's vertices in registers (per vertex i, an FMA of
+// w g_a with h_c, then with TWO one of w g2_a with h2_c), then two
 // reduce-scatters of (row pair, 4 columns); the lane of vertex group tm owns
-// rows a*4 + 2q + tm / 4 and column bc + tm % 4.
+// rows a*4 + 2q + tm / 4 and column col = bc + tm % 4.
+template <bool TWO>
+__device__ __forceinline__ void add_joint_dpj(float* __restrict__ part, const float wv[4],
+                                              const float (&ga)[4][4],
+                                              const float (&h)[3][4][4],
+                                              const float (&g2a)[4][4],
+                                              const float (&h2)[3][4][4], int a, int j, int J,
+                                              int B, int col, int tm) {
+  float wg[4][4], wg2[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      wg[i][k] = wv[i] * ga[i][k];
+      wg2[i][k] = TWO ? wv[i] * g2a[i][k] : 0.f;
+    }
+  float s[4][4];  // [c][column]
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        t = fmaf(wg[i][k], h[c][i][k], t);
+        if (TWO) t = fmaf(wg2[i][k], h2[c][i][k], t);
+      }
+      s[c][k] = t;
+    }
+    s[3][k] = ((wg[0][k] + wg[1][k]) + wg[2][k]) + wg[3][k];
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    float x[8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      x[k] = s[2 * q][k];
+      x[4 + k] = s[2 * q + 1][k];
+    }
+    const float r = tmpl::reduce_scatter8(x, tm);
+    if (col < B) part[((size_t)(a * 4 + 2 * q + (tm >> 2)) * J + j) * B + col] += r;
+  }
+}
+
+// part[a*4+c, j, col] += sum over the tile's vertices of w[v, j] g_a(v) h_c(v)
+// (h_3 = 1) for the segment's active joints jl[0 .. nA), joint by joint.
 __device__ inline void add_dpj(float* __restrict__ part, const float (&g)[3][4][4],
                                const float (&h)[3][4][4], const float* __restrict__ w,
                                const int* __restrict__ jl, int nA, int J, int B, int bc,
@@ -95,35 +142,62 @@ __device__ inline void add_dpj(float* __restrict__ part, const float (&g)[3][4][
     float wv[4];
     tmpl::joint_weights(wv, w, vid, J, j);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      float wg[4][4];
+    for (int a = 0; a < 3; ++a)
+      add_joint_dpj<false>(part, wv, g[a], h, g[a], h, a, j, J, B, col, tm);
+  }
+}
+
+// The thread's stage of three per-vertex fields (K11/K12's -db, b and the
+// template h): float4 (the 4 columns) of field f, row a, vertex i at
+// stage[((f * 3 + a) * 4 + i) * NT + thread]. Each thread reads only what it
+// wrote, so no barrier orders them.
+constexpr int STAGE_FLOAT4 = 3 * 3 * 4 * NT;
+
+__device__ __forceinline__ void stage_field(float4* stage, int f, const float (&x)[3][4][4]) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int a = 0; a < 3; ++a)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) wg[i][k] = wv[i] * g[a][i][k];
-      float s[4][4];  // [c][column]
+    for (int i = 0; i < 4; ++i)
+      stage[((f * 3 + a) * 4 + i) * NT + threadIdx.x] =
+          make_float4(x[a][i][0], x[a][i][1], x[a][i][2], x[a][i][3]);
+}
+
+__device__ __forceinline__ void staged_row(float (&x)[4][4], const float4* stage, int f, int a) {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = stage[((f * 3 + a) * 4 + i) * NT + threadIdx.x];
+    x[i][0] = v.x;
+    x[i][1] = v.y;
+    x[i][2] = v.z;
+    x[i][3] = v.w;
+  }
+}
+
+__device__ __forceinline__ void staged_field(float (&x)[3][4][4], const float4* stage, int f) {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          float t = 0.f;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) t = fmaf(wg[i][k], h[c][i][k], t);
-          s[c][k] = t;
-        }
-        s[3][k] = ((wg[0][k] + wg[1][k]) + wg[2][k]) + wg[3][k];
-      }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float x[8];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          x[k] = s[2 * q][k];
-          x[4 + k] = s[2 * q + 1][k];
-        }
-        const float r = tmpl::reduce_scatter8(x, tm);
-        if (col < B) part[((size_t)(a * 4 + 2 * q + (tm >> 2)) * J + j) * B + col] += r;
-      }
+  for (int a = 0; a < 3; ++a) staged_row(x[a], stage, f, a);
+}
+
+// add_dpj for two rank-1 fields in the same reduce-scatters: part[a*4+c, j,
+// col] += sum over the tile's vertices of w[v, j] (g_a h_c + g2_a h2_c)
+// (h_3 = 1, h2_3 = 0), g and g2 the staged fields 0 and 1, one row group a
+// at a time (the joints' weights are read again per a, from L1), so that of
+// the four fields only h and h2 stay in registers.
+__device__ inline void add_dpj2(float* __restrict__ part, const float4* stage,
+                                const float (&h)[3][4][4], const float (&h2)[3][4][4],
+                                const float* __restrict__ w, const int* __restrict__ jl, int nA,
+                                int J, int B, int bc, const int vid[4], int tm) {
+  const int col = bc + (tm & 3);
+#pragma unroll 1
+  for (int a = 0; a < 3; ++a) {
+    float ga[4][4], g2a[4][4];
+    staged_row(ga, stage, 0, a);
+    staged_row(g2a, stage, 1, a);
+    for (int jj = 0; jj < nA; ++jj) {
+      const int j = __ldg(jl + jj);
+      float wv[4];
+      tmpl::joint_weights(wv, w, vid, J, j);
+      add_joint_dpj<true>(part, wv, ga, h, g2a, h2, a, j, J, B, col, tm);
     }
   }
 }

@@ -13,280 +13,255 @@
 //     dtgt_a = db_a                                                  (3, V_t, B)
 //     dpj[a*4+c, j] = sum_v w_vj (-db_a h_c + G_c b_a)  (c < 3), sum_v w_vj (-db_a) (c = 3)
 //     dh_c   = -sum_a blend_ac db_a [+ gh_c]                          (per vertex)
-// K11 (feat, consts) folds dh into dfeat (F, B) = sum_c consts_c^T dh_c in the
-// kernel, as on the TPU; K12 (the cached template) writes dh (3, V_pad, B),
-// which K7's backward (one GEMM) folds onto feat.
+// K11 (feat, consts) folds dh into dfeat (F, B) = sum_c consts_c^T dh_c, as on
+// the TPU; K12 (the cached template) writes dh (3, V_pad, B), which K7's
+// backward (one GEMM) folds onto feat.
 //
-// What bounds it on an H100: f32 arithmetic. Per (vertex, column): the posed
-// template (3F, K11 only), the position and db (24J), the projection of db
-// (9J), G (3E), 12 joint reductions (12J) and, in K11, 3 feature reductions
-// (3F): at SMPL b4096 (F = 208, J = 24, E = 10) about 7168 * 4096 * 2200 * 2 =
-// 130 GFLOP; at SMPL-X b4096 cached (J = 55, E = 16) about 10496 * 4096 * 2600
-// * 2 = 220 GFLOP, against ~1.5 GB of traffic (targets, dtgt, homog, dh).
+// What bounds it on an H100. K12: bytes. tgt and homog are read and dtgt and
+// dh written once, 4 x 3 x V x B floats (2.06 GB at SMPL-X b4096, 0.62 ms at
+// 3.35 TB/s), against 3E FMAs of G and about 27 per joint that skins the
+// vertex (the blends of db, dh and pos, and the dpj fields) per (vertex,
+// column). K11: f32 arithmetic, the posed template (3F, by K7) and dfeat's
+// contraction (3F) per (vertex, column): at SMPL b4096 (F = 219) about 1.2 ms
+// at the 67 TFLOP/s f32 peak.
 //
-// Design: K2's tiles and the reductions of lbs_bwd.cuh. A block keeps its batch
-// tile's [R|t] entries and gr in shared memory and walks the 64-vertex tiles
-// of its vertex split. Per tile, db comes from one pass over the joints
-// (folding the gy term and the blend into it, as pos_tile folds the blend into
-// the position), so no blended transform is stored; gy is read through the
-// cache. dtgt and dh are written once per vertex; dpj and dfeat go to the
-// split's partials, summed in split order by split_sum_kernel. The fields are
-// ordered so that at most four 4 x 4 x 3 arrays are live at once. Rows past
-// the targets' (V_t) and past the batch edge are masked by global index.
-#include "lbs_bwd.cuh"
-
-using namespace lbs;
-using namespace bwd;
+// Design (bwd_front.cuh): a front kernel that walks the cover K2 walked
+// (BlendSegments: segments of at most 32 vertices of one body part, each with
+// its active joints; every vertex below `covers` once, covers >= V_t), a run
+// of segments and 128 columns per block, a thread 4 vertices x 4 columns
+// (lane = 4 tm + column group). gr is staged once per block and each
+// segment's shape directions k-major by cp.async a segment ahead
+// (template_tile.cuh), so G comes from the register-tiled shape dot. Per
+// segment, over the segment's active joints only: pos from the template h
+// (K12: the cached template; K11: K7's GEMM into a workspace) and b; db (the
+// gy rows blended with [R|t]'s rotation applied to G, gy read through the
+// cache), dtgt, and U = [gh] - Rbar^T db written at the segment's vertices
+// (K12: dh; K11: over its template workspace, in place: each (vertex,
+// column) is read once, by the thread that then writes it). b, h and -db are
+// staged in shared memory, each thread its own, so that at most three 4 x 4
+// x 3 fields are live in registers, and dpj sums both rank-1 fields, -db h
+// and G b, in one warp reduce-scatter per joint and row pair into the run's
+// partial (one owner lane per entry, bwd_front.cuh: add_dpj2). The runs are
+// added in run order by split_sum_kernel. U's rows past the cover are gh
+// (emit) or zero, as the dense sum has them. K11 then takes dfeat by the
+// split-K GEMM over U (dfeat_gemm.cu). No atomics: a call repeats bit for
+// bit.
+#include "bwd_front.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
-constexpr int MAXE = 32;
+using front::NT;
+using front::TB;
+using tmpl::SD_FLOATS;
 
-// G[c] = sum_e SD[c, v, e] gr[e, b] on the thread's micro-tile (sd_s: the
-// tile's shape directions [3][E][TVP]; gr_s: the block's gr [E][TB]).
-__device__ inline void sd_dot(float G[4][4], int c, const float* sd_s, const float* gr_s,
-                              int E) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  zero4(G);
-  for (int e = 0; e < E; ++e) {
-    float s[4], q[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[i] = sd_s[(c * E + e) * TVP + ty + 16 * i];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) q[k] = gr_s[e * TB + tx + 16 * k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) G[i][k] = fmaf(s[i], q[k], G[i][k]);
-  }
-}
+// gr [MAXE][TB], two stages of shape directions, the threads' field stage.
+constexpr size_t SMEM_BYTES =
+    sizeof(float) * (tmpl::MAXE * TB + 2 * SD_FLOATS) + sizeof(float4) * front::STAGE_FLOAT4;
+static_assert((tmpl::MAXE * TB + 2 * SD_FLOATS) % 4 == 0, "the field stage is float4-aligned");
 
-template <bool CACHED, bool GH, bool W>
+// hsrc and U are one buffer in K11 (the front writes dh over its template),
+// so neither is __restrict__.
+template <bool VEC, bool W, bool GH>
 __global__ void __launch_bounds__(NT, 1)
-rhs_bwd_kernel(const float* __restrict__ gr, const float* __restrict__ gy,
-               const float* __restrict__ gh, const float* __restrict__ tgt,
-               const float* __restrict__ pj, const float* __restrict__ feat,
-               const float* __restrict__ w, const float* __restrict__ consts,
-               const float* __restrict__ sd, const float* __restrict__ om,
-               const float* __restrict__ homog, float* __restrict__ dtgt,
-               float* __restrict__ dh_out, float* __restrict__ part, int J, int B, int F, int E,
-               int Vt, int Vp, int tiles_per_block) {
-  extern __shared__ float smem[];
-  float* pj_s = smem;                   // [12][J][TB]
-  float* w_s = pj_s + 12 * J * TB;      // [J][TVP]
-  float* sd_s = w_s + J * TVP;          // [3][E][TVP]
-  float* gr_s = sd_s + 3 * E * TVP;     // [E][TB]
-  float* work = gr_s + E * TB;          // work_floats()
-  float* coef_s = work + work_floats(); // [ROWS][TVP] (K11 only)
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+rhs_bwd_front(const float* __restrict__ gr, const float* __restrict__ gy,
+              const float* __restrict__ gh, const float* __restrict__ tgt,
+              const float* __restrict__ pj, const float* hsrc,
+              const float* __restrict__ w, const float* __restrict__ sd,
+              const float* __restrict__ om, const int* __restrict__ verts,
+              const int* __restrict__ seg_offset, const int* __restrict__ joints,
+              const int* __restrict__ joint_offset, float* __restrict__ dtgt, float* U,
+              float* __restrict__ part, int J, int E, int B, int Vt,
+              int Vp, int n_seg, int segs_per_run) {
+  extern __shared__ float4 smem4[];
+  float* const gr_s = reinterpret_cast<float*>(smem4);  // [E][TB]
+  float* const sd_s = gr_s + tmpl::MAXE * TB;           // [2][3][E][SDL]
+  float4* const stage = smem4 + (tmpl::MAXE * TB + 2 * SD_FLOATS) / 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tm = lane / 4;             // vertex group: segment rows 4 tm .. 4 tm + 3
+  const int tn = 4 * warp + lane % 4;  // column group: 4 tn .. 4 tn + 3
   const int b0 = blockIdx.x * TB;
-  const int R = 12 * J + (CACHED ? 0 : F);
-  float* part_blk = part + (size_t)blockIdx.y * R * B;
+  const int bc = b0 + 4 * tn;
+  const int s0 = blockIdx.y * segs_per_run;
+  const int s1 = min(n_seg, s0 + segs_per_run);
+  float* const part_run = part + (size_t)blockIdx.y * 12 * J * B;
 
-  load_pj_tile(pj_s, pj, J, B, b0);
-  for (int idx = threadIdx.x; idx < E * TB; idx += NT) {
-    const int b = b0 + idx % TB;
-    gr_s[idx] = b < B ? gr[(size_t)(idx / TB) * B + b] : 0.f;
+  front::zero_dpj(part_run, J, B, bc, tm);
+  tmpl::stage_columns(gr_s, gr, E, B, b0);
+  if (s0 < s1) {
+    const front::Tile tl = front::tile_at(seg_offset, nullptr, s0);
+    tmpl::stage_shape_rows(sd_s, sd, verts + tl.beg, tl.n, E, Vp);
   }
-  zero_split(part_blk, R, B, b0);
+  sgemm::cp_async_commit();
 
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int v0 = (blockIdx.y * tiles_per_block + t) * TV;
-    if (v0 >= Vp) break;  // uniform across the block
-    __syncthreads();      // the previous tile is done with w_s, sd_s, work and coef_s
-    const TileRows rows{v0, Vp};
-    load_w_tile(w_s, w, J, rows);
-    for (int idx = threadIdx.x; idx < TV * 3 * E; idx += NT) {
-      const int ce = idx % (3 * E), vv = idx / (3 * E);
-      const int v = v0 + vv;
-      sd_s[ce * TVP + vv] = (v < Vp) ? sd[((size_t)(ce / E) * Vp + v) * E + ce % E] : 0.f;
-    }
-    __syncthreads();
-
-    // db = ω (w . gy + blend . G), zero past the targets' rows and the batch.
-    float db[3][4][4];
-    {
-      float G[3][4][4];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) sd_dot(G[c], c, sd_s, gr_s, E);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) zero4(db[a]);
-      for (int j = 0; j < J; ++j) {
-        float wv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) wv[i] = w_s[j * TVP + ty + 16 * i];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int b = b0 + tx + 16 * k;
-          float p[9], q[3];
-#pragma unroll
-          for (int a = 0; a < 3; ++a) {
-            q[a] = b < B ? __ldg(&gy[((size_t)a * J + j) * B + b]) : 0.f;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) p[a * 3 + c] = pj_s[((a * 4 + c) * J + j) * TB + tx + 16 * k];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int a = 0; a < 3; ++a) {
-              const float s = fmaf(p[a * 3], G[0][i][k],
-                              fmaf(p[a * 3 + 1], G[1][i][k],
-                              fmaf(p[a * 3 + 2], G[2][i][k], q[a])));
-              db[a][i][k] = fmaf(wv[i], s, db[a][i][k]);
-            }
-        }
-      }
-    }
+  for (int s = s0; s < s1; ++s) {
+    const front::Tile tl = front::tile_at(seg_offset, nullptr, s);
+    const int j0 = __ldg(joint_offset + s), nA = __ldg(joint_offset + s + 1) - j0;
+    const int* const jl = joints + j0;
+    int vid[4], vt[4];  // vt: the vertex where it has a target row, else -1
+    front::tile_vertices(vid, verts, tl, tm);
+    float om_v[4];  // ω, zero past the targets' rows
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int v = v0 + ty + 16 * i;
-      const float wv = v < Vt ? (W ? om[v] : 1.f) : 0.f;
+      vt[i] = vid[i] < Vt ? vid[i] : -1;
+      om_v[i] = vt[i] >= 0 ? (W ? om[vt[i]] : 1.f) : 0.f;
+    }
+
+    // This segment's shape directions are in (and gr, on the first); the
+    // other stage was last read by the previous segment, which every thread
+    // has finished.
+    sgemm::cp_async_wait<0>();
+    __syncthreads();
+    if (s + 1 < s1) {
+      const front::Tile nx = front::tile_at(seg_offset, nullptr, s + 1);
+      tmpl::stage_shape_rows(sd_s + ((s + 1 - s0) & 1) * SD_FLOATS, sd, verts + nx.beg, nx.n,
+                             E, Vp);
+    }
+    sgemm::cp_async_commit();
+    const float* const sd_t = sd_s + ((s - s0) & 1) * SD_FLOATS;
+
+    // pos from the template (read before U may overwrite it); b = ω (tgt -
+    // pos) and h staged.
+    {
+      float h[3][4][4], b[3][4][4];
+      tmpl::load3<VEC>(h, hsrc, Vp, vid, B, bc);
+      tmpl::blend_pos<VEC>(b, h, pj, w, jl, nA, J, B, bc, vid);
 #pragma unroll
       for (int a = 0; a < 3; ++a)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) db[a][i][k] *= wv;
-    }
-    store_field(dtgt, db, Vt, Vt, v0, B, b0);
-
-    // dh = -Rbar^T db [+ gh]: written (cached form) or folded onto feat.
-    {
-      float u[3][4][4];
-      project_rbar(u, db, pj_s, w_s, J);
-      float ghv[3][4][4];
-      if (GH) load_field(ghv, gh, Vp, Vp, v0, B, b0);
+        for (int i = 0; i < 4; ++i) {
+          float t4[4] = {0.f, 0.f, 0.f, 0.f};
+          if (vt[i] >= 0) tmpl::load4<VEC>(t4, tgt + ((size_t)a * Vt + vt[i]) * B + bc, bc, B);
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
+          for (int k = 0; k < 4; ++k) b[a][i][k] = (t4[k] - b[a][i][k]) * om_v[i];
+        }
+      front::stage_field(stage, 1, b);
+      front::stage_field(stage, 2, h);
+    }
+    float G[3][4][4];
+    tmpl::zero(G);
+    tmpl::add_shape_dot(G, sd_t, gr_s, E, tm, tn);
+    // db = ω sum_j w_vj (gy[:, j] + R_j G); dtgt; U = [gh] - Rbar^T db; -db staged.
+    {
+      float db[3][4][4];
+      tmpl::blend_affine<VEC>(db, G, pj, gy, J, w, jl, nA, J, B, bc, vid);
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) u[c][i][k] = GH ? ghv[c][i][k] - u[c][i][k] : -u[c][i][k];
-      if (CACHED) {
-        store_field(dh_out, u, Vp, Vp, v0, B, b0);
-      } else {
-        reduce_feat(part_blk, 12 * J, u, consts, F, Vp, v0, B, b0, work, coef_s);
+          for (int k = 0; k < 4; ++k) db[a][i][k] *= om_v[i];
+      tmpl::store3<VEC>(dtgt, Vt, db, vt, B, bc);
+      {
+        float u[3][4][4];
+        tmpl::blend_project<VEC>(u, db, pj, w, jl, nA, J, B, bc, vid);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float g4[4] = {0.f, 0.f, 0.f, 0.f};
+            if (GH && vid[i] >= 0)
+              tmpl::load4<VEC>(g4, gh + ((size_t)c * Vp + vid[i]) * B + bc, bc, B);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) u[c][i][k] = GH ? g4[k] - u[c][i][k] : -u[c][i][k];
+          }
+        tmpl::store3<VEC>(U, Vp, u, vid, B, bc);
       }
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) db[a][i][k] = -db[a][i][k];
+      front::stage_field(stage, 0, db);
     }
-
-    // The template and the weighted residual b = ω (tgt - pos).
     float h[3][4][4];
-    if (CACHED) {
-      load_field(h, homog, Vp, Vp, v0, B, b0);
-    } else {
-      homog_tile(h, feat, consts, F, B, Vp, rows, b0, work);
-    }
-    float res[3][4][4];
-    pos_tile(res, h, pj_s, w_s, J);
-    {
-      float tv[3][4][4];
-      load_field(tv, tgt, Vt, Vt, v0, B, b0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int v = v0 + ty + 16 * i;
-        const float wv = v < Vt ? (W ? om[v] : 1.f) : 0.f;
-#pragma unroll
-        for (int a = 0; a < 3; ++a)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) res[a][i][k] = (tv[a][i][k] - res[a][i][k]) * wv;
-      }
-    }
-
-    // dpj: the blend enters through pos (-db h) and, in its rotation columns,
-    // through Rbar^T b (G b). One G_c at a time.
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      float G[4][4];
-      sd_dot(G, c, sd_s, gr_s, E);
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        float f[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            f[i][k] = fmaf(G[i][k], res[a][i][k], -db[a][i][k] * h[c][i][k]);
-        reduce_joint_field(part_blk, (a * 4 + c) * J, f, w_s, work, J, B, b0);
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      float f[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) f[i][k] = -db[a][i][k];
-      reduce_joint_field(part_blk, (a * 4 + 3) * J, f, w_s, work, J, B, b0);
-    }
+    front::staged_field(h, stage, 2);
+    front::add_dpj2(part_run, stage, h, G, w, jl, nA, J, B, bc, vid, tm);
   }
+  sgemm::cp_async_wait<0>();
 }
 
-template <bool CACHED, bool GH, bool W>
-cudaError_t launch_variant(const float* gr, const float* gy, const float* gh, const float* tgt,
-                           const float* pj, const float* feat, const float* w,
-                           const float* consts, const float* sd, const float* om,
-                           const float* homog, float* dtgt, float* dh, float* part, int J, int B,
-                           int F, int E, int Vt, int Vp, int tiles_per_block, size_t smem,
-                           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(rhs_bwd_kernel<CACHED, GH, W>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <bool VEC, bool W, bool GH>
+cudaError_t launch_front(dim3 grid, cudaStream_t stream, const float* gr, const float* gy,
+                         const float* gh, const float* tgt, const float* pj, const float* hsrc,
+                         const float* w, const float* sd, const float* om, const int* verts,
+                         const int* seg_offset, const int* joints, const int* joint_offset,
+                         float* dtgt, float* U, float* part, int J, int E, int B, int Vt, int Vp,
+                         int n_seg, int segs_per_run) {
+  auto kernel = rhs_bwd_front<VEC, W, GH>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const int n_vtiles = (Vp + TV - 1) / TV;
-  dim3 grid((B + TB - 1) / TB, (n_vtiles + tiles_per_block - 1) / tiles_per_block);
-  rhs_bwd_kernel<CACHED, GH, W><<<grid, NT, smem, stream>>>(
-      gr, gy, gh, tgt, pj, feat, w, consts, sd, om, homog, dtgt, dh, part, J, B, F, E, Vt, Vp,
-      tiles_per_block);
+  kernel<<<grid, NT, SMEM_BYTES, stream>>>(gr, gy, gh, tgt, pj, hsrc, w, sd, om, verts,
+                                           seg_offset, joints, joint_offset, dtgt, U, part, J,
+                                           E, B, Vt, Vp, n_seg, segs_per_run);
   return cudaGetLastError();
-}
-
-template <bool CACHED, bool GH>
-cudaError_t launch_form(const float* gr, const float* gy, const float* gh, const float* tgt,
-                        const float* pj, const float* feat, const float* w, const float* consts,
-                        const float* sd, const float* om, const float* homog, float* dtgt,
-                        float* dh, float* part, int J, int B, int F, int E, int Vt, int Vp,
-                        int tiles_per_block, size_t smem, cudaStream_t stream) {
-  if (om == nullptr)
-    return launch_variant<CACHED, GH, false>(gr, gy, gh, tgt, pj, feat, w, consts, sd, om, homog,
-                                             dtgt, dh, part, J, B, F, E, Vt, Vp,
-                                             tiles_per_block, smem, stream);
-  return launch_variant<CACHED, GH, true>(gr, gy, gh, tgt, pj, feat, w, consts, sd, om, homog,
-                                          dtgt, dh, part, J, B, F, E, Vt, Vp, tiles_per_block,
-                                          smem, stream);
 }
 
 }  // namespace
 
-SMPL_API size_t rhs_bwd_smem_bytes(int J, int E, int cached) {
-  return sizeof(float) * (12 * J * TB + J * TVP + 3 * E * TVP + E * TB + work_floats() +
-                          (cached ? 0 : ROWS * TVP));
-}
-
 // gr (E, B), gy (3, J, B), gh null or (3, Vp, B) (the emitted template's
-// cotangent; not with cached), tgt (3, Vt, B), pj (12, J, B), w (Vp, J),
-// sd (3, Vp, E), om null or the static fit weights (Vp, 1); K11: feat (F, B)
-// and consts (>= 3, Vp, F), homog null; K12 (cached): homog (3, Vp, B), feat
-// and consts null. -> dtgt (3, Vt, B); K12: dh (3, Vp, B); out (12 J [+ F], B):
-// dpj (12, J, B) [then dfeat (F, B)]. part is scratch of n_splits * (12 J [+ F])
-// * B floats. Requires J <= 64, E <= 32.
+// cotangent; K11 only), tgt (3, Vt, B), pj (12, J, B), w (Vp, J), sd
+// (3, Vp, E), om null or the static fit weights (Vp, 1), the cover (verts,
+// seg_offset (n_seg + 1), joints, joint_offset (n_seg + 1); every vertex
+// below `covers` once, Vt <= covers <= Vp). K12: homog (3, Vp, B) the cached
+// template, feat and consts null; -> dtgt (3, Vt, B), U = dh (3, Vp, B),
+// out (12 J, B) = dpj. K11: homog null, feat (F, B), consts (>= 3, Vp, F); U
+// (3, Vp, B) a workspace (the template, then dh); -> dtgt, out (12 J + F, B):
+// dpj, then dfeat. part is scratch of n_runs * 12 J * B floats, n_runs =
+// ceil(n_seg / segs_per_run), part_feat of feat_splits * F * B (null for one
+// split). Requires 1 <= E <= 32.
 SMPL_API int rhs_bwd_launch(const float* gr, const float* gy, const float* gh, const float* tgt,
                             const float* pj, const float* feat, const float* w,
                             const float* consts, const float* sd, const float* om,
-                            const float* homog, float* dtgt, float* dh, float* out, float* part,
-                            int J, int B, int F, int E, int Vt, int Vp, int tiles_per_block,
-                            int cached, cudaStream_t stream) {
-  if (J > ROWS || E > MAXE || (cached && gh != nullptr)) return (int)cudaErrorInvalidValue;
-  const size_t smem = rhs_bwd_smem_bytes(J, E, cached);
-  cudaError_t err;
-  if (cached)
-    err = launch_form<true, false>(gr, gy, gh, tgt, pj, feat, w, consts, sd, om, homog, dtgt, dh,
-                                   part, J, B, 0, E, Vt, Vp, tiles_per_block, smem, stream);
-  else if (gh != nullptr)
-    err = launch_form<false, true>(gr, gy, gh, tgt, pj, feat, w, consts, sd, om, homog, dtgt, dh,
-                                   part, J, B, F, E, Vt, Vp, tiles_per_block, smem, stream);
-  else
-    err = launch_form<false, false>(gr, gy, gh, tgt, pj, feat, w, consts, sd, om, homog, dtgt,
-                                    dh, part, J, B, F, E, Vt, Vp, tiles_per_block, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  const int n_vtiles = (Vp + TV - 1) / TV;
-  const int n_splits = (n_vtiles + tiles_per_block - 1) / tiles_per_block;
-  const int R = 12 * J + (cached ? 0 : F);
-  return (int)launch_split_sum(part, out, n_splits, (size_t)R * B, stream);
+                            const float* homog, const int* verts, const int* seg_offset,
+                            const int* joints, const int* joint_offset, float* dtgt, float* U,
+                            float* part, float* part_feat, float* out, int J, int B, int F,
+                            int E, int Vt, int Vp, int n_seg, int covers, int segs_per_run,
+                            int feat_splits, cudaStream_t stream) {
+  const bool cached = homog != nullptr;
+  if (E > tmpl::MAXE || E < 1 || n_seg < 1 || segs_per_run < 1 || covers < Vt || covers > Vp ||
+      (cached && gh != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  int err = 0;
+  if (!cached) {
+    err = posed_template_launch(feat, consts, U, F, B, Vp, stream);
+    if (err != 0) return err;
+  }
+  const float* const hsrc = cached ? homog : U;
+  if (covers < Vp) {  // U past the cover: gh, or zero
+    const size_t pitch = sizeof(float) * (size_t)Vp * B;
+    const size_t width = sizeof(float) * (size_t)(Vp - covers) * B;
+    float* const past = U + (size_t)covers * B;
+    err = gh != nullptr ? (int)cudaMemcpy2DAsync(past, pitch, gh + (size_t)covers * B, pitch,
+                                                 width, 3, cudaMemcpyDeviceToDevice, stream)
+                        : (int)cudaMemset2DAsync(past, pitch, 0, width, 3, stream);
+    if (err != 0) return err;
+  }
+  const bool vec = B % 4 == 0 && sgemm::aligned16(gy) &&
+                   (gh == nullptr || sgemm::aligned16(gh)) && sgemm::aligned16(tgt) &&
+                   sgemm::aligned16(pj) && sgemm::aligned16(hsrc) && sgemm::aligned16(dtgt) &&
+                   sgemm::aligned16(U);
+  const int n_runs = (n_seg + segs_per_run - 1) / segs_per_run;
+  const dim3 grid((B + TB - 1) / TB, n_runs);
+#define K11_FRONT(v, wt, g)                                                                   \
+  err = (int)launch_front<v, wt, g>(grid, stream, gr, gy, gh, tgt, pj, hsrc, w, sd, om,      \
+                                    verts, seg_offset, joints, joint_offset, dtgt, U, part,  \
+                                    J, E, B, Vt, Vp, n_seg, segs_per_run);
+#define K11_FRONT_W(v, g) \
+  if (om == nullptr) { K11_FRONT(v, false, g) } else { K11_FRONT(v, true, g) }
+  if (vec) {
+    if (gh != nullptr) { K11_FRONT_W(true, true) } else { K11_FRONT_W(true, false) }
+  } else {
+    if (gh != nullptr) { K11_FRONT_W(false, true) } else { K11_FRONT_W(false, false) }
+  }
+#undef K11_FRONT_W
+#undef K11_FRONT
+  if (err != 0) return err;
+  err = (int)launch_split_sum(part, out, n_runs, (size_t)12 * J * B, stream);
+  if (err != 0 || cached) return err;
+  return dfeat_gemm_launch(consts, U, part_feat, out + (size_t)12 * J * B, F, B, Vp, feat_splits,
+                           stream);
 }

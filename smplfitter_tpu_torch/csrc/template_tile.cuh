@@ -1,8 +1,8 @@
 // The template dot and the active-joint blend of the kernels that walk
 // vertex segments: K1 (lbs_points.cu), K2 (rhs_moments.cu), K4
 // (recon_part_sums.cu) and K6 (recon_lbs_part_sums.cu); the blends and the
-// warp reduce-scatter also serve the backward fronts of K10, K13 and K14
-// (bwd_front.cuh).
+// warp reduce-scatter also serve the backward fronts of K10, K11, K12, K13
+// and K14 (bwd_front.cuh).
 //
 // A block of 256 threads owns 128 batch columns and walks tiles of 32 listed
 // vertices (a tile's rows are a list in shared memory: the vertex of each
@@ -32,6 +32,7 @@
 //   cp.async), the solve's coefficients x (E, B) staged once per block
 //   ([e][column]); the template h += SD x as a register-tiled dot (48 FMAs per
 //   4 shared loads), and sum_v SD_v^T g_v by the warp reduce-scatter below.
+//   K11 and K12 take their G = SD gr by the same dot, gr staged as x.
 // All arithmetic is f32 FMAs on the CUDA cores (no TF32, no tensor cores).
 #pragma once
 
@@ -228,35 +229,47 @@ __device__ __forceinline__ void joint_weights(float wv[4], const float* __restri
   for (int i = 0; i < 4; ++i) wv[i] = vid[i] >= 0 ? __ldg(w + (size_t)vid[i] * J + j) : 0.f;
 }
 
-// pos[a][i][k] = sum_j w[vid_i, j] (sum_c pj[a*4+c, j, bc+k] h[c][i][k] +
-// pj[a*4+3, j, bc+k]) over the segment's active joints jl[0 .. nA): the
-// blended [R|t] applied to the homogeneous template, joint by joint in list
-// order, so only one joint's entries are live at a time.
+// out[a][i][k] = sum_j w[vid_i, j] (sum_c pj[a*4+c, j, bc+k] h[c][i][k] +
+// tr[a * tr_rows + j, bc+k]) over the segment's active joints jl[0 .. nA):
+// the blended rotation applied to h plus a blended column per joint, joint
+// by joint in list order, so only one joint's entries are live at a time.
 template <bool VEC>
-__device__ inline void blend_pos(float (&pos)[3][4][4], const float (&h)[3][4][4],
-                                 const float* __restrict__ pj, const float* __restrict__ w,
-                                 const int* __restrict__ jl, int nA, int J, int B, int bc,
-                                 const int vid[4]) {
-  zero(pos);
+__device__ inline void blend_affine(float (&out)[3][4][4], const float (&h)[3][4][4],
+                                    const float* __restrict__ pj, const float* __restrict__ tr,
+                                    int tr_rows, const float* __restrict__ w,
+                                    const int* __restrict__ jl, int nA, int J, int B, int bc,
+                                    const int vid[4]) {
+  zero(out);
   for (int jj = 0; jj < nA; ++jj) {
     const int j = __ldg(jl + jj);
     float wv[4];
     joint_weights(wv, w, vid, J, j);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      float p[4][4];  // [c][column]: entries a*4 + c of the 4 columns
+      float p[4][4];  // [c][column]: entries a*4 + c of the 4 columns, then the column of tr
 #pragma unroll
-      for (int c = 0; c < 4; ++c) load4<VEC>(p[c], pj + ((size_t)(a * 4 + c) * J + j) * B + bc, bc, B);
+      for (int c = 0; c < 3; ++c) load4<VEC>(p[c], pj + ((size_t)(a * 4 + c) * J + j) * B + bc, bc, B);
+      load4<VEC>(p[3], tr + ((size_t)a * tr_rows + j) * B + bc, bc, B);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const float t = fmaf(p[0][k], h[0][i][k],
                           fmaf(p[1][k], h[1][i][k], fmaf(p[2][k], h[2][i][k], p[3][k])));
-          pos[a][i][k] = fmaf(wv[i], t, pos[a][i][k]);
+          out[a][i][k] = fmaf(wv[i], t, out[a][i][k]);
         }
     }
   }
+}
+
+// pos = the blended [R|t] applied to the homogeneous template h (blend_affine
+// with the translation column pj[a*4+3]).
+template <bool VEC>
+__device__ inline void blend_pos(float (&pos)[3][4][4], const float (&h)[3][4][4],
+                                 const float* __restrict__ pj, const float* __restrict__ w,
+                                 const int* __restrict__ jl, int nA, int J, int B, int bc,
+                                 const int vid[4]) {
+  blend_affine<VEC>(pos, h, pj, pj + (size_t)3 * J * B, 4 * J, w, jl, nA, J, B, bc, vid);
 }
 
 // g[c][i][k] = (Rbar^T f)_c = sum_j w[vid_i, j] sum_a pj[a*4+c, j, bc+k]

@@ -38,7 +38,7 @@ _SIGNATURES = {
     'term1_launch': [_P] * 4 + [_I] * 4 + [_P],
     'wgram_launch': [_P] * 19 + [_I] * 13 + [_P],
     'lbs_points_bwd_launch': [_P] * 14 + [_I] * 8 + [_P],
-    'rhs_bwd_launch': [_P] * 15 + [_I] * 8 + [_P],
+    'rhs_bwd_launch': [_P] * 20 + [_I] * 10 + [_P],
     'recon_bwd_launch': [_P] * 21 + [_I] * 8 + [_P],
     'recon_lbs_bwd_launch': [_P] * 22 + [_I] * 9 + [_P],
     'part_sums_bwd_launch': [_P] * 10 + [_I] * 5 + [_P],
@@ -46,7 +46,6 @@ _SIGNATURES = {
 # name -> argument types of the shared-memory size queries (restype size_t).
 _SMEM_SIGNATURES = {
     'gram_assembly_smem_bytes': [_I, _I],
-    'rhs_bwd_smem_bytes': [_I, _I, _I],
 }
 
 _lib = None

@@ -36,13 +36,15 @@ vertices of one body part, each with its active joints) and blend over each
 segment's joints only; their wrappers take it as ``cover=`` (None builds one
 from ``weights_pad`` on the host at every call, counted in ``HOST_COVERS``).
 K4 and K6 walk the part index's segments and lists (:class:`PartIndex`).
-Their backward kernels walk the same: K10 the cover its K1 call walked
-(``cover=`` again, kept by the autograd Function; None builds one, counted
-under ``lbs_points_bwd``), K13 and K14 the part index's 32-vertex tiles. K10
+Their backward kernels walk the same: K10 the cover its K1 call walked and
+K11 and K12 the cover their K2 call walked (``cover=`` again, kept by the
+autograd Function; None builds one, counted under ``lbs_points_bwd`` and
+``rhs_moments_bwd``), K13 and K14 the part index's 32-vertex tiles. K10, K11
 and K14 take the posed template from K7 and dfeat from a split-K GEMM
 (csrc/dfeat_gemm.cu) over a (3, V_pad, B) workspace the kernel's front
-writes; K13's front reads the cached template, writes its cotangent dh where
-they write that workspace, and sums dx itself.
+writes (K11's over its template workspace, in place); K12's and K13's
+fronts read the cached template and write its cotangent dh where they write
+that workspace, and K13 sums dx itself.
 
 Fit weights ω reach K2 as the static column (V_pad, 1) of a weighted fitter,
 and K4, K5 and K6 as that column or as per-call weights (V, B); K9 takes
@@ -147,7 +149,8 @@ LAUNCHES = {
 
 # Covers built on the host because a caller passed none (a copy of the
 # skinning weights from the card at every such call): by wrapper.
-HOST_COVERS = {'lbs_points': 0, 'rhs_moments': 0, 'wgram': 0, 'lbs_points_bwd': 0}
+HOST_COVERS = {'lbs_points': 0, 'rhs_moments': 0, 'wgram': 0, 'lbs_points_bwd': 0,
+               'rhs_moments_bwd': 0}
 
 # Backward passes in torch ops, one count per backward call: K3, K7 and K8,
 # whose JAX VJPs are XLA, and the forms the JAX package differentiates through
@@ -172,13 +175,10 @@ TORCH_VJPS = {
 # package's vertex chunk so the precomputed fields compare directly.
 VC = 256
 
-_TV = 64  # vertex tile of the backward LBS kernels K11-K12 (csrc/lbs_tile.cuh)
-_TB = 64  # batch tile of the backward LBS kernels K11-K12
 _SEG_TB = 128  # batch columns per block of the kernels that walk a cover (csrc/template_tile.cuh)
 _PART_TILE = 32  # vertices per tile of a part index's segments (K13's and K14's fronts, csrc/bwd_front.cuh)
 _SEG = 512  # max vertices per part segment of the recon kernels K4 and K6
 _WGRAM_SEG = 32  # max vertices per segment of K9's cover (csrc/wgram.cu: one tile)
-_BWD_MAXJ = 64  # joints of one reduction pass of K11-K12 (csrc/lbs_bwd.cuh)
 _SUM_COLS = 256  # batch columns per split of K15's summed form (csrc/part_sums_bwd.cu)
 _VJP_VCHUNK = 512  # vertices per step of a backward in torch ops (bounds its memory)
 _TERM1_TILE = (256, 128)  # K8's block tile: rows of G1, batch columns (csrc/term1.cu)
@@ -253,22 +253,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _vertex_splits(Vp: int, B: int, device) -> tuple[int, int]:
-    """(vertex tiles per block, number of vertex splits) of the backward
-    LBS kernels: enough splits of the vertex axis that the grid holds about
-    four blocks per SM."""
-    n_vtiles = -(-Vp // _TV)
-    grid_x = -(-B // _TB)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(n_vtiles, math.ceil(4 * sms / grid_x)))
-    tiles_per_block = -(-n_vtiles // want)
-    return tiles_per_block, -(-n_vtiles // tiles_per_block)
-
-
 def _segment_runs(n_seg: int, B: int, device, blocks_per_sm: int) -> tuple[int, int]:
     """(segments per block, number of runs) of a kernel that walks a cover:
     runs of the cover's segments such that the grid holds at most
-    ``blocks_per_sm`` blocks per SM (K2 and the fronts of K10, K13 and K14: one
+    ``blocks_per_sm`` blocks per SM (K2 and the fronts of K10-K14: one
     wave, one block per SM, so their per-run partials stay few; K1: four
     waves of two blocks per SM). No segments: no runs."""
     grid_x = -(-B // _SEG_TB)
@@ -279,7 +267,7 @@ def _segment_runs(n_seg: int, B: int, device, blocks_per_sm: int) -> tuple[int, 
 
 
 def dfeat_splits(F: int, B: int, Vp: int, device) -> int:
-    """Splits of the dfeat GEMM's K = 3 V_pad sum (K10, K14): as many as fill
+    """Splits of the dfeat GEMM's K = 3 V_pad sum (K10, K11, K14): as many as fill
     one wave of the card (one resident block per SM) with the grid's
     (feature, batch) tiles, at most one per 16-row k stage (2 at SMPL-X
     b4096 on 132 SMs, 4 at SMPL)."""
@@ -760,12 +748,15 @@ def _rhs_scale_vjp(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_c
 class _RhsMoments(torch.autograd.Function):
     """K2's emit-homog, plain and cached forms (unweighted or static ω) with
     K11 (emit-homog, plain) or K12 (cached) as their backward: the JAX
-    package's _rhs_h_diff, _rhs_moments_diff, _rhs_c_diff and their _w forms."""
+    package's _rhs_h_diff, _rhs_moments_diff, _rhs_c_diff and their _w forms.
+    The backward walks the forward's cover. The emit form's backward forms
+    the template again (K7) rather than keep the emitted one: kept, it
+    outlives K4's backward and raises the gradient's peak memory."""
 
     @staticmethod
     def forward(ctx, name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
                 emit_homog, scale, omega, cover=None):
-        ctx.emit_homog = emit_homog
+        ctx.emit_homog, ctx.cover = emit_homog, cover
         ctx.save_for_backward(tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
                               omega)
         return _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, homog_vm,
@@ -779,11 +770,11 @@ class _RhsMoments(torch.autograd.Function):
         gr, gy = gr.contiguous(), gy.contiguous()
         if homog_vm is not None:
             dtgt, dpj, dh = rhs_moments_cached_bwd(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad,
-                                                   sd_cm, omega=omega)
+                                                   sd_cm, omega=omega, cover=ctx.cover)
             return (None, dtgt, dpj, None, None, None, None, dh, None, None, None, None)
         dtgt, dpj, dfeat = rhs_moments_bwd(
             gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
-            gh=gh.contiguous() if ctx.emit_homog else None, omega=omega)
+            gh=gh.contiguous() if ctx.emit_homog else None, omega=omega, cover=ctx.cover)
         return (None, dtgt, dpj, dfeat, None, None, None, None, None, None, None, None)
 
 
@@ -919,7 +910,7 @@ def rhs_moments_cached_bwd_ref(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad, sd_
 
 
 def rhs_moments_bwd(gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, gh=None,
-                    omega=None):
+                    omega=None, cover: BlendSegments | None = None):
     """The VJP of :func:`rhs_moments` and, with the cotangent ``gh``
     (3, V_pad, B) of the emitted template, of :func:`rhs_moments_h` (K11),
     for the cotangents gr (E, B) of r and gy (3, J, B) of y; a static
@@ -927,52 +918,60 @@ def rhs_moments_bwd(gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, s
     db_a = ω (sum_j w_vj gy[a, j] + sum_c blend_ac G_c): dtgt = db (3, V_t, B),
     dpj (12, J, B) = sum_v w_vj (-db_a h_c + G_c b_a) (c < 3; -db_a for c = 3,
     b the weighted residual) and dfeat (F, B) = sum_c consts_c^T dh_c with
-    dh = -Rbar^T db [+ gh]. Returns (dtgt, dpj, dfeat)."""
+    dh = -Rbar^T db [+ gh]. Returns (dtgt, dpj, dfeat).
+
+    ``cover`` is the vertex cover the kernel walks, the forward's (which
+    ``_RhsMoments`` passes on): it must hold every target row and none at or
+    past V_pad. None builds one on the host at every call on the card
+    (counted in HOST_COVERS). The twin ignores it. The kernel also takes a
+    (3, V_pad, B) workspace: the posed template (K7), then dh in its place,
+    which the dfeat GEMM reads."""
     name = ('rhs_moments_bwd' if gh is None else 'rhs_moments_h_bwd') + (
         '' if omega is None else '_w')
     tensors = dict(gr=gr, gy=gy, tgt_vm=tgt_vm, pj_cm=pj_cm, feat_cols=feat_cols,
                    weights_pad=weights_pad, consts_pad=consts_pad, sd_cm=sd_cm)
     tensors.update({k: v for k, v in (('gh', gh), ('omega', omega)) if v is not None})
     cuda = _on_cuda(name, **tensors)
-    J, B, E, Vp, v_t = _rhs_bwd_dims(name, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm, omega)
+    J, B, E, Vp, v_t = _rhs_bwd_dims(name, cuda, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm,
+                                     omega)
     F = feat_cols.shape[0]
     _expect(name, 'feat_cols', feat_cols, (F, B))
     _expect(name, 'consts_pad', consts_pad, (None, Vp, F))
+    if consts_pad.shape[0] < 3:
+        raise ValueError(f'{name}: consts_pad needs at least 3 channels')
     if gh is not None:
         _expect(name, 'gh', gh, (3, Vp, B))
     if not cuda:
         return rhs_moments_bwd_ref(gr, gy, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad,
                                    sd_cm, gh, omega)
-    dev = gr.device
-    dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
-    out = _rhs_bwd_launch(name, gr, gy, gh, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad,
-                          sd_cm, omega, None, dtgt, None, F)
+    dtgt, out, _ = _rhs_bwd_launch(name, gr, gy, gh, tgt_vm, pj_cm, feat_cols, weights_pad,
+                                   consts_pad, sd_cm, omega, None, cover)
     return dtgt, out[:12 * J].view(12, J, B), out[12 * J:]
 
 
-def rhs_moments_cached_bwd(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, omega=None):
+def rhs_moments_cached_bwd(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm, omega=None,
+                           cover: BlendSegments | None = None):
     """The VJP of :func:`rhs_moments_cached` (K12): as :func:`rhs_moments_bwd`,
     with the per-vertex template cotangent dh = -Rbar^T db (3, V_pad, B)
     returned in place of dfeat (the posed template's backward folds it onto
-    feat). Returns (dtgt, dpj, dh)."""
+    feat; zero past the cover). ``cover`` as for :func:`rhs_moments_bwd`.
+    Returns (dtgt, dpj, dh)."""
     name = 'rhs_moments_cached_bwd' + ('' if omega is None else '_w')
     extra = {} if omega is None else dict(omega=omega)
     cuda = _on_cuda(name, gr=gr, gy=gy, tgt_vm=tgt_vm, pj_cm=pj_cm, homog_vm=homog_vm,
                     weights_pad=weights_pad, sd_cm=sd_cm, **extra)
-    J, B, E, Vp, v_t = _rhs_bwd_dims(name, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm, omega)
+    J, B, E, Vp, v_t = _rhs_bwd_dims(name, cuda, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm,
+                                     omega)
     _expect(name, 'homog_vm', homog_vm, (3, Vp, B))
     if not cuda:
         return rhs_moments_cached_bwd_ref(gr, gy, tgt_vm, pj_cm, homog_vm, weights_pad, sd_cm,
                                           omega)
-    dev = gr.device
-    dtgt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
-    dh = torch.empty((3, Vp, B), dtype=torch.float32, device=dev)
-    out = _rhs_bwd_launch(name, gr, gy, None, tgt_vm, pj_cm, None, weights_pad, None, sd_cm,
-                          omega, homog_vm, dtgt, dh, 0)
+    dtgt, out, dh = _rhs_bwd_launch(name, gr, gy, None, tgt_vm, pj_cm, None, weights_pad, None,
+                                    sd_cm, omega, homog_vm, cover)
     return dtgt, out.view(12, J, B), dh
 
 
-def _rhs_bwd_dims(name, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm, omega):
+def _rhs_bwd_dims(name, cuda, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm, omega):
     """Shape checks shared by K11 and K12: (J, B, E, V_pad, V_t)."""
     _, J, B = pj_cm.shape
     Vp = weights_pad.shape[0]
@@ -987,34 +986,41 @@ def _rhs_bwd_dims(name, gr, gy, tgt_vm, pj_cm, weights_pad, sd_cm, omega):
         raise ValueError(f'{name}: target rows {v_t} exceed V_pad {Vp}')
     if omega is not None:
         _omega_strides(name, omega, v_t, B, Vp, static_only=True)
-    if gr.is_cuda and (J > _BWD_MAXJ or E > 32):
-        raise ValueError(f'{name}: the kernel takes J <= {_BWD_MAXJ} and E <= 32, got {J}, {E}')
+    if cuda and E > 32:
+        raise ValueError(f'{name}: the kernel takes E <= 32, got {E}')
     return J, B, E, Vp, v_t
 
 
 def _rhs_bwd_launch(name, gr, gy, gh, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm,
-                    omega, homog_vm, dtgt, dh, F):
-    """Launch K11 (``homog_vm`` None) or K12 into ``dtgt`` (and ``dh``);
-    returns the per-column outputs (12 J [+ F], B)."""
+                    omega, homog_vm, cover):
+    """Launch K11 (``homog_vm`` None) or K12 over ``cover`` (None: built on
+    the host); returns dtgt (3, V_t, B), the per-column outputs (12 J [+ F],
+    B) and the template cotangent dh (3, V_pad, B) (K11: its workspace)."""
     _, J, B = pj_cm.shape
-    Vp = weights_pad.shape[0]
-    E = sd_cm.shape[2]
+    Vp, v_t, E = weights_pad.shape[0], tgt_vm.shape[1], sd_cm.shape[2]
+    cached = homog_vm is not None
+    F = 0 if cached else feat_cols.shape[0]
     dev = gr.device
-    tiles_per_block, n_splits = _vertex_splits(Vp, B, dev)
-    out = torch.empty((12 * J + F, B), dtype=torch.float32, device=dev)
-    part = torch.empty((n_splits, 12 * J + F, B), dtype=torch.float32, device=dev)
+    cover = _walk_cover('rhs_moments_bwd', cover, weights_pad, v_t, dev, True)
+    per_run, n_runs = _segment_runs(cover.n_seg, B, dev, 1)
+    splits = 1 if cached else dfeat_splits(F, B, Vp, dev)
+    dtgt, dh = _f32(dev, 3, v_t, B), _f32(dev, 3, Vp, B)
+    part = _f32(dev, n_runs, 12 * J, B)
+    part_feat = _f32(dev, splits, F, B) if splits > 1 else None
+    out = _f32(dev, 12 * J + F, B)
 
     def ptr(t):
         return None if t is None else _ptr(t)
 
     err = _build.library().rhs_bwd_launch(
         _ptr(gr), _ptr(gy), ptr(gh), _ptr(tgt_vm), _ptr(pj_cm), ptr(feat_cols), _ptr(weights_pad),
-        ptr(consts_pad), _ptr(sd_cm), ptr(omega), ptr(homog_vm), _ptr(dtgt), ptr(dh), _ptr(out),
-        _ptr(part), J, B, F, E, tgt_vm.shape[1], Vp, tiles_per_block, int(homog_vm is not None),
-        _stream(out))
+        ptr(consts_pad), _ptr(sd_cm), ptr(omega), ptr(homog_vm), _ptr(cover.verts),
+        _ptr(cover.seg_offset), _ptr(cover.joints), _ptr(cover.joint_offset), _ptr(dtgt),
+        _ptr(dh), _ptr(part), ptr(part_feat), _ptr(out), J, B, F, E, v_t, Vp, cover.n_seg,
+        cover.covers, per_run, splits, _stream(out))
     _build.check(err, name)
     LAUNCHES[name] += 1
-    return out
+    return dtgt, out, dh
 
 
 # ---------------------------------------------------------------------------

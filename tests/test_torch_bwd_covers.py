@@ -85,19 +85,23 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
-def _kernel_order_dpj(w, g, h, verts, tile_offset, lists, per_run):
+def _kernel_order_dpj(w, g, h, verts, tile_offset, lists, per_run, g2=None, h2=None):
     """dpj (12, J, B) of K10 and K14 in the kernels' order: per tile of at
     most 32 list rows and per joint of its list, a thread's 4 vertices
     (wg = w g_a rounded, then an FMA chain over the vertices for c < 3 and a
     sum for c = 3), the 8 vertex groups by the warp's tree (xor 16, 8, 4),
     the tiles of a run in order into the run's partial, then the runs in
-    order. ``lists[t]`` gives the joints tile t adds to. Vectorized over the
-    rows a, the vertex groups and the batch."""
+    order. ``lists[t]`` gives the joints tile t adds to. With a second field
+    (``g2``, ``h2``: K11's and K12's G b beside -db h) each vertex's FMA of
+    w g_a with h_c is followed by one of w g2_a with h2_c (h2_3 = 0).
+    Vectorized over the rows a, the vertex groups and the batch."""
     J, B = w.shape[1], g.shape[2]
     n_tiles = len(tile_offset) - 1
     wz = torch.cat([w, torch.zeros((1, J))])  # row -1: no vertex
-    gz = torch.cat([g, torch.zeros((3, 1, B))], dim=1)
-    hz = torch.cat([h, torch.zeros((3, 1, B))], dim=1)
+    pad = lambda x: torch.cat([x, torch.zeros((3, 1, B))], dim=1)  # noqa: E731
+    gz, hz = pad(g), pad(h)
+    two = g2 is not None
+    g2z, h2z = (pad(g2), pad(h2)) if two else (None, None)
     dpj = torch.zeros((12, J, B))
     for r0 in range(0, n_tiles, per_run):
         part = torch.zeros((12, J, B))
@@ -105,13 +109,19 @@ def _kernel_order_dpj(w, g, h, verts, tile_offset, lists, per_run):
             rows = verts[tile_offset[t]:tile_offset[t + 1]]
             rows = torch.tensor(rows + [-1] * (32 - len(rows)))
             gt, ht = gz[:, rows].view(3, 8, 4, B), hz[:, rows].view(3, 8, 4, B)
+            if two:
+                g2t, h2t = g2z[:, rows].view(3, 8, 4, B), h2z[:, rows].view(3, 8, 4, B)
             for j in lists[t]:
-                wg = wz[rows, j].view(1, 8, 4, 1) * gt  # (a, tm, i, b)
+                wj = wz[rows, j].view(1, 8, 4, 1)
+                wg = wj * gt  # (a, tm, i, b)
+                wg2 = wj * g2t if two else None
                 s = torch.empty((3, 4, 8, B))
                 for c in range(3):
                     acc = torch.zeros((3, 8, B))
                     for i in range(4):
                         acc = _fma(wg[:, :, i], ht[c, :, i].unsqueeze(0), acc)
+                        if two:
+                            acc = _fma(wg2[:, :, i], h2t[c, :, i].unsqueeze(0), acc)
                     s[:, c] = acc
                 s[:, 3] = ((wg[:, :, 0] + wg[:, :, 1]) + wg[:, :, 2]) + wg[:, :, 3]
                 groups = list(s.reshape(12, 8, B).unbind(1))

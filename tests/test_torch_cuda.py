@@ -9,7 +9,8 @@ kernels K7 and K8 on seeded operands at the shapes whose edges they mask,
 against their twins and bit for bit against a second call; the kernels that
 walk active-joint lists (K9, K6, K1, K2, K4 in its three forms, and the
 backward kernels K10, K13 and K14 at MANO, SMPL and SMPL-X widths) the same
-way.
+way, and K11 and K12 (every form, unweighted and static ω) over K2's
+cover at MANO, SMPL and SMPL-X widths and dense SMPL-X weights.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -876,6 +877,49 @@ def test_recon_part_sums_bwd_kernel_at_edges(card, name, dense, omega):
                                  'recon_part_sums_bwd' + ('_w' if omega else ''))
         none = parts.unused[parts.unused < v_t].long()
         assert torch.equal(dtgt[:, none], torch.zeros_like(dtgt[:, none]))
+
+
+# ---------------------------------------------------------------------------
+# K11 and K12 at their edges: fronts over K2's cover
+# ---------------------------------------------------------------------------
+
+RHS_BWD_BATCHES = [1, 33, 1000, 4097]  # B % 4 != 0 (4-byte paths), one and many 128-column tiles
+RHS_BWD_FORMS = {'emit': 'rhs_moments_h_bwd', 'plain': 'rhs_moments_bwd',
+                 'cached': 'rhs_moments_cached_bwd'}
+
+
+@pytest.mark.parametrize('omega', [False, True])
+@pytest.mark.parametrize('name, dense', [('mano', False), ('smpl', False), ('smplx', False),
+                                         ('smplx', True)])
+@pytest.mark.parametrize('form', list(RHS_BWD_FORMS))
+def test_rhs_moments_bwd_kernel_at_edges(card, form, name, dense, omega):
+    """K11 (emit with gh random on every row, plain) and K12, unweighted
+    and static ω (zero rows), on seeded operands over
+    the model's cover at MANO, SMPL and SMPL-X widths and dense SMPL-X
+    weights, E = 17 and 32, targets of all V rows and of fewer (V_t < V <
+    V_pad), at every batch of RHS_BWD_BATCHES: within REL_TOL of the twin
+    and bit for bit on a repeat; K12's dh exactly zero past the cover."""
+    V, J, F, w, consts = _bwd_model(name, dense)
+    vp = w.shape[0]
+    cover = lbs_kernels.wgram_cover(w.cpu().numpy(), V, 'cuda')
+    kw = dict(cover=cover)
+    if omega:
+        kw['omega'] = _static_omega(V, vp, V + J)
+    for batch, v_t, E in zip(RHS_BWD_BATCHES, (V, V - 37, V, V - 300), (17, 32, 32, 17)):
+        seed = 10 * V + batch
+        gr, gy = _normal(seed, E, batch), _normal(seed + 1, 3, J, batch)
+        tgt, pj = _normal(seed + 2, 3, v_t, batch), _normal(seed + 3, 12, J, batch, scale=0.5)
+        sd, feat = _normal(seed + 4, 3, vp, E, scale=0.05), _normal(seed + 5, F, batch)
+        if form == 'cached':
+            homog = lbs_kernels.posed_template_ref(feat, consts)
+            wrapper, args, extra = 'rhs_moments_cached_bwd', (gr, gy, tgt, pj, homog, w, sd), {}
+        else:
+            wrapper, args = 'rhs_moments_bwd', (gr, gy, tgt, pj, feat, w, consts, sd)
+            extra = dict(gh=_normal(seed + 6, 3, vp, batch)) if form == 'emit' else {}
+        out = _hold_all(wrapper, args, dict(kw, **extra),
+                        RHS_BWD_FORMS[form] + ('_w' if omega else ''))
+        if form == 'cached':
+            assert torch.equal(out[2][:, V:], torch.zeros_like(out[2][:, V:]))
 
 
 # ---------------------------------------------------------------------------
