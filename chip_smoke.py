@@ -21,8 +21,12 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     nonzero skinning weights; the kernels that have such a call (K7 and K8,
     the GEMMs of csrc/sgemm_tile.cuh) and the kernels that blend over each
     segment's active joints (K9, K6 and K4 in their three forms) also repeat
-    bit for bit on the same operands, as do K1 and every form of K2, and a
-    line gives K7's and K8's TFLOP/s beside the call's; K9 in scale modes 1
+    bit for bit on the same operands, as do K1, every form of K2 and K3, and a
+    line gives K7's and K8's TFLOP/s beside the call's; K3's two kernels
+    (term1's split-K GEMM, the per-column terms) timed alone on the headline
+    fit's operands, beside the term1 yardstick (the einsum that forms X, then
+    the product) on the same R and Ksd, and K3 at B=32 on the first 32 columns
+    of those operands (gram_steps); K9 in scale modes 1
     and 2, K6's ω forms where no path reached them, on SMPL-X K9, K6, K4, K1
     and K2's cached forms with dense skinning weights (every joint on every
     vertex) and K9 and K2's cached forms at E = 32, on SMPL K2's emit form with
@@ -75,8 +79,8 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     B=4096 and B=1000, and K15's summed form on operands derived from the
     batched form's, asserting which kernels each model's gradients reach
     (BWD_CAPTURED) and that none built a cover on the host, with times, twin
-    times and bounds at B=4096; K10-K14 (which walk a cover's and a part
-    index's active-joint lists) also repeat bit for bit, and K10, K12, K13
+    times and bounds at B=4096; K10-K15 (which walk a cover or a part
+    index) also repeat bit for bit, and K10, K12, K13
     and K14 on SMPL-X and K11's emit form on SMPL are held and timed the
     same way with dense skinning weights (dense_bwd_variants);
 14. the value and gradient at B=4096, with the fit's ms and the peak memory
@@ -587,17 +591,18 @@ def twin_call(lbs_kernels, key, args, kwargs):
 
 
 # Besides the kernels with a library call (K7, K8), the kernels redesigned
-# for Hopper (K9, K6, K1, every form of K2, K4 and K10-K14) also repeat bit
-# for bit on the same operands.
+# for Hopper (K9, K6, K1, every form of K2, K4, K3 and K10-K15) also repeat
+# bit for bit on the same operands.
 K2_KEYS = ('rhs_moments_h', 'rhs_moments', 'rhs_moments_scale', 'rhs_moments_cached',
            'rhs_moments_cached_scale')
 REPEAT_KEYS = ('wgram', 'recon_part_sums', 'recon_part_sums_w', 'lbs_points', *K2_KEYS,
                *(key + '_w' for key in K2_KEYS), 'recon_part_sums_cached',
-               'recon_part_sums_cached_w', 'lbs_points_bwd', 'recon_part_sums_bwd',
-               'recon_part_sums_bwd_w', 'recon_part_sums_cached_bwd',
+               'recon_part_sums_cached_w', 'gram_assembly', 'lbs_points_bwd',
+               'recon_part_sums_bwd', 'recon_part_sums_bwd_w', 'recon_part_sums_cached_bwd',
                'recon_part_sums_cached_bwd_w', 'rhs_moments_h_bwd', 'rhs_moments_bwd',
                'rhs_moments_cached_bwd', 'rhs_moments_h_bwd_w', 'rhs_moments_bwd_w',
-               'rhs_moments_cached_bwd_w')
+               'rhs_moments_cached_bwd_w', 'part_sums_bwd', 'part_sums_bwd_w',
+               'part_sums_bwd_sum', 'part_sums_bwd_sum_w')
 
 
 def library_call(torch, key):
@@ -858,6 +863,8 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
             hold_to_twin(torch, lbs_kernels, label, key, calls[key], batch, results)
         hold_blend_variants(torch, lbs_kernels, label, calls, batch,
                             results.setdefault('variants', {}), model)
+        if batch == BATCH and 'gram_assembly' in captured:
+            results['gram_steps'] = gram_steps(torch, lbs_kernels, label, calls['gram_assembly'])
         if batch == BATCH:
             for key in TORCH_VJP_FORMS:
                 time_torch_vjp(torch, lbs_kernels, label, key, calls,
@@ -1068,6 +1075,52 @@ def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model)
     results['k1_yardstick'] = dict(ms=k1_ms, k7_ms=k7_ms)
     log(f'{label:6s} lbs_points (K1) {k1_ms:.3f} ms against K7 (the template dot alone) '
         f'{k7_ms:.3f} ms on its (feat, consts), F={feat.shape[0]}, B={batch}')
+
+
+def gram_steps(torch, lbs_kernels, label, calls) -> dict:
+    """K3 on the first captured call (the headline fit's first solve, with
+    joints), B=4096: each of its two kernels timed alone, term1 (the first
+    kernel's partials, summed) held to K8's twin and timed beside the term1
+    yardstick (library_call('term1'): the einsum that forms X, then the
+    product) on K3's own R and Ksd; and K3 and its twin on the first PARITY_BATCH
+    columns of the same operands, the online user's batch."""
+    args, kw = calls[0]
+    R, T, y, P, bJ, ksd, lz, sd1, q, w1 = args
+    hj = kw.get('has_joints', False)
+    out = {}
+    with torch.no_grad():
+        part = lbs_kernels.gram_term1_step(R, ksd)
+        want = lbs_kernels.term1_ref(R, ksd)
+        rel = (part.sum(dim=0) - want).abs().max().item() / want.abs().max().item()
+        if rel > KERNEL_REL_TOL:
+            raise AssertionError(f'{label} K3 term1 step: {rel:.3e} x max|twin| from term1_ref')
+        out['term1_ms'] = time_ms(torch, lambda: lbs_kernels.gram_term1_step(R, ksd), [()] * 5)
+        out['terms_ms'] = time_ms(torch, lambda: lbs_kernels.gram_terms_step(
+            R, T, y, P, bJ, lz, sd1, q, w1, hj, part), [()] * 5)
+        out['ms'] = time_ms(torch, lambda: kernel_call(lbs_kernels, 'gram_assembly', args, kw),
+                            [()] * 5)
+        out['yardstick_ms'] = time_ms(torch, library_call(torch, 'term1'), [(R, ksd)] * 5)
+        small = tuple(a[..., :PARITY_BATCH].contiguous() for a in args[:5]) + args[5:]
+        got = kernel_call(lbs_kernels, 'gram_assembly', small, kw)
+        for g, t in zip(got, twin_call(lbs_kernels, 'gram_assembly', small, kw), strict=True):
+            rel = (g - t).abs().max().item() / t.abs().max().item()
+            if rel > KERNEL_REL_TOL:
+                raise AssertionError(f'{label} gram_assembly at B={PARITY_BATCH}: {rel:.3e} x '
+                                     'max|twin|')
+        out['ms_b32'] = time_ms(torch, lambda: kernel_call(lbs_kernels, 'gram_assembly', small,
+                                                           kw), [()] * 5)
+        out['plain_ms_b32'] = time_ms(torch, lambda: twin_call(lbs_kernels, 'gram_assembly',
+                                                               small, kw), [()] * 5)
+    flops = kernel_work('term1', (R, ksd))[0]
+    log(f'{label:6s} gram_assembly (K3) B={R.shape[2]:5d} {out["ms"]:.3f} ms: term1 step '
+        f'{out["term1_ms"]:.3f} ms ({flops / out["term1_ms"] / 1e9:.1f} TFLOP/s, '
+        f'{lbs_kernels.gram_splits(R.shape[1], ksd.shape[1], R.shape[2], R.device)} splits), '
+        f'terms step {out["terms_ms"]:.3f} ms; term1 yardstick (einsum for X, then matmul) '
+        f'{out["yardstick_ms"]:.3f} ms ({flops / out["yardstick_ms"] / 1e9:.1f} TFLOP/s) on '
+        f"K3's own R and Ksd, E={sd1.shape[1]}")
+    log(f'{label:6s} gram_assembly (K3) B={PARITY_BATCH:5d} (headline operands) kernel '
+        f'{out["ms_b32"]:.3f} ms  twin {out["plain_ms_b32"]:.3f} ms')
+    return out
 
 
 def cover_variants(torch, lbs_kernels, calls, model) -> dict:

@@ -35,6 +35,11 @@
 // split writes its partial to a scratch (S, E^2, B) and split_sum_kernel
 // (split_sum.cuh) adds the splits in order: no atomics, two runs give the same
 // bits. E^2 <= 1024; any J3 and B; the j, k, row and batch edges are masked.
+//
+// The kernel is templated on its row tile: K3 (gram_assembly.cu) runs the
+// same kernel with 128-row tiles (8 x 8 per thread) for SMPL's E^2 = 100 or
+// 121, where a 256-row tile would leave 61% of its rows empty, through
+// term1_tiles_launch, and adds the partials in its own second kernel.
 #include "sgemm_tile.cuh"
 #include "split_sum.cuh"
 
@@ -43,8 +48,7 @@ namespace {
 using sgemm::Lane;
 using sgemm::NT;
 
-constexpr int MI = 4, NI = 2;  // row and column groups of the micro-tile
-constexpr int TM = 64 * MI;    // rows of G1 per block
+constexpr int NI = 2;          // column groups of the micro-tile
 constexpr int TN = 64 * NI;    // batch columns per block
 constexpr int KB = 8;          // k values per k block: one per warp
 constexpr int JS = 5;          // j values per stage
@@ -52,12 +56,18 @@ constexpr int BK = KB * JS;    // rows of Ksd and X per stage
 constexpr int NS = 3;          // stages of the copy ring
 static_assert(NT == 32 * KB && TN == 128, "a warp builds 4 x 32 X entries of one k");
 
-constexpr int A_FLOATS = BK * TM;       // one Ksd slice
 constexpr int RJ_FLOATS = JS * 3 * TN;  // one stage's j rows of R
 constexpr int X_FLOATS = BK * TN;       // one stage of X
 constexpr int RK_FLOATS = 3 * KB * TN;  // a k block's rows of R
-constexpr size_t SMEM_BYTES =
-    sizeof(float) * (NS * (A_FLOATS + RJ_FLOATS) + 2 * X_FLOATS + RK_FLOATS);
+
+// The block tile of MI row groups: TM = 64 MI rows of G1.
+template <int MI>
+struct Rows {
+  static constexpr int TM = 64 * MI;
+  static constexpr int A_FLOATS = BK * TM;  // one Ksd slice
+  static constexpr size_t SMEM_BYTES =
+      sizeof(float) * (NS * (A_FLOATS + RJ_FLOATS) + 2 * X_FLOATS + RK_FLOATS);
+};
 
 __host__ __device__ inline int stages_of(int J3) {
   return ((J3 + KB - 1) / KB) * ((J3 + JS - 1) / JS);
@@ -65,10 +75,11 @@ __host__ __device__ inline int stages_of(int J3) {
 
 // VEC_A: 16-byte copies of Ksd rows (EE % 4 == 0); VEC_R: 16-byte copies and
 // loads of R rows (B % 4 == 0).
-template <bool VEC_A, bool VEC_R>
+template <int MI, bool VEC_A, bool VEC_R>
 __global__ void __launch_bounds__(NT, 1)
 term1_kernel(const float* __restrict__ R, const float* __restrict__ ksd,
              float* __restrict__ part, int J3, int EE, int B, int n_splits) {
+  constexpr int TM = Rows<MI>::TM, A_FLOATS = Rows<MI>::A_FLOATS;
   extern __shared__ float4 smem4[];
   float* const a_s = reinterpret_cast<float*>(smem4);  // [NS][BK][TM]
   float* const rj_s = a_s + NS * A_FLOATS;             // [NS][JS][3][TN]
@@ -217,26 +228,47 @@ term1_kernel(const float* __restrict__ R, const float* __restrict__ ksd,
                             B % 4 == 0 && sgemm::aligned16(dst));
 }
 
+// The partials of n_splits splits of the k stages, by MI-row tiles, into
+// part (n_splits, EE, B) (G itself for one split).
+template <int MI>
+cudaError_t launch_tiles(const float* R, const float* ksd, float* part, int J3, int EE, int B,
+                         int n_splits, cudaStream_t stream) {
+  const bool vec_a = EE % 4 == 0 && sgemm::aligned16(ksd);
+  const bool vec_r = B % 4 == 0 && sgemm::aligned16(R);
+  auto kernel = vec_a ? (vec_r ? term1_kernel<MI, true, true> : term1_kernel<MI, true, false>)
+                      : (vec_r ? term1_kernel<MI, false, true> : term1_kernel<MI, false, false>);
+  constexpr size_t smem = Rows<MI>::SMEM_BYTES;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + TN - 1) / TN, (EE + Rows<MI>::TM - 1) / Rows<MI>::TM, n_splits);
+  kernel<<<grid, NT, smem, stream>>>(R, ksd, part, J3, EE, B, n_splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// R (3, J3, B), ksd (J3^2, EE) -> the partial sums of G1 over n_splits
+// splits of the k stages, in part (n_splits, EE, B), by blocks of
+// tile_rows (128 or 256) rows of G1. EE <= 1024; 1 <= n_splits <= the number
+// of k stages, ceil(J3 / 8) ceil(J3 / 5).
+SMPL_API int term1_tiles_launch(const float* R, const float* ksd, float* part, int J3, int EE,
+                                int B, int n_splits, int tile_rows, cudaStream_t stream) {
+  if (EE > 32 * 32 || n_splits < 1 || n_splits > stages_of(J3) ||
+      (tile_rows != 128 && tile_rows != 256))
+    return (int)cudaErrorInvalidValue;
+  return (int)(tile_rows == 128 ? launch_tiles<2>(R, ksd, part, J3, EE, B, n_splits, stream)
+                                : launch_tiles<4>(R, ksd, part, J3, EE, B, n_splits, stream));
+}
 
 // R (3, J3, B), ksd (J3^2, EE) -> G (EE, B), through the partials part
 // (n_splits, EE, B) (unused, and may be null, for one split). EE <= 1024;
 // 1 <= n_splits <= the number of k stages, ceil(J3 / 8) ceil(J3 / 5).
 SMPL_API int term1_launch(const float* R, const float* ksd, float* part, float* G, int J3,
                           int EE, int B, int n_splits, cudaStream_t stream) {
-  if (EE > 32 * 32 || n_splits < 1 || n_splits > stages_of(J3) || (n_splits > 1 && !part))
-    return (int)cudaErrorInvalidValue;
-  float* const dst = n_splits == 1 ? G : part;
-  const bool vec_a = EE % 4 == 0 && sgemm::aligned16(ksd);
-  const bool vec_r = B % 4 == 0 && sgemm::aligned16(R);
-  auto kernel = vec_a ? (vec_r ? term1_kernel<true, true> : term1_kernel<true, false>)
-                      : (vec_r ? term1_kernel<false, true> : term1_kernel<false, false>);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + TN - 1) / TN, (EE + TM - 1) / TM, n_splits);
-  kernel<<<grid, NT, SMEM_BYTES, stream>>>(R, ksd, dst, J3, EE, B, n_splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_splits == 1) return (int)err;
+  if (n_splits > 1 && !part) return (int)cudaErrorInvalidValue;
+  const int err = term1_tiles_launch(R, ksd, n_splits == 1 ? G : part, J3, EE, B, n_splits, 256,
+                                     stream);
+  if (err != cudaSuccess || n_splits == 1) return err;
   return (int)launch_split_sum(part, G, n_splits, (size_t)EE * B, stream);
 }

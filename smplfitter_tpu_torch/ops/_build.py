@@ -30,22 +30,19 @@ _I = ctypes.c_int
 _SIGNATURES = {
     'lbs_points_launch': [_P] * 9 + [_I] * 7 + [_P],
     'rhs_moments_launch': [_P] * 18 + [_I] * 12 + [_P],
-    'gram_assembly_launch': [_P] * 14 + [_I] * 4 + [_P],
+    'gram_terms_launch': [_P] * 14 + [_I] * 5 + [_P],
     'recon_part_sums_launch': [_P] * 16 + [_I] * 9 + [_P],
     'part_sums_launch': [_P] * 10 + [_I] * 9 + [_P],
     'recon_lbs_part_sums_launch': [_P] * 15 + [_I] * 9 + [_P],
     'posed_template_launch': [_P] * 3 + [_I] * 3 + [_P],
     'term1_launch': [_P] * 4 + [_I] * 4 + [_P],
+    'term1_tiles_launch': [_P] * 3 + [_I] * 5 + [_P],
     'wgram_launch': [_P] * 19 + [_I] * 13 + [_P],
     'lbs_points_bwd_launch': [_P] * 14 + [_I] * 8 + [_P],
     'rhs_bwd_launch': [_P] * 20 + [_I] * 10 + [_P],
     'recon_bwd_launch': [_P] * 21 + [_I] * 8 + [_P],
     'recon_lbs_bwd_launch': [_P] * 22 + [_I] * 9 + [_P],
-    'part_sums_bwd_launch': [_P] * 10 + [_I] * 5 + [_P],
-}
-# name -> argument types of the shared-memory size queries (restype size_t).
-_SMEM_SIGNATURES = {
-    'gram_assembly_smem_bytes': [_I, _I],
+    'part_sums_bwd_launch': [_P] * 13 + [_I] * 7 + [_P],
 }
 
 _lib = None
@@ -118,10 +115,6 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name, argtypes in _SMEM_SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_size_t
         lib.smpl_error_string.argtypes = [_I]
         lib.smpl_error_string.restype = ctypes.c_char_p
         _lib = lib

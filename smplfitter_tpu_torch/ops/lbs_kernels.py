@@ -26,9 +26,12 @@ under its own key, the unweighted key with ``_w`` appended.
 | term1                       | csrc/term1.cu               | _term1_kernel (K8)               |
 | wgram_moments               | csrc/wgram.cu               | _wgram_kernel (K9)               |
 
-``gram_assembly`` runs K3 at small J and, where the JAX package streams
-term1 (SMPL-X, SMPL+H), K8 plus :func:`gram_mparts_ref` in PyTorch ops, as
-the JAX package leaves those pieces to XLA.
+``gram_assembly`` runs K3 at small J, as two kernels: term1 by K8's GEMM
+(csrc/term1.cu) with 128-row tiles, then the per-column terms and the sum of
+term1's splits (csrc/gram_assembly.cu). Where the JAX package streams term1
+(SMPL-X, SMPL+H) it runs K8 plus :func:`gram_mparts_ref` in PyTorch ops, as
+the JAX package leaves those pieces to XLA. K15 (``part_sums_bwd``) walks the
+part index's 32-vertex tiles, as the fronts of K13 and K14 do.
 
 K1, K2 and K9 walk a cover of the vertices (:class:`BlendSegments`, built
 once per model on the host by :func:`wgram_cover`: segments of at most 32
@@ -179,9 +182,11 @@ _SEG_TB = 128  # batch columns per block of the kernels that walk a cover (csrc/
 _PART_TILE = 32  # vertices per tile of a part index's segments (K13's and K14's fronts, csrc/bwd_front.cuh)
 _SEG = 512  # max vertices per part segment of the recon kernels K4 and K6
 _WGRAM_SEG = 32  # max vertices per segment of K9's cover (csrc/wgram.cu: one tile)
-_SUM_COLS = 256  # batch columns per split of K15's summed form (csrc/part_sums_bwd.cu)
+_PSB_COLS = 128  # batch columns per warp of K15, one split of its summed form (csrc/part_sums_bwd.cu)
 _VJP_VCHUNK = 512  # vertices per step of a backward in torch ops (bounds its memory)
 _TERM1_TILE = (256, 128)  # K8's block tile: rows of G1, batch columns (csrc/term1.cu)
+_GRAM_TILE = (128, 128)  # K3's term1 tile: rows of G1, batch columns (csrc/gram_assembly.cu)
+_GRAM_SPLIT_STAGES = 4  # least k stages per split of K3's term1
 _TERM1_KB, _TERM1_JS = 8, 5  # k and j values per k stage of K8
 _DFEAT_TILE = (128, 256)  # the dfeat GEMM's block tile: features, batch columns (csrc/dfeat_gemm.cu)
 _DFEAT_KT = 16  # k rows per stage of the dfeat GEMM
@@ -1064,9 +1069,10 @@ def gram_assembly(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
     sd1_2d (3J, E), q (J, J), w1 (J, 1) static moments.
     Returns G (E^2, B), SA (3E, B), rb (E, B), Sb (3, B).
 
-    Runs the fused kernel K3 (E <= 16), or where :func:`streams_term1` says
-    so (large J) the streamed term1 kernel K8 plus :func:`gram_mparts_ref`
-    in tensor ops."""
+    Runs K3 (E <= 16: term1 by K8's GEMM with 128-row tiles, then the
+    per-column terms and the split sum in a second kernel), or where
+    :func:`streams_term1` says so (large J) the streamed term1 kernel K8 plus
+    :func:`gram_mparts_ref` in tensor ops."""
     name = 'gram_assembly'
     cuda =_on_cuda(name, R_cm=R_cm, T_cm=T_cm, y_cm=y_cm, P_cm=P_cm, bJ_cm=bJ_cm, ksd=ksd,
                     lz=lz, sd1_2d=sd1_2d, q=q, w1=w1)
@@ -1107,20 +1113,10 @@ class _GramAssembly(torch.autograd.Function):
         if not R_cm.is_cuda:
             return gram_assembly_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, ksd, lz, sd1_2d, q, w1,
                                      has_joints)
-        _, J3, B = R_cm.shape
-        E = sd1_2d.shape[1]
-        dev = R_cm.device
-        G = torch.empty((E * E, B), dtype=torch.float32, device=dev)
-        SA = torch.empty((3 * E, B), dtype=torch.float32, device=dev)
-        rb = torch.empty((E, B), dtype=torch.float32, device=dev)
-        Sb = torch.empty((3, B), dtype=torch.float32, device=dev)
-        err = _build.library().gram_assembly_launch(
-            _ptr(R_cm), _ptr(T_cm), _ptr(y_cm), _ptr(P_cm), _ptr(bJ_cm), _ptr(ksd), _ptr(lz),
-            _ptr(sd1_2d), _ptr(q), _ptr(w1), _ptr(G), _ptr(SA), _ptr(rb), _ptr(Sb),
-            J3 // 3, E, B, int(has_joints), _stream(G))
-        _build.check(err, 'gram_assembly')
+        part = gram_term1_step(R_cm, ksd)
+        out = gram_terms_step(R_cm, T_cm, y_cm, P_cm, bJ_cm, lz, sd1_2d, q, w1, has_joints, part)
         LAUNCHES['gram_assembly'] += 1
-        return G, SA, rb, Sb
+        return out
 
     @staticmethod
     @once_differentiable
@@ -1132,6 +1128,55 @@ class _GramAssembly(torch.autograd.Function):
             outs = gram_assembly_ref(*xs, *saved[5:], has_joints=ctx.has_joints)
             grads = torch.autograd.grad(outs, xs, (gG, gSA, grb, gSb), allow_unused=True)
         return grads + (None,) * 6
+
+
+def gram_splits(J3: int, EE: int, B: int, device) -> int:
+    """Splits of K3's term1 step over its J3^2 sum: as many as fill one wave of
+    the card (one resident block per SM) with its (128-row, 128-column)
+    tiles, with at least _GRAM_SPLIT_STAGES k stages of 8 k by 5 j values in
+    each, since K3's second kernel adds every split of its outputs (4 at
+    SMPL b4096 on 132 SMs, 33 at b32)."""
+    tiles = -(-EE // _GRAM_TILE[0]) * -(-B // _GRAM_TILE[1])
+    stages = -(-J3 // _TERM1_KB) * -(-J3 // _TERM1_JS)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(stages // _GRAM_SPLIT_STAGES, sms // tiles))
+
+
+def gram_term1_step(R_cm, ksd):
+    """K3's first kernel: term1's per-split partials (S, E^2, B), S =
+    :func:`gram_splits`, by K8's GEMM with 128-row tiles; on CPU tensors
+    one split by :func:`term1_ref`. Launches without counting: the count is
+    the wrapper's."""
+    if not R_cm.is_cuda:
+        return term1_ref(R_cm, ksd)[None]
+    _, J3, B = R_cm.shape
+    EE = ksd.shape[1]
+    part = _f32(R_cm.device, gram_splits(J3, EE, B, R_cm.device), EE, B)
+    err = _build.library().term1_tiles_launch(_ptr(R_cm), _ptr(ksd), _ptr(part), J3, EE, B,
+                                              part.shape[0], _GRAM_TILE[0], _stream(part))
+    _build.check(err, 'gram_assembly')
+    return part
+
+
+def gram_terms_step(R_cm, T_cm, y_cm, P_cm, bJ_cm, lz, sd1_2d, q, w1, has_joints, part):
+    """K3's second kernel: the per-column terms and the ordered sum of
+    ``part`` (from :func:`gram_term1_step`) into G, SA, rb, Sb; on CPU
+    tensors :func:`gram_mparts_ref` plus the partials' sum. Launches without
+    counting."""
+    if not R_cm.is_cuda:
+        G2, SA, rb, Sb = gram_mparts_ref(R_cm, T_cm, y_cm, P_cm, bJ_cm, lz, sd1_2d, q, w1,
+                                         has_joints)
+        return (part.sum(dim=0) + G2).contiguous(), SA, rb, Sb
+    _, J3, B = R_cm.shape
+    E = sd1_2d.shape[1]
+    dev = R_cm.device
+    G, SA, rb, Sb = _f32(dev, E * E, B), _f32(dev, 3 * E, B), _f32(dev, E, B), _f32(dev, 3, B)
+    err = _build.library().gram_terms_launch(
+        _ptr(R_cm), _ptr(T_cm), _ptr(y_cm), _ptr(P_cm), _ptr(bJ_cm), _ptr(lz), _ptr(sd1_2d),
+        _ptr(q), _ptr(w1), _ptr(part), _ptr(G), _ptr(SA), _ptr(rb), _ptr(Sb), J3 // 3, E, B,
+        int(has_joints), part.shape[0], _stream(G))
+    _build.check(err, 'gram_assembly')
+    return G, SA, rb, Sb
 
 
 def streams_term1(J3: int, E: int) -> bool:
@@ -1773,16 +1818,16 @@ def part_sums_bwd(graw, gst, gsa, t_vm, a_vm, parts: PartIndex, omega=None):
         _omega_strides(name, omega, v_t, B, Vp, static_only=True)
     if not cuda:
         return part_sums_bwd_ref(graw, gst, gsa, t_vm, a_vm, parts.pm, **extra)
-    vp = _vpart(name, parts, Vp, graw.device)
     dev = graw.device
-    dt = torch.empty((3, v_t, B), dtype=torch.float32, device=dev)
-    da = torch.empty((3, v_a, 1 if summed else B), dtype=torch.float32, device=dev)
-    part = torch.empty((-(-B // _SUM_COLS) * 3 * v_a if summed else 1,), dtype=torch.float32,
-                       device=dev)
+    vp = _front_index(name, parts, Vp, dev)
+    dt = _f32(dev, 3, v_t, B)
+    da = _f32(dev, 3, v_a, 1 if summed else B)
+    part = _f32(dev, -(-B // _PSB_COLS) * 3 * v_a if summed else 1)
     err = _build.library().part_sums_bwd_launch(
         _ptr(graw), _ptr(gst), _ptr(gsa), _ptr(t_vm), _ptr(a_vm),
-        None if omega is None else _ptr(omega), _ptr(vp), _ptr(dt), _ptr(da), _ptr(part), J, B,
-        v_t, v_a, int(summed), _stream(dt))
+        None if omega is None else _ptr(omega), _ptr(parts.verts), _ptr(parts.tile_offset),
+        _ptr(vp), _ptr(parts.unused), _ptr(dt), _ptr(da), _ptr(part), J, B, v_t, v_a,
+        parts.n_tiles, parts.unused.shape[0], int(summed), _stream(dt))
     _build.check(err, name)
     LAUNCHES[name] += 1
     return dt, da

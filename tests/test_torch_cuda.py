@@ -10,7 +10,9 @@ against their twins and bit for bit against a second call; the kernels that
 walk active-joint lists (K9, K6, K1, K2, K4 in its three forms, and the
 backward kernels K10, K13 and K14 at MANO, SMPL and SMPL-X widths) the same
 way, and K11 and K12 (every form, unweighted and static ω) over K2's
-cover at MANO, SMPL and SMPL-X widths and dense SMPL-X weights.
+cover at MANO, SMPL and SMPL-X widths and dense SMPL-X weights; K3 at SMPL
+and MANO widths with and without the joints block, and K15 in every form
+over a part index with rows in no part.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -621,6 +623,43 @@ def test_term1_kernel_at_edges(card, J3, E, batch):
     assert lbs_kernels.LAUNCHES['term1'] == 2
 
 
+# (J, E): SMPL (E = 10, the kid column 11, 16) and MANO (J = 16). At J = 24,
+# E = 16 the wrapper streams term1 (K8); K3 is held there all the same.
+K3_SHAPES = [(J, E) for J in (24, 16) for E in (10, 11, 16)]
+K3_BATCHES = [1, 17, 32, 1000, 4096]
+
+
+@pytest.mark.parametrize('has_joints', [False, True])
+@pytest.mark.parametrize('J, E', K3_SHAPES)
+def test_gram_assembly_kernel_at_edges(card, J, E, has_joints):
+    """K3 (term1's split-K GEMM with 128-row tiles, then the per-column terms
+    and the ordered split sum) on seeded operands at every batch of
+    K3_BATCHES: each output within REL_TOL x max|twin| of the twin, and bit
+    for bit on a second call; two device kernels, one count per call."""
+    J3, EJ = 3 * J, E * J
+    seed = 100 * J + E
+    static = (_normal(seed, J3 * J3, E * E, scale=0.1), _normal(seed + 1, J3, EJ, scale=0.3),
+              _normal(seed + 2, J3, E), _normal(seed + 3, J, J, scale=0.2),
+              _normal(seed + 4, J, 1))
+    for batch in K3_BATCHES:
+        s = seed + batch
+        rows = EJ if has_joints else 1
+        args = (_rotation_rows(s, J3, batch), _normal(s + 5, 3, EJ, batch),
+                _normal(s + 6, 3, J, batch), _normal(s + 7, 3, rows, batch),
+                _normal(s + 8, 3, J if has_joints else 1, batch)) + static
+        lbs_kernels.reset_launch_counts()
+        with torch.no_grad():
+            got = lbs_kernels._GramAssembly.apply(*args, has_joints)
+            again = lbs_kernels._GramAssembly.apply(*args, has_joints)
+            want = lbs_kernels.gram_assembly_ref(*args, has_joints=has_joints)
+        torch.cuda.synchronize()
+        assert lbs_kernels.LAUNCHES['gram_assembly'] == 2
+        for g, a, t in zip(got, again, want, strict=True):
+            assert g.shape == t.shape and g.is_cuda and torch.isfinite(g).all()
+            assert (g - t).abs().max().item() <= REL_TOL * t.abs().max().item()
+            assert torch.equal(g, a)
+
+
 # ---------------------------------------------------------------------------
 # K9 and K6 at their edges: blends over each segment's active joints
 # ---------------------------------------------------------------------------
@@ -877,6 +916,44 @@ def test_recon_part_sums_bwd_kernel_at_edges(card, name, dense, omega):
                                  'recon_part_sums_bwd' + ('_w' if omega else ''))
         none = parts.unused[parts.unused < v_t].long()
         assert torch.equal(dtgt[:, none], torch.zeros_like(dtgt[:, none]))
+
+
+# (V, J): MANO V = 778 (V % 256 = 10) and SMPL widths.
+PSB_SHAPES = {'mano': (778, 16), 'smpl': (6890, 24)}
+PSB_BATCHES = [1, 33, 256, 1001]  # B % 4 != 0 (4-byte paths), one and several 128-column blocks
+
+
+@pytest.mark.parametrize('omega', [False, True])
+@pytest.mark.parametrize('summed', [False, True])
+@pytest.mark.parametrize('name', list(PSB_SHAPES))
+def test_part_sums_bwd_kernel_at_edges(card, name, summed, omega):
+    """K15 (batched or summed, unweighted or static ω) on seeded operands
+    over a part index of parts of 1, 63 and 513 vertices and every 11th
+    vertex in none (their rows zero), with V_t = V_a, V_t < V_a and
+    V_t > V_a: within REL_TOL of the twin and bit for bit on a repeat at
+    every batch of PSB_BATCHES."""
+    V, J = PSB_SHAPES[name]
+    vp = -(-V // lbs_kernels.VC) * lbs_kernels.VC
+    parts = lbs_kernels.PartIndex.from_membership(_parts(V, J), 'cuda')
+    kw = {}
+    if omega:
+        om = np.random.default_rng(V).uniform(0.1, 2.0, (vp, 1))
+        om[::5] = 0.0
+        om[V:] = 0.0
+        kw['omega'] = torch.as_tensor(om, dtype=torch.float32, device='cuda')
+    rows = [(V, V), (V - 37, V), (V, V - 37), (V - 37, V)]
+    for batch, (v_t, v_a) in zip(PSB_BATCHES, rows):
+        # One column: the batched form (the wrapper sums nothing).
+        key = 'part_sums_bwd' + ('_sum' if summed and batch > 1 else '') + ('_w' if omega else '')
+        seed = 10 * V + batch
+        cols = 1 if summed else batch
+        args = (_normal(seed, 9, J, batch), _normal(seed + 1, 3, J, batch),
+                _normal(seed + 2, 3, J, cols), _normal(seed + 3, 3, v_t, batch),
+                _normal(seed + 4, 3, v_a, cols), parts)
+        dt, da = _hold_all('part_sums_bwd', args, kw, key)
+        for out, n in ((dt, v_t), (da, v_a)):
+            none = parts.unused[parts.unused < n].long()
+            assert torch.equal(out[:, none], torch.zeros_like(out[:, none]))
 
 
 # ---------------------------------------------------------------------------
