@@ -5,6 +5,8 @@ Usage, from the repository root on a machine with a CUDA device:
 
     python3 chip_profile.py [--model smplx] [--path headline] [--grad] [--gram-routes]
     python3 chip_profile.py [--model smplx] --grad-path c_known_shape
+    python3 chip_profile.py --model smpl --share-beta [--path f_call_weights]
+    python3 chip_profile.py --model smpl --subset 1024 --batch 16384
 
 ``--path`` takes the headline, ``chip_smoke.PATHS`` (a-e) or the fit-weight
 paths ``chip_smoke.WPATHS`` (f-l, with ``chip_smoke``'s seeded weights).
@@ -14,10 +16,15 @@ of its pose rotation vectors, betas and translation (the default loss of
 paths that return them (the headline, h). ``--grad-path`` profiles the value
 and gradient of a ``chip_smoke.GRAD_PATHS`` path instead (``chip_smoke.path_vg``:
 its loss and inputs, the gradient in the targets it differentiates), as
-``chip_smoke.py`` phase 14 times it.
+``chip_smoke.py`` phase 14 times it. ``--share-beta`` runs the path with one
+shape for the batch, as ``chip_smoke.SHARE_PATHS`` calls it (the headline,
+``d_known_pose``, ``f_call_weights``). ``--subset N`` loads the model on its
+N-vertex subset (``BodyModel(vertex_subset_size=N)``, decimated where the
+file is missing), and ``--batch`` sets the batch (default
+``chip_smoke.BATCH``).
 
 It builds the kernels, loads the synthetic model at full width (as
-``chip_smoke.py`` does), makes one target set of ``chip_smoke.BATCH`` (4096)
+``chip_smoke.py`` does), makes one target set of the batch (4096 by default)
 with the forward pass and then:
 
 1. times the path unprofiled: the median of 5 calls between CUDA events;
@@ -56,7 +63,14 @@ def main() -> int:
     parser.add_argument('--grad', action='store_true')
     parser.add_argument('--gram-routes', action='store_true')
     parser.add_argument('--grad-path', choices=sorted(chip_smoke.GRAD_PATHS))
+    parser.add_argument('--share-beta', action='store_true')
+    parser.add_argument('--subset', type=int, default=None)
+    parser.add_argument('--batch', type=int, default=chip_smoke.BATCH)
     args = parser.parse_args()
+    batch = args.batch
+    if args.share_beta and f'{args.model} {args.path}' not in chip_smoke.SHARE_PATHS:
+        parser.error(f'--share-beta: no shared-shape path {args.model} {args.path} '
+                     f'(chip_smoke.SHARE_PATHS: {sorted(chip_smoke.SHARE_PATHS)})')
     if not torch.cuda.is_available():
         print('chip_profile: no CUDA device available', file=sys.stderr)
         return 1
@@ -71,24 +85,32 @@ def main() -> int:
     models_dir = synthetic.ensure_cached_models(
         os.path.join(_build.BUILD_ROOT, 'synthetic_models'))
     bm = port.BodyModel(args.model, 'neutral', model_root=os.path.join(models_dir, args.model),
-                        device=dev)
+                        vertex_subset_size=args.subset, device=dev)
     fitter = port.BodyFitter(bm)
     fitter_kid = port.BodyFitter(bm, enable_kid=True) if args.model != 'mano' else None
     rng = np.random.default_rng(chip_smoke.SEED)
     p = tuple(torch.as_tensor(x, device=dev)
-              for x in chip_smoke.random_params(rng, chip_smoke.BATCH, args.model))
-    p += (torch.as_tensor(chip_smoke.kid_factors(rng, chip_smoke.BATCH), device=dev),)
+              for x in chip_smoke.random_params(rng, batch, args.model))
+    p += (torch.as_tensor(chip_smoke.kid_factors(rng, batch), device=dev),)
     out = bm(*p[:3])
     tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
     if args.grad_path:
         fs = dict(chip_smoke.weighted_fitters(port, bm, args.model, rng, fitter), kid=fitter_kid)
-        p += tuple(chip_smoke.fit_weights(torch, rng, chip_smoke.BATCH, n, dev)
+        p += tuple(chip_smoke.fit_weights(torch, rng, batch, n, dev)
                    for n in (bm.num_vertices, bm.num_joints))
         vg = chip_smoke.path_vg(torch, args.grad_path, fs, p)
+    elif args.share_beta:
+        path = chip_smoke.SHARE_PATHS[f'{args.model} {args.path}']
+        fs = chip_smoke.weighted_fitters(port, bm, args.model, rng, fitter)
+        p += tuple(chip_smoke.fit_weights(torch, rng, batch, n, dev)
+                   for n in (bm.num_vertices, bm.num_joints))
+
+        def call(tv, tj):
+            return path['run'](fs, tv, tj, p)
     elif args.path in chip_smoke.WPATHS:
         path = chip_smoke.WPATHS[args.path]
         fs = chip_smoke.weighted_fitters(port, bm, args.model, rng, fitter)
-        p += tuple(chip_smoke.fit_weights(torch, rng, chip_smoke.BATCH, n, dev)
+        p += tuple(chip_smoke.fit_weights(torch, rng, batch, n, dev)
                    for n in (bm.num_vertices, bm.num_joints))
 
         def call(tv, tj):
@@ -108,8 +130,11 @@ def main() -> int:
         return torch.autograd.grad(port.api.default_loss(call(tv_g, tj_g)), (tv_g, tj_g))
 
     what = (f'{args.model} {args.grad_path} value+grad' if args.grad_path else
-            f'{args.model} {args.path}{" value+grad" if args.grad else ""}')
-    what += f' B={chip_smoke.BATCH}'
+            f'{args.model} {args.path}{" share_beta" if args.share_beta else ""}'
+            f'{" value+grad" if args.grad else ""}')
+    if args.subset:
+        what += f' on a {bm.num_vertices}-vertex subset'
+    what += f' B={batch}'
     run()
     torch.cuda.synchronize()
     times = []
@@ -123,7 +148,7 @@ def main() -> int:
         times.append(start.elapsed_time(end))
     call_ms = statistics.median(times)
     print(f'{what}: {call_ms:.3f} ms per call unprofiled (median of 5, CUDA events), '
-          f'{chip_smoke.BATCH / call_ms * 1e3:.1f} fits/s on {smi}', flush=True)
+          f'{batch / call_ms * 1e3:.1f} fits/s on {smi}', flush=True)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

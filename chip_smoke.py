@@ -98,7 +98,30 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     static-weight, SMPL-X (also with one iteration and GRAD_PARITY_PATHS_X)
     and SMPL+H fits' within the larger of that and 4x the gradient's own
     spread (as phase 10: the rotation fits amplify rounding on the hand
-    models); no gradient builds a cover on the host.
+    models); no gradient builds a cover on the host;
+16. ``share_beta`` (SHARE_PATHS): the SMPL headline, SMPL's known-pose fit,
+    SMPL's per-call weighted fit (K9) and the SMPL-X headline at B=4096, each
+    beside its non-shared twin on the same 4 target sets (N_NEW_TARGETS), with the twin's
+    kernel launches per fit asserted for both, one shape on every row, fits/s,
+    device ms and the device launches per fit (torch.profiler) of each; the
+    ragged fit function (``get_cached_fit_fn(share_beta=True).ragged``) on
+    sequences of 1000, 37 and 2500 frames (a bucket of 4096), its shared
+    betas held to the share_beta fit of the same frames unpadded within 1e-5
+    x max|betas| plus the summation noise (that fit against itself on the
+    frames permuted); each path and the ragged call at B=32 against the CPU
+    on targets of one shape (the gate of phase 6, SMPL-X too); and the SMPL
+    headline's value and gradient with and without share_beta (launches
+    asserted, ms and peak memory);
+17. vertex subsets: a 1024-vertex SMPL subset (``vertex_subset_size``, by the
+    port's decimation where the file is missing): the forward pass and K1-K4
+    held to their twins at B=16384, the headline fit's fits/s and device
+    launches at B=16384 on 4 target sets (launches asserted); a V=6000 subset (a partial last
+    tile) with no vertex in the left hand's leaf part: every kernel form of
+    SMPL's fitting paths and gradients (capture_forms: K1-K15, K7, K8, K2's
+    cached forms and K12 on derived operands) held to its twin, bit for bit
+    on a repeat where REPEAT_KEYS say so, at B=4096 and 1000, with the rows in
+    no part zero in the backward kernels' target cotangent; and both subsets'
+    headline fits at B=32 against the CPU.
 
 It prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -240,6 +263,7 @@ BWD_CAPTURED = {
              'recon_part_sums_cached_bwd', 'recon_part_sums_bwd', 'part_sums_bwd'},
 }
 N_GRAD_TARGETS = 4  # distinct target sets per value-and-gradient timing (phase 14)
+N_NEW_TARGETS = 4  # distinct target sets per timing in phases 16 and 17
 GRAD_PARITY_REL = 1e-3  # card vs CPU, x max|g_cpu| (tests/test_tpu_grad.py's limit)
 FWD_GRAD_PARITY_REL = 1e-5
 
@@ -439,6 +463,110 @@ GRAD_PARITY_PATHS_X = ('b_flipper', 'c_known_shape', 'f_call_weights', 'l_static
 # The paths whose gradients phase 13 and the CPU tests capture operands from.
 CAPTURE_PATHS = ('a_fit_no_joints', 'b_flipper', 'c_known_shape', 'c_static',
                  'l_static_vw_scale_fit')
+
+
+# The shared-shape paths (phase 16): name -> the model, the call on (fitters,
+# targets, inputs) as WPATHS', its non-shared twin and the twin's kernel
+# launches per fit. The shared solve is glue: both launch the same kernels.
+SHARE_KW = dict(FIT_KW, share_beta=True)
+SHARE_PATHS = {
+    'smpl headline': dict(
+        model='smpl', run=lambda fs, tv, tj, p: fs['plain'].fit(tv, tj, **SHARE_KW),
+        twin=lambda fs, tv, tj, p: fs['plain'].fit(tv, tj, **FIT_KW),
+        launches=HEADLINE['launches']),
+    'smpl d_known_pose': dict(
+        model='smpl',
+        run=lambda fs, tv, tj, p: fs['plain'].fit_with_known_pose(p[0], tv, share_beta=True),
+        twin=lambda fs, tv, tj, p: fs['plain'].fit_with_known_pose(p[0], tv),
+        launches=PATHS['d_known_pose']['launches']),
+    'smpl f_call_weights': dict(
+        model='smpl',
+        run=lambda fs, tv, tj, p: fs['plain'].fit(tv, tj, vertex_weights=p[4],
+                                                  joint_weights=p[5], **SHARE_KW),
+        twin=WPATHS['f_call_weights']['run'], launches=WPATHS['f_call_weights']['launches']),
+    'smplx headline': dict(
+        model='smplx', run=lambda fs, tv, tj, p: fs['plain'].fit(tv, tj, **SHARE_KW),
+        twin=lambda fs, tv, tj, p: fs['plain'].fit(tv, tj, **FIT_KW),
+        launches=HEADLINE['launches_x']),
+}
+# The ragged call of phase 16: three sequences, 3537 frames in a bucket of
+# 4096; and at B=32 (27 frames in a bucket of 32) card against CPU.
+RAGGED_LENGTHS = (1000, 37, 2500)
+RAGGED_LENGTHS_SMALL = (9, 3, 15)
+RAGGED_REL = 1e-5  # x max|betas|, besides the summation noise the phase measures
+# Phase 17: a 1024-vertex SMPL subset by the port's decimation at B=16384, and
+# a subset whose V = 6000 leaves a partial last tile (6000 % 256 = 112, 6000 %
+# 32 = 16) and no vertex in the left hand's leaf part (EMPTY_PART).
+SUBSET_SIZE = 1024
+SUBSET_BATCH = 16384
+EDGE_SUBSET_V = 6000
+EMPTY_PART = 22
+
+
+def large_f_forms(torch, lbs_kernels, calls) -> dict:
+    """The forms that SMPL's small-F route does not run, on operands derived
+    from its captured calls: K7 on the plain K2 call's (feat, consts), K2's
+    cached form (and its scale form) on that template, K8 on the Gramian
+    call's (R, Ksd), and K12 with seeded cotangents on the cached form's
+    operands. LAUNCHES key -> (args, kwargs)."""
+    (tgt, pj, feat, w, consts, sd), kw = calls['rhs_moments'][0]
+    cached = (tgt, pj, lbs_kernels.posed_template_ref(feat, consts), w, sd)
+    g = torch.Generator(device=tgt.device).manual_seed(SEED)
+    J, B, E = pj.shape[1], pj.shape[2], sd.shape[2]
+    cots = (torch.randn((E, B), generator=g, device=tgt.device),
+            torch.randn((3, J, B), generator=g, device=tgt.device))
+    gram_args = calls['gram_assembly'][0][0]
+    return {'posed_template': ((feat, consts), {}),
+            'rhs_moments_cached': (cached, dict(cover=kw['cover'])),
+            'rhs_moments_cached_scale': (cached, dict(cover=kw['cover'], scale=True)),
+            'term1': ((gram_args[0], gram_args[5]), {}),
+            'rhs_moments_cached_bwd': (cots + cached, dict(cover=kw['cover']))}
+
+
+def capture_forms(torch, lbs_kernels, bm, fitters, params, kid, vw, jw,
+                  required=None) -> dict:
+    """Every kernel form that SMPL's fitting paths give their kernels, on the
+    model ``bm``: the forward wrappers' calls over a forward pass of
+    ``params`` (pose, betas, trans), the headline fit, PATHS and WPATHS (but
+    the SMPL+H hand replacer) on its targets, the backward wrappers' calls
+    over backward_pass, and large_f_forms. ``fitters``: weighted_fitters'
+    dict plus 'kid'; ``kid``, ``vw`` (B, V) and ``jw`` (B, J) the inputs of
+    the paths. LAUNCHES key -> [(args, kwargs), ...]; every key of
+    ``required`` (default: the keys SMPL's paths reach, CAPTURED and
+    BWD_CAPTURED) must be reached."""
+    def run():
+        out = bm(*params)
+        tv, tj = out['vertices'], out['joints']
+        fitters['plain'].fit(tv, tj, **FIT_KW)
+        p = tuple(params) + (kid,)
+        for path in PATHS.values():
+            path['run'](fitters['plain'], fitters['kid'], tv, tj, p)
+        for name, path in WPATHS.items():
+            if name != 'i_hand_replacer':
+                path['run'](fitters, tv, tj, p + (vw, jw))
+
+    forms = record_calls(lbs_kernels, WRAPPERS, run, kernel_key)
+    forms.update(record_calls(lbs_kernels, BWD_WRAPPERS, lambda: backward_pass(
+        torch, bm, (fitters['plain'], fitters['static']), params, fitters), bwd_key))
+    forms = {key: calls for key, calls in forms.items() if calls}
+    if required is None:
+        required = CAPTURED['smpl'] | BWD_CAPTURED['smpl']
+    missing = set(required) - set(forms)
+    if missing:
+        raise AssertionError(f'the fitting paths did not reach {sorted(missing)}')
+    forms.update({key: [c] for key, c in large_f_forms(torch, lbs_kernels, forms).items()})
+    return forms
+
+
+def device_launches(torch, fn) -> int:
+    """The device kernel launches of one call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
 
 
 def path_vg(torch, name, fitters, p):
@@ -874,12 +1002,14 @@ def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model)
     return results
 
 
-def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results) -> None:
+def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results,
+                 timed: bool = True) -> None:
     """Hold every captured call of one kernel to its twin (KERNEL_REL_TOL of
     its error scale per output), and a kernel with a library call to its own
     second call, bit for bit; at B=4096 also time kernel, twin and library
     call over the calls of the first call's configuration and reckon the
-    bound. Without autograd: captured backward operands may carry history."""
+    bound (unless ``timed`` is False). Without autograd: captured backward
+    operands may carry history."""
     with torch.no_grad():
         res = results.setdefault(key, dict(max_abs_err=0.0, rel_err={}))
         outputs = SPECS[key][3]
@@ -909,7 +1039,7 @@ def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results) -> No
                 and [getattr(a, 'shape', None) for a in args] == shapes0]
         errs = ' '.join(f'{k} {v:.2e}' for k, v in res['rel_err'].items())
         line = f'{label:6s} {key:28s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
-        if batch == BATCH:
+        if timed and batch == BATCH:
             res['ms'] = time_ms(torch, lambda *a: kernel_call(lbs_kernels, key, a, kw), sets)
             res['plain_ms'] = time_ms(torch, lambda *a: twin_call(lbs_kernels, key, a, kw), sets)
             lib = library_call(torch, key)
@@ -1435,6 +1565,58 @@ def parity(name, run, gpu_fitters, cpu_fitters, bm, tv, tj, params, failures,
         failures.append(name)
 
 
+def time_value_grad(torch, lbs_kernels, name, bm_g, fit_fn, vg, per_grad, vjps, rng, kid_rng,
+                    w_rng, smi) -> dict:
+    """Phases 14 and 16: a fit and its value and gradient on N_GRAD_TARGETS
+    seeded target sets of the model ``bm_g`` at B=4096 (``name`` starts with
+    the model's name), the device ms of each (CUDA events) and the peak
+    memory, with the launches and TORCH_VJPS counts per value+grad asserted;
+    returns the value+grad runs' LAUNCHES."""
+    model = name.split()[0]
+    dev = bm_g.device
+    targets = []
+    for _ in range(N_GRAD_TARGETS):
+        p = tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, BATCH, model))
+        p += (torch.as_tensor(kid_factors(kid_rng, BATCH), device=dev),)
+        p += (fit_weights(torch, w_rng, BATCH, bm_g.num_vertices, dev),
+              fit_weights(torch, w_rng, BATCH, bm_g.num_joints, dev))
+        out = bm_g(*p[:3])
+        targets.append((out['vertices'], out['joints'], p))
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    for what, fn in (('fit', fit_fn), ('value+grad', vg)):
+        fn(*targets[0])  # warm-up
+        torch.cuda.synchronize()
+        lbs_kernels.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [fn(*t) for t in targets]
+        end.record()
+        torch.cuda.synchronize()
+        times[what] = start.elapsed_time(end) / N_GRAD_TARGETS
+        if what == 'value+grad':
+            launches = dict(lbs_kernels.LAUNCHES)
+            check_launches(launches, per_grad, N_GRAD_TARGETS, name)
+            check_launches(dict(lbs_kernels.TORCH_VJPS), vjps, N_GRAD_TARGETS,
+                           f'{name} (torch-op backward passes)')
+            check_host_covers(lbs_kernels, name)
+            for value, grads in outs:
+                if not (torch.isfinite(value) and all(torch.isfinite(g).all() for g in grads)
+                        and grads[0].abs().max() > 0):
+                    raise AssertionError(f'{name}: a gradient is not finite or zero')
+        del outs
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f'{name}: value+grad {times["value+grad"]:.2f} ms per B={BATCH} call against the '
+        f'fit {times["fit"]:.2f} ms ({times["value+grad"] / times["fit"]:.2f}x; CUDA '
+        f'events, mean of {N_GRAD_TARGETS}), peak memory {peak_gib:.2f} GiB, launches per '
+        f'value+grad {json.dumps(per_grad)}, torch-op backward passes {json.dumps(vjps)} '
+        f'on {smi}')
+    del targets
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1796,47 +1978,10 @@ def main() -> int:
             grad_paths[f'{model} {name}'] = (bm_g, grad_path(name, path_fitters[model]),
                                              grad_path_counts(name, model))
     for name, (bm_g, (fit_fn, vg), (per_grad, vjps)) in grad_paths.items():
-        model = name.split()[0]
-        targets = []
-        for _ in range(N_GRAD_TARGETS):
-            p = tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, BATCH, model))
-            p = with_weights(bm_g, p + (torch.as_tensor(kid_factors(kid_rng, BATCH), device=dev),))
-            out = bm_g(*p[:3])
-            targets.append((out['vertices'], out['joints'], p))
-        times = {}
-        torch.cuda.reset_peak_memory_stats()
-        for what, fn in (('fit', fit_fn), ('value+grad', vg)):
-            fn(*targets[0])  # warm-up
-            torch.cuda.synchronize()
-            lbs_kernels.reset_launch_counts()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            outs = [fn(*t) for t in targets]
-            end.record()
-            torch.cuda.synchronize()
-            times[what] = start.elapsed_time(end) / N_GRAD_TARGETS
-            if what == 'value+grad':
-                check_launches(dict(lbs_kernels.LAUNCHES), per_grad, N_GRAD_TARGETS,
-                               f'phase 14 {name}')
-                check_launches(dict(lbs_kernels.TORCH_VJPS), vjps, N_GRAD_TARGETS,
-                               f'phase 14 {name} (torch-op backward passes)')
-                check_host_covers(lbs_kernels, f'phase 14 {name}')
-                for key in total_launches:
-                    total_launches[key] += lbs_kernels.LAUNCHES[key]
-                for value, grads in outs:
-                    if not (torch.isfinite(value) and all(torch.isfinite(g).all() for g in grads)
-                            and grads[0].abs().max() > 0):
-                        raise AssertionError(f'phase 14 {name}: a gradient is not finite or zero')
-            del outs
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f'{name}: value+grad {times["value+grad"]:.2f} ms per B={BATCH} call against the '
-            f'fit {times["fit"]:.2f} ms ({times["value+grad"] / times["fit"]:.2f}x; CUDA '
-            f'events, mean of {N_GRAD_TARGETS}), peak memory {peak_gib:.2f} GiB, launches per '
-            f'value+grad {json.dumps(per_grad)}, torch-op backward passes {json.dumps(vjps)} '
-            f'on {smi}')
-        del targets
-        torch.cuda.empty_cache()
+        launches = time_value_grad(torch, lbs_kernels, name, bm_g, fit_fn, vg, per_grad, vjps,
+                                   rng, kid_rng, w_rng, smi)
+        for key in total_launches:
+            total_launches[key] += launches[key]
     p = [torch.as_tensor(x, device=dev).requires_grad_() for x in random_params(rng, BATCH)]
 
     def forward_grad(p=p):
@@ -1924,6 +2069,230 @@ def main() -> int:
                         path_vg(torch, name, cpu_fs, p), tv_g, tj_g, failures,
                         noise_floor=model != 'smpl')
     check_host_covers(lbs_kernels, 'phase 15')
+
+    # 16. The shared shape: each path beside its non-shared twin, the ragged
+    # call, card against CPU, and the gradient.
+    log(f'== phase 16: share_beta, B={BATCH}, {N_NEW_TARGETS} distinct target sets')
+    t_phase = time.perf_counter()
+    smodels = {'smpl': bm, 'smplx': bm_x}
+    for model, bm_s in smodels.items():
+        inputs = [with_weights(bm_s, tuple(torch.as_tensor(x, device=dev)
+                                           for x in random_params(rng, BATCH, model))
+                               + (torch.as_tensor(kid_factors(kid_rng, BATCH), device=dev),))
+                  for _ in range(N_NEW_TARGETS)]
+        targets = []
+        for p in inputs:
+            out = bm_s(*p[:3])
+            targets.append((out['vertices'], out['joints']))
+        for name, path in SHARE_PATHS.items():
+            if path['model'] != model:
+                continue
+            line = {}
+            for kind in ('twin', 'run'):
+                def run(fs, _unused, tv, tj, p, fn=path[kind]):
+                    return fn(fs, tv, tj, p)
+                fits, launches, path_ms, host_s = time_path(
+                    torch, lbs_kernels, run, wfitters[model], None, targets, inputs,
+                    [None] * N_NEW_TARGETS)
+                check_launches(launches, path['launches'], N_NEW_TARGETS + 1,
+                               f'phase 16 {name} {kind}')
+                for key in total_launches:
+                    total_launches[key] += launches[key]
+                for res in fits:
+                    for key, value in res.items():
+                        if value.shape[0] != BATCH or not torch.isfinite(value).all():
+                            raise AssertionError(f'phase 16 {name} {kind} output {key}: '
+                                                 f'shape {tuple(value.shape)} or not finite')
+                    if kind == 'run' and not (res['shape_betas'] == res['shape_betas'][:1]).all():
+                        raise AssertionError(f'phase 16 {name}: the shared betas differ over '
+                                             'the batch')
+                n_dev = device_launches(torch, lambda: run(wfitters[model], None, *targets[0],
+                                                           inputs[0] + (None,)))
+                line[kind] = (N_NEW_TARGETS * BATCH / (path_ms / 1e3), path_ms / N_NEW_TARGETS,
+                              host_s / N_NEW_TARGETS * 1e3, n_dev)
+                del fits
+            (fps, ms, host, n_dev), (fps_t, ms_t, host_t, n_dev_t) = line['run'], line['twin']
+            log(f'{name} share_beta: {fps:.1f} fits/s ({ms:.2f} ms/fit on CUDA events, '
+                f'{host:.2f} ms/fit host) against its twin {fps_t:.1f} fits/s ({ms_t:.2f} ms/fit, '
+                f'{host_t:.2f} ms/fit host); {ms / ms_t:.3f}x the twin\'s device ms; device '
+                f'launches per fit {n_dev} against {n_dev_t} ({n_dev - n_dev_t:+d}); '
+                f'kernel-wrapper launches per fit as the twin\'s {json.dumps(path["launches"])} '
+                f'on {smi}')
+        del inputs, targets
+        torch.cuda.empty_cache()
+
+    # The ragged call: three sequences in one padded bucket, held to the
+    # share_beta fit of the same frames unpadded.
+    os.environ['SMPLFITTER_BODY_MODELS'] = models_dir
+    ragged_fn = port.get_cached_fit_fn('smpl', share_beta=True, device=dev)
+    n_frames = sum(RAGGED_LENGTHS)
+    p = tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, n_frames))
+    out = bm(*p)
+    tv, tj = out['vertices'], out['joints']
+    cuts = np.cumsum((0,) + RAGGED_LENGTHS)
+    lbs_kernels.reset_launch_counts()
+    ragged = ragged_fn.ragged([tv[a:b] for a, b in zip(cuts[:-1], cuts[1:])],
+                              [tj[a:b] for a, b in zip(cuts[:-1], cuts[1:])])
+    check_launches(dict(lbs_kernels.LAUNCHES), HEADLINE['launches'], 1, 'phase 16 ragged')
+    check_host_covers(lbs_kernels, 'phase 16 ragged')
+    betas_r = torch.cat(ragged['shape_betas'])
+    plain = fitter.fit(tv, tj, **SHARE_KW)['shape_betas']
+    perm = torch.randperm(n_frames, generator=torch.Generator().manual_seed(SEED)).to(dev)
+    permuted = fitter.fit(tv[perm], tj[perm], **SHARE_KW)['shape_betas']
+    noise = (permuted[0] - plain[0]).abs().max().item()
+    err = (betas_r - plain[0]).abs().max().item()
+    limit = RAGGED_REL * plain.abs().max().item() + noise
+    ok = (err <= limit and [len(x) for x in ragged['shape_betas']] == list(RAGGED_LENGTHS)
+          and bool(torch.isfinite(betas_r).all()))
+    log(f'smpl ragged share_beta, sequences {RAGGED_LENGTHS} ({n_frames} frames, bucket '
+        f'{max(8, 1 << (n_frames - 1).bit_length())}): ok={ok} max|betas - unpadded fit| = '
+        f'{err:.3e} (limit {limit:.3e} = {RAGGED_REL:g} x max|betas| + the summation noise '
+        f'{noise:.3e}, the unpadded fit against itself on the frames permuted)')
+    if not ok:
+        failures.append('smpl ragged share_beta')
+    del ragged, betas_r, plain, permuted, tv, tj
+
+    log(f'== phase 16: share_beta paths and the ragged call, B={PARITY_BATCH}, card vs CPU, '
+        'targets of one shape in 32 poses (what share_beta fits)')
+    for model, bm_s in smodels.items():
+        fs = wfitters[model]
+        cpu_bm_s = cpu_fitters(model, bm_s)[0].body_model
+        cpu_fs = cpu_path_fitters(port, cpu_bm_s, fs)
+        params = tuple(torch.as_tensor(x, device=dev)
+                       for x in random_params(rng, PARITY_BATCH, model))
+        params = (params[0], params[1][:1].expand(PARITY_BATCH, -1).contiguous(), params[2])
+        params = with_weights(bm_s, params + (torch.as_tensor(
+            kid_factors(kid_rng, PARITY_BATCH), device=dev),))
+        out = bm_s(*params[:3])
+        tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+        for name, path in SHARE_PATHS.items():
+            if path['model'] == model:
+                parity(f'{name} share_beta', path['run'], (fs,), (cpu_fs,), bm_s, tv, tj, params,
+                       failures)
+        if model == 'smpl':
+            cpu_ragged = port.get_cached_fit_fn('smpl', share_beta=True, device='cpu')
+            cuts = np.cumsum((0,) + RAGGED_LENGTHS_SMALL)
+            n = cuts[-1]
+
+            def ragged_run(fn, tv, tj, _p):
+                res = fn.ragged([tv[a:b] for a, b in zip(cuts[:-1], cuts[1:])],
+                                [tj[a:b] for a, b in zip(cuts[:-1], cuts[1:])])
+                return {k: torch.cat(v) for k, v in res.items()}
+
+            parity('smpl ragged share_beta', ragged_run, (ragged_fn,), (cpu_ragged,), bm_s,
+                   tv[:n], tj[:n], params, failures)
+
+    log(f'== phase 16: share_beta value and gradient, B={BATCH}')
+    for name, f in (('smpl headline', fitter), ('smpl headline share_beta', fitter)):
+        vg_plain = port.get_fit_grad_fn(f)
+        kw = SHARE_KW if name.endswith('share_beta') else FIT_KW
+
+        def share_vg(tv, tj, p, kw=kw, f=f):
+            tv_g, tj_g = tv.detach().requires_grad_(), tj.detach().requires_grad_()
+            with torch.enable_grad():
+                loss = port.api.default_loss(f.fit(tv_g, tj_g, **kw))
+                return loss.detach(), torch.autograd.grad(loss, (tv_g, tj_g))
+
+        vg = share_vg if kw is SHARE_KW else (lambda tv, tj, p, vg=vg_plain: vg(tv, tj))
+        launches = time_value_grad(
+            torch, lbs_kernels, name, bm, lambda tv, tj, p, kw=kw, f=f: f.fit(tv, tj, **kw), vg,
+            dict(rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=3,
+                 rhs_moments_h_bwd=3, recon_part_sums_cached_bwd=3), dict(gram_assembly=3),
+            rng, kid_rng, w_rng, smi)
+        for key in total_launches:
+            total_launches[key] += launches[key]
+    log(f'phase 16 took {time.perf_counter() - t_phase:.1f} s')
+
+    # 17. Vertex subsets.
+    log(f'== phase 17: vertex subsets: {SUBSET_SIZE} vertices by the port\'s decimation at '
+        f'B={SUBSET_BATCH}; V={EDGE_SUBSET_V} without part {EMPTY_PART}, kernels vs twins')
+    t_phase = t0 = time.perf_counter()
+    bm_d = port.BodyModel('smpl', 'neutral', model_root=os.path.join(models_dir, 'smpl'),
+                          vertex_subset_size=SUBSET_SIZE, device=dev)
+    log(f'subset {SUBSET_SIZE}: loaded (decimated where missing) in '
+        f'{time.perf_counter() - t0:.1f} s, {len(bm_d.faces)} faces')
+    fitter_d = port.BodyFitter(bm_d)
+    inputs = [tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, SUBSET_BATCH))
+              for _ in range(N_NEW_TARGETS)]
+    lbs_kernels.reset_launch_counts()
+    targets = []
+    for p in inputs:
+        out = bm_d(*p)
+        targets.append((out['vertices'], out['joints']))
+    check_launches(dict(lbs_kernels.LAUNCHES), dict(lbs_points=1), N_NEW_TARGETS,
+                   'phase 17 subset forward')
+    check_host_covers(lbs_kernels, 'phase 17 subset forward')
+    calls = record_calls(lbs_kernels, WRAPPERS,
+                         lambda: fitter_d.fit(*targets[0], **FIT_KW), kernel_key)
+    calls['lbs_points'] = record_calls(lbs_kernels, WRAPPERS, lambda: bm_d(*inputs[0]),
+                                       kernel_key)['lbs_points']
+    sub_results = {}
+    for key in ('lbs_points', 'rhs_moments_h', 'gram_assembly', 'recon_part_sums_cached'):
+        hold_to_twin(torch, lbs_kernels, f'subset{SUBSET_SIZE}', key, calls[key][:1],
+                     SUBSET_BATCH, sub_results, timed=False)
+    del calls
+    fits, launches, path_ms, host_s = time_path(torch, lbs_kernels, HEADLINE['run'], fitter_d,
+                                                None, targets, inputs, [None] * N_NEW_TARGETS)
+    check_launches(launches, HEADLINE['launches'], N_NEW_TARGETS + 1, 'phase 17 subset headline')
+    for key in total_launches:
+        total_launches[key] += launches[key]
+    for res in fits:
+        if not all(torch.isfinite(v).all() for v in res.values()):
+            raise AssertionError('phase 17 subset headline: an output is not finite')
+    n_dev = device_launches(torch, lambda: fitter_d.fit(*targets[0], **FIT_KW))
+    log(f'subset{SUBSET_SIZE} headline: {N_NEW_TARGETS * SUBSET_BATCH / (path_ms / 1e3):.1f} '
+        f'fits/s (B={SUBSET_BATCH}, {path_ms / N_NEW_TARGETS:.2f} ms/fit on CUDA events, '
+        f'{host_s / N_NEW_TARGETS * 1e3:.2f} ms/fit host), {n_dev} device launches per fit, '
+        f'kernel-wrapper launches per fit {json.dumps(HEADLINE["launches"])} on {smi}')
+    del fits, targets, inputs
+    torch.cuda.empty_cache()
+
+    part = np.argmax(np.asarray(bm.model_data.weights), axis=1)
+    edge_rng = np.random.default_rng(SEED + 17)
+    subset = np.sort(edge_rng.choice(np.nonzero(part != EMPTY_PART)[0], EDGE_SUBSET_V,
+                                     replace=False))
+    bm_e = port.BodyModel('smpl', 'neutral', model_root=os.path.join(models_dir, 'smpl'),
+                          vertex_subset=subset, device=dev)
+    fitter_e = port.BodyFitter(bm_e)
+    fitter_e_kid = port.BodyFitter(bm_e, enable_kid=True)
+    wfitters_e = weighted_fitters(port, bm_e, 'smpl', w_rng, fitter_e)
+    part_seg = fitter_e.plan.part_seg.tolist()
+    if part_seg[EMPTY_PART + 1] != part_seg[EMPTY_PART]:
+        raise AssertionError(f'phase 17: part {EMPTY_PART} has vertices in the subset')
+    unused = fitter_e.plan.part_unused.long()
+    fs_e = dict(wfitters_e, kid=fitter_e_kid)
+    for batch in (BATCH, RAGGED_BATCH):
+        params = [torch.as_tensor(x, device=dev) for x in random_params(rng, batch)]
+        kid = torch.as_tensor(kid_factors(kid_rng, batch), device=dev)
+        lbs_kernels.reset_launch_counts()
+        forms = capture_forms(torch, lbs_kernels, bm_e, fs_e, params, kid,
+                              fit_weights(torch, w_rng, batch, bm_e.num_vertices, dev),
+                              fit_weights(torch, w_rng, batch, bm_e.num_joints, dev))
+        check_host_covers(lbs_kernels, f'phase 17 subset V={EDGE_SUBSET_V} at B={batch}')
+        for key, arg_sets in sorted(forms.items()):
+            hold_to_twin(torch, lbs_kernels, f'sub{EDGE_SUBSET_V}', key, arg_sets[:1], batch,
+                         sub_results.setdefault(f'edge {key}', {}), timed=False)
+            if key.startswith(('recon_part_sums_bwd', 'recon_part_sums_cached_bwd',
+                               'part_sums_bwd')):
+                dt = kernel_call(lbs_kernels, key, *arg_sets[0])[0]
+                if dt[:, unused[unused < dt.shape[1]]].abs().max().item() != 0:
+                    raise AssertionError(f'phase 17 {key}: rows in no part are not zero')
+        log(f'sub{EDGE_SUBSET_V} B={batch}: {len(forms)} forms held to their twins (K1-K15), '
+            f'rows in no part ({len(unused)}) zero in the backward kernels\' target cotangent')
+        del forms
+        torch.cuda.empty_cache()
+
+    log(f'== phase 17: subsets, B={PARITY_BATCH}, card vs CPU')
+    for label, bm_s, f_s in ((f'subset{SUBSET_SIZE}', bm_d, fitter_d),
+                             (f'subset{EDGE_SUBSET_V}', bm_e, fitter_e)):
+        cpu_bm_s = port.BodyModel.from_model_data(bm_s.model_data, 'smpl', device='cpu')
+        params = tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, PARITY_BATCH))
+        out = bm_s(*params)
+        tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+        parity(f'{label} headline', HEADLINE['run'], (f_s, None),
+               (port.BodyFitter(cpu_bm_s), None), bm_s, tv, tj, params, failures)
+    check_host_covers(lbs_kernels, 'phase 17')
+    log(f'phase 17 took {time.perf_counter() - t_phase:.1f} s')
     if failures:
         raise AssertionError(f'the card disagrees with the CPU on: {failures}')
 

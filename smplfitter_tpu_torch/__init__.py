@@ -16,6 +16,7 @@ use_true_f32()
 
 from .models.bodymodel import BodyModel  # noqa: E402
 from .models.bodyfitter import BodyFitter  # noqa: E402
-from .api import get_fit_grad_fn  # noqa: E402
+from .api import get_cached_body_model, get_cached_fit_fn, get_fit_grad_fn  # noqa: E402
 
-__all__ = ['BodyModel', 'BodyFitter', 'get_fit_grad_fn', '__version__']
+__all__ = ['BodyModel', 'BodyFitter', 'get_cached_body_model', 'get_cached_fit_fn',
+           'get_fit_grad_fn', '__version__']

@@ -10,11 +10,13 @@ arrays and 3-vectors as ``(3, J, B)``, the layouts the kernels use.
 Ported here, for SMPL, SMPL-X, SMPL+H and MANO: :meth:`BodyFitter.fit` with
 or without target joints, any number of iterations, optional final rotation
 adjustment, warm starts, the kid factor, ``scale_target`` / ``scale_fit``,
-the ``'vertices'`` / ``'joints'`` outputs and fit weights, static
-(``BodyFitter(vertex_weights=, joint_weights=)``) or per call;
-:meth:`~BodyFitter.fit_with_known_pose`, :meth:`~BodyFitter.fit_with_known_shape`
-and :meth:`~BodyFitter.fit_scale_and_translation`, weighted or not.
-``share_beta`` raises ``NotImplementedError`` naming its ROADMAP item.
+the ``'vertices'`` / ``'joints'`` outputs, fit weights, static
+(``BodyFitter(vertex_weights=, joint_weights=)``) or per call, and
+``share_beta`` (one shape for the batch; ``batch_mask`` leaves padding
+instances out of it); :meth:`~BodyFitter.fit_with_known_pose`,
+:meth:`~BodyFitter.fit_with_known_shape` (also with a kid factor on a fitter
+without the kid column) and :meth:`~BodyFitter.fit_scale_and_translation`,
+weighted or not.
 
 Fit weights follow the JAX package: the rotation fits are weighted whenever
 a weight exists (ω in the part sums, joint weights in the joint Kabsch and
@@ -570,10 +572,6 @@ def _fit_rotations_dependent_core_lm(bm, plan: FitterPlan, raw, s_t, s_a, s_w, t
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f'{what} is not ported yet (ROADMAP Queue 1, item {item})')
-
-
 class BodyFitter(nn.Module):
     """Fits pose, shape and translation (and optionally kid factor and scale)
     to target vertices and optionally joints.
@@ -697,6 +695,16 @@ class BodyFitter(nn.Module):
             jw_lm = self.static_jw_t[:, None].expand(bm.num_joints, batch)
         return omega_vm, jw_lm
 
+    def _batch_mask(self, batch_mask, batch: int):
+        """``batch_mask`` (B,) as a float32 tensor on the model's device, or None."""
+        if batch_mask is None:
+            return None
+        batch_mask = self.body_model.as_f32(batch_mask)
+        if tuple(batch_mask.shape) != (batch,):
+            raise ValueError(f'batch_mask must have shape ({batch},), '
+                             f'got {tuple(batch_mask.shape)}')
+        return batch_mask
+
     def _glob9_from_pose(self, pose_rotvecs, batch: int) -> torch.Tensor:
         """Global rotations (9, J, B) of pose rotation vectors (B, 3J), or the
         T-pose for None."""
@@ -740,6 +748,8 @@ class BodyFitter(nn.Module):
         initial_shape_betas=None,
         initial_kid_factor=None,
         requested_keys=('pose_rotvecs',),
+        *,
+        batch_mask=None,
     ) -> dict:
         """Alternating closed-form fit of (B, V, 3) target vertices and
         optionally (B, J, 3) target joints, warm-started from
@@ -750,24 +760,30 @@ class BodyFitter(nn.Module):
         and joints (B, J, 3). ``vertex_weights`` (B, V) and ``joint_weights``
         (B, J) weight the fit (see the module docstring). ``num_iter`` - 1
         rounds of shape solve and rotation fit precede the final solve, so a
-        ``num_iter`` below 1 fits as 1 does, as in the JAX package."""
+        ``num_iter`` below 1 fits as 1 does, as in the JAX package.
+
+        ``share_beta`` fits one set of betas (and kid factor) to the whole
+        batch; ``batch_mask`` (B,), 1 for real instances and 0 for padding,
+        leaves the padding out of that shared solve (every shape solve of the
+        fit), so a padded batch gives the unpadded batch's shape. Without
+        ``share_beta`` it has no effect: instances never couple."""
         requested_keys = tuple(requested_keys)
-        if share_beta:
-            raise _not_ported('share_beta', 5)
         opt = self._optional
         target_vertices = self.body_model.as_f32(target_vertices)
-        omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights,
-                                             target_vertices.shape[0])
+        batch = target_vertices.shape[0]
+        omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights, batch)
         return self._fit_lm(
             target_vertices, opt(target_joints), omega_vm, jw_lm, num_iter,
             beta_regularizer, beta_regularizer2, scale_regularizer, kid_regularizer,
             final_adjust_rots, scale_target, scale_fit, opt(initial_pose_rotvecs),
-            opt(initial_shape_betas), opt(initial_kid_factor), requested_keys)
+            opt(initial_shape_betas), opt(initial_kid_factor), requested_keys, share_beta,
+            self._batch_mask(batch_mask, batch))
 
     def _fit_lm(self, target_vertices, target_joints, omega_vm, jw_lm, num_iter,
                 beta_regularizer, beta_regularizer2, scale_regularizer, kid_regularizer,
                 final_adjust_rots, scale_target, scale_fit, initial_pose_rotvecs,
-                initial_shape_betas, initial_kid_factor, requested_keys) -> dict:
+                initial_shape_betas, initial_kid_factor, requested_keys, share_beta,
+                batch_mask) -> dict:
         bm = self.body_model
         plan = self.plan
         scale_any = scale_target or scale_fit
@@ -805,7 +821,8 @@ class BodyFitter(nn.Module):
                       beta_regularizer_reference=initial_shape_betas,
                       kid_regularizer_reference=initial_kid_factor, requested_keys=keys,
                       scale_target=scale and scale_target, scale_fit=scale and scale_fit,
-                      scale_regularizer=scale_regularizer)
+                      scale_regularizer=scale_regularizer, share_beta=share_beta,
+                      batch_mask=batch_mask)
             if wgram_solve:
                 return fit_shape_wgram_lm(bm, plan, gram, g9, tgt_vm, tj_lm, omega_vm,
                                           jw_lm if has_joints else None, beta_regularizer,
@@ -896,19 +913,20 @@ class BodyFitter(nn.Module):
         beta_regularizer_reference=None,
         kid_regularizer_reference=None,
         requested_keys=('shape_betas',),
+        *,
+        batch_mask=None,
     ) -> dict:
         """Shape, translation (and optionally kid factor and scale) for known
         pose rotation vectors (B, 3J): one shape solve. Returns shape_betas,
         trans, orientations and relative_orientations (B, J, 3, 3), and
         kid_factor / scale_corr where they are fitted; the target mean is
         restored unscaled. Weights as in :meth:`fit`; only the shape solve
-        sees them."""
-        if share_beta:
-            raise _not_ported('share_beta', 5)
+        sees them. ``share_beta`` and ``batch_mask`` as in :meth:`fit`."""
         bm = self.body_model
         target_vertices = bm.as_f32(target_vertices)
         batch = target_vertices.shape[0]
         omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights, batch)
+        batch_mask = self._batch_mask(batch_mask, batch)
         target_vertices, target_joints, target_mean = _center_targets(
             target_vertices, self._optional(target_joints), full_mean=scale_target or scale_fit)
         glob9 = self._glob9_from_pose(pose_rotvecs, batch)
@@ -919,7 +937,8 @@ class BodyFitter(nn.Module):
                   beta_regularizer_reference=self._optional(beta_regularizer_reference),
                   kid_regularizer_reference=self._optional(kid_regularizer_reference),
                   scale_target=scale_target, scale_fit=scale_fit,
-                  scale_regularizer=scale_regularizer)
+                  scale_regularizer=scale_regularizer, share_beta=share_beta,
+                  batch_mask=batch_mask)
         if self._solve_weighted(has_joints, omega_vm, jw_lm):
             res = fit_shape_wgram_lm(bm, self.plan, self.gram, glob9, tgt_vm, tj_lm, omega_vm,
                                      jw_lm if has_joints else None, beta_regularizer,
@@ -961,10 +980,14 @@ class BodyFitter(nn.Module):
         kid_factor when given, scale_corr under ``scale_fit``, and on request
         pose_rotvecs / relative_orientations. Weights as in :meth:`fit`; the
         translation (and scale) is their weighted Procrustes mean under the
-        both-or-neither rule."""
-        if kid_factor is not None and not self.enable_kid:
-            raise _not_ported('fit_with_known_shape with a kid factor on a fitter built '
-                              'without enable_kid', 5)
+        both-or-neither rule.
+
+        A kid factor on a fitter without the kid column has no column in the
+        reconstruction operands; the known shape's mesh is then made by the
+        body model (K1) for every rotation fit. That case and ``scale_fit``
+        follow the JAX package's batch-major formulation: one rotation fit and
+        ``num_iter`` - 1 more, so one even at ``num_iter`` 0, then the
+        Procrustes translation (and scale) against the mesh."""
         bm = self.body_model
         plan = self.plan
         gram = self.gram
@@ -986,10 +1009,25 @@ class BodyFitter(nn.Module):
         x_T = x.T.contiguous()
 
         glob9 = self._glob9_from_pose(initial_pose_rotvecs, batch)
-        for _ in range(num_iter):
-            spec, rj, _ = lbs_recon_spec_lm(bm, plan, gram, glob9, x_T)
-            glob9 = rot_ops.matmul3x3_lm(
-                fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec, rj, **wk), glob9)
+        kid_mesh = kid_factor is not None and not self.enable_kid
+        if kid_mesh:
+            def kid_recon(g9):
+                """The known shape's mesh (3, V, B) and joints (3, J, B) under g9."""
+                forw = bm(glob_rotmats=g9.permute(2, 1, 0).reshape(batch, J, 3, 3),
+                          shape_betas=x[:, :self.n_betas], kid_factor=kid_factor)
+                return (lbs_kernels.to_vertex_major(forw['vertices']),
+                        forw['joints'].permute(2, 1, 0))
+
+            for _ in range(max(num_iter, 1)):
+                ref_vm, rj = kid_recon(glob9)
+                glob9 = rot_ops.matmul3x3_lm(
+                    fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, ref_vm,
+                                            rj if has_joints else None, **wk), glob9)
+        else:
+            for _ in range(max(num_iter, 1) if scale_fit else num_iter):
+                spec, rj, _ = lbs_recon_spec_lm(bm, plan, gram, glob9, x_T)
+                glob9 = rot_ops.matmul3x3_lm(
+                    fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec, rj, **wk), glob9)
 
         # The translation is weighted per the both-or-neither rule: static
         # weights through the weighted first moments, per-call ω through one
@@ -997,13 +1035,17 @@ class BodyFitter(nn.Module):
         w_static = self._solve_weighted(has_joints, self.static_vw, self.static_jw)
         w_runtime = self._solve_weighted(has_joints, omega_vm,
                                          None if joint_weights is None else jw_lm)
-        spec_f, rj_f, rec_sum = lbs_recon_spec_lm(bm, plan, self.gram_w if w_static else gram,
-                                                  glob9, x_T)
         scale_corr = None
         recon_f = None
-        if scale_fit:
+        if kid_mesh:
+            recon_f, rj_f = kid_recon(glob9)
+        else:
+            spec_f, rj_f, rec_sum = lbs_recon_spec_lm(
+                bm, plan, self.gram_w if w_static else gram, glob9, x_T)
+        if scale_fit or kid_mesh:
             # Procrustes scale and translation against the reconstruction itself.
-            recon_f = _spec_points(spec_f)
+            if recon_f is None:
+                recon_f = _spec_points(spec_f)
             vw_b = jw_b = None
             if omega_vm is not None or w_static:
                 vw_b = (omega_vm.T if omega_vm is not None
@@ -1012,10 +1054,12 @@ class BodyFitter(nn.Module):
                 jw_b = jw_lm.T
             scale_corr, trans = fit_scale_and_translation(
                 target_vertices, lbs_kernels.from_vertex_major(recon_f, V), target_joints,
-                rj_f.permute(2, 1, 0), vw_b, jw_b, scale=True)
+                rj_f.permute(2, 1, 0), vw_b, jw_b, scale=scale_fit)
             trans_lm = trans.T
-            ref_vm = recon_f * scale_corr + trans_lm[:, None, :]
-            ref_j = rj_f * scale_corr + trans_lm[:, None, :]
+            if scale_corr is not None:
+                recon_f, rj_f = recon_f * scale_corr, rj_f * scale_corr
+            ref_vm = recon_f + trans_lm[:, None, :]
+            ref_j = rj_f + trans_lm[:, None, :]
             ref_spec = None
         else:
             # Translation: the (weighted) mean gap of vertices (and joints),

@@ -96,14 +96,25 @@ class BodyModel(nn.Module):
     ``BodyModel(model_name, gender, model_root, num_betas, device=...)`` loads
     the model files like the JAX package; :meth:`from_model_data` builds it
     from an already loaded :class:`~smplfitter_tpu_torch.utils.modeldata.ModelData`.
+
+    A vertex subset makes the model's mesh those vertices only (the joints
+    still come from the full model's template): ``vertex_subset_size`` n
+    loads ``vertex_subset_{n}.npz`` beside the model file, decimating the
+    template into it first where it is missing; ``vertex_subset`` gives the
+    indices, ``faces`` the subset's triangles and ``joint_regressor_post_lbs``
+    (J, n) the regressor of the joints from the subset's vertices (default:
+    the full regressor's columns of the subset).
     """
 
     def __init__(self, model_name: str = 'smpl', gender: str = 'neutral',
                  model_root: Optional[str] = None, num_betas: Optional[int] = None,
-                 *, device='cuda'):
+                 vertex_subset_size: Optional[int] = None, vertex_subset=None, faces=None,
+                 joint_regressor_post_lbs=None, *, device='cuda'):
         super().__init__()
         device = _model_device(device)
-        data = _modeldata.initialize(model_name, gender, model_root, num_betas)
+        data = _modeldata.initialize(model_name, gender, model_root, num_betas,
+                                     vertex_subset_size, vertex_subset, faces,
+                                     joint_regressor_post_lbs)
         self._init_from_data(data, model_name, gender, device)
 
     @classmethod
@@ -127,6 +138,7 @@ class BodyModel(nn.Module):
         self.num_vertices = data.num_vertices
         self.num_betas = int(data.shapedirs.shape[2])
         self.faces = data.faces
+        self.vertex_subset = data.vertex_subset
         self.joint_names = data.joint_names
 
         def buf(name, x):

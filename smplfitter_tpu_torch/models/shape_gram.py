@@ -22,10 +22,12 @@ ops. Per-call weights (V, B) break the static moments, so
 :func:`fit_shape_wgram_lm` rebuilds the normal equations per vertex (K9),
 centred by the exact ω-weighted Jacobian mean.
 
-Ported here: the non-shared solve, with or without target joints, with the
-kid column, warm-start regularizer references, the scale column of
-``scale_target`` / ``scale_fit`` and both kinds of fit weights; and the
-deferred reconstruction operands of a known shape (:func:`lbs_recon_spec_lm`).
+Ported here: the solve with or without target joints, with the kid column,
+warm-start regularizer references, the scale column of ``scale_target`` /
+``scale_fit`` and both kinds of fit weights, per instance or with the betas
+(and kid factor) shared over the batch (``share_beta``, padding instances
+left out by ``batch_mask``: :func:`_solve_partial_share`); and the deferred
+reconstruction operands of a known shape (:func:`lbs_recon_spec_lm`).
 """
 
 from __future__ import annotations
@@ -190,7 +192,8 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
                       kid_regularizer: Optional[float] = None,
                       beta_regularizer_reference=None, kid_regularizer_reference=None,
                       requested_keys=(), scale_target: bool = False, scale_fit: bool = False,
-                      scale_regularizer: float = 0.0, jw_static=None) -> dict:
+                      scale_regularizer: float = 0.0, jw_static=None, share_beta: bool = False,
+                      batch_mask=None) -> dict:
     """Lane-major shape solve: rotations glob_lm (9, J, B), targets tgt_vm
     (3, V, B) and tj_lm (3, J, B) or None. A statically weighted ``gram``
     weights the vertex block; ``jw_static`` (J,) weights the joints block,
@@ -204,7 +207,9 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
     models, else only when recon_spec is requested without a scale column).
 
     ``scale_target`` / ``scale_fit`` add the scale column from K2's
-    target-side moments (the model side follows by linearity, pos = tgt - b)."""
+    target-side moments (the model side follows by linearity, pos = tgt - b).
+    ``share_beta`` solves one shape for the whole batch, the instances with
+    ``batch_mask`` (B,) 0 left out of it (see :func:`_solve_partial_share`)."""
     batch = glob_lm.shape[2]
     J = bm.num_joints
     E = gram.n_ext
@@ -292,17 +297,50 @@ def fit_shape_gram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm,
 
     return _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regularizer2,
                        kid_regularizer, beta_regularizer_reference, kid_regularizer_reference,
-                       requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer)
+                       requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer,
+                       share_beta=share_beta, batch_mask=batch_mask)
+
+
+def _solve_partial_share(G_aug, r_aug, n_shared: int, batch_mask=None):
+    """Block elimination of the augmented systems (B, n, n), (B, n) whose first
+    ``n_shared`` unknowns are one set for the whole batch and the rest per
+    instance: each instance's Schur complement and moment of the shared block
+    are summed over the batch (times ``batch_mask`` (B,) when given, so that
+    padding instances add nothing), one (n_shared, n_shared) solve gives the
+    shared unknowns and each instance's own follow from them. Returns (B, n)."""
+    Gss = G_aug[:, :n_shared, :n_shared]
+    Gsi = G_aug[:, :n_shared, n_shared:]
+    Gii = G_aug[:, n_shared:, n_shared:]
+    rs = r_aug[:, :n_shared]
+    ri = r_aug[:, n_shared:]
+
+    Ci = solve_spd_unrolled(Gii, Gsi.transpose(1, 2))  # (B, ni, ns)
+    di = solve_spd_unrolled(Gii, ri)  # (B, ni)
+    schur = Gss - torch.matmul(Gsi, Ci)
+    moment = rs - torch.einsum('bse,be->bs', Gsi, di)
+    if batch_mask is not None:
+        schur = schur * batch_mask[:, None, None]
+        moment = moment * batch_mask[:, None]
+    # The batch sums in f64: a padded batch's sums then round to the unpadded
+    # batch's, whatever order the reduction takes.
+    S = schur.double().sum(dim=0).float()
+    rhs = moment.double().sum(dim=0).float()
+    xs = solve_spd_unrolled(S[None], rhs[None])[0]  # (ns,)
+    xi = di - torch.einsum('bis,s->bi', Ci, xs)
+    return torch.cat([xs.expand(G_aug.shape[0], n_shared), xi], dim=1)
 
 
 def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regularizer2,
                 kid_regularizer, beta_regularizer_reference, kid_regularizer_reference,
                 requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer,
-                trans_shift_jac=None) -> dict:
+                trans_shift_jac=None, share_beta: bool = False, batch_mask=None) -> dict:
     """Regularize and solve the augmented [betas (, kid) (, scale), trans]
     system (B, E1 + 3), E1 = E + 1 with a scale column, and build the
     lane-major result dict. ``trans_shift_jac`` (B, 3, E1) undoes a centring
-    of the Jacobian by its mean mu: t = t' - mu x."""
+    of the Jacobian by its mean mu: t = t' - mu x. ``share_beta`` shares the
+    E shape columns over the batch (``batch_mask`` as in
+    :func:`_solve_partial_share`); a scale column stays per instance with
+    the translation."""
     glob_lm, p_j, P4, t_lm, T4 = (pre[k] for k in ('glob_lm', 'p_j', 'P4', 't_lm', 'T4'))
     batch = glob_lm.shape[2]
     E = gram.n_ext
@@ -329,6 +367,10 @@ def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regular
         refs.append(torch.zeros((batch, 1), device=dev))
     l2 = torch.cat([torch.full((n,), value, device=dev) for n, value in l2])
     l2_rhs = l2 * torch.cat(refs, dim=1)
+    if share_beta:
+        # The shared pull follows the reference's identity-row semantics: its
+        # rows are weighted by l2 once more than the per-instance moment form.
+        l2_rhs = l2 * l2_rhs
 
     eyeW = W[:, None, None] * torch.eye(3, device=dev)
     G_aug = torch.cat([
@@ -337,7 +379,10 @@ def _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regular
     ], dim=1)
     G_aug = G_aug + torch.diag(torch.cat([l2, torch.zeros(3, device=dev)]))
     r_aug = torch.cat([r + l2_rhs, Sb], dim=1)
-    sol = solve_spd_unrolled(G_aug, r_aug)
+    if share_beta:
+        sol = _solve_partial_share(G_aug, r_aug, n_shared=E, batch_mask=batch_mask)
+    else:
+        sol = solve_spd_unrolled(G_aug, r_aug)
 
     new_shape = sol[:, :n_betas]
     new_kid = sol[:, n_betas] if plan.enable_kid else None
@@ -412,14 +457,18 @@ def fit_shape_wgram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm, omega_v
                        kid_regularizer: Optional[float] = None,
                        beta_regularizer_reference=None, kid_regularizer_reference=None,
                        requested_keys=(), scale_target: bool = False, scale_fit: bool = False,
-                       scale_regularizer: float = 0.0) -> dict:
+                       scale_regularizer: float = 0.0, share_beta: bool = False,
+                       batch_mask=None) -> dict:
     """Lane-major shape solve under per-call vertex weights ``omega_vm``
     (V, B) and, with target joints, joint weights ``jw_lm`` (J, B) (None
     without joints; the caller applies the both-or-neither rule). ``gram``
     is the unweighted GramData: ω reaches the solve only through K9, which
     rebuilds the centred normal equations per vertex (the scale column of
-    ``scale_target`` / ``scale_fit`` in-kernel). Returns what
-    :func:`fit_shape_gram_lm` returns."""
+    ``scale_target`` / ``scale_fit`` in-kernel). ``share_beta`` and
+    ``batch_mask`` as in :func:`fit_shape_gram_lm`: the solve's variables
+    are the shape x itself and the centred translation t' = t + mu x, so the
+    shared block stays x and t is shifted back per instance after the solve.
+    Returns what :func:`fit_shape_gram_lm` returns."""
     batch = glob_lm.shape[2]
     E = gram.n_ext
     scale_mode = 1 if scale_target else (2 if scale_fit else 0)
@@ -471,7 +520,8 @@ def fit_shape_wgram_lm(bm, plan, gram: GramData, glob_lm, tgt_vm, tj_lm, omega_v
     return _solve_tail(plan, gram, pre, G, SA, r, Sb, W, beta_regularizer, beta_regularizer2,
                        kid_regularizer, beta_regularizer_reference, kid_regularizer_reference,
                        requested_keys, homog_vm, scale_target, scale_fit, scale_regularizer,
-                       trans_shift_jac=mu_full.permute(2, 0, 1))
+                       trans_shift_jac=mu_full.permute(2, 0, 1), share_beta=share_beta,
+                       batch_mask=batch_mask)
 
 
 def lbs_recon_spec_lm(bm, plan, gram: GramData, glob_lm, x_T):

@@ -234,10 +234,10 @@ def initialize(
     if vertex_subset_size is not None:
         subset_path = osp.join(model_root, f'vertex_subset_{vertex_subset_size}.npz')
         if not osp.exists(subset_path):
-            raise NotImplementedError(
-                f'{subset_path} is missing and mesh decimation is not ported yet '
-                '(ROADMAP Queue 1, item 12)'
-            )
+            from .decimation import decimate
+
+            i_verts, dec_faces = decimate(res['v_template'], res['faces'], vertex_subset_size)
+            np.savez(subset_path, i_verts=i_verts, faces=dec_faces)
         subset_dict = np.load(subset_path)
         vertex_subset = subset_dict['i_verts']
         faces = subset_dict['faces']
@@ -258,7 +258,10 @@ def initialize(
         faces = res['faces']
 
     if joint_regressor_post_lbs is None:
-        joint_regressor_post_lbs = res['J_regressor']
+        # The joints are regressed from the subset's vertices. (The JAX
+        # loader keeps the full regressor for an explicit subset, so its fits
+        # without target joints cannot regress joints from the subset mesh.)
+        joint_regressor_post_lbs = res['J_regressor'][:, vertex_subset]
 
     return ModelData(
         v_template=res['v_template'][vertex_subset],

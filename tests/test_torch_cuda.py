@@ -12,7 +12,9 @@ backward kernels K10, K13 and K14 at MANO, SMPL and SMPL-X widths) the same
 way, and K11 and K12 (every form, unweighted and static ω) over K2's
 cover at MANO, SMPL and SMPL-X widths and dense SMPL-X weights; K3 at SMPL
 and MANO widths with and without the joints block, and K15 in every form
-over a part index with rows in no part.
+over a part index with rows in no part; ``share_beta`` and the ragged fit
+function on the card against the CPU; and every kernel form of the fitting
+paths on a vertex subset with an empty part and V % 32 != 0.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -28,9 +30,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import GRAD_PATHS, backward_pass, grad_path_counts, path_vg, record_calls
+import smplfitter_tpu_torch
+from chip_smoke import (BWD_CAPTURED, CAPTURED, GRAD_PATHS, SPECS, backward_pass, capture_forms,
+                        grad_path_counts, path_vg, record_calls, weighted_fitters)
 from port_on_cpu import port_model_from
-from smplfitter_tpu_torch import BodyFitter, BodyModel, get_fit_grad_fn
+from smplfitter_tpu_torch import BodyFitter, BodyModel, get_cached_fit_fn, get_fit_grad_fn
 from smplfitter_tpu_torch.api import default_loss
 from smplfitter_tpu_torch.ops import lbs_kernels
 from smplfitter_tpu_torch.utils import synthetic
@@ -1097,3 +1101,110 @@ def test_call_weighted_fit_at_32_betas(tmp_path_factory):
     spread = max(_own_spread(lambda a, b: cpu_fitter.fit(a, b, **kw), tv.cpu(), tj.cpu(), cpu),
                  _own_spread(lambda a, b: fitter.fit(a, b, **kw), tv, tj, card))
     assert _max_dbetas(card, cpu) <= max(1e-3, 4 * spread)
+
+
+# ---------------------------------------------------------------------------
+# share_beta, the ragged fit function and vertex subsets
+# ---------------------------------------------------------------------------
+
+
+def _shared_targets(bm, batch, seed):
+    """Targets of one shape in ``batch`` poses."""
+    pose, betas, trans = _params(batch, seed)
+    out = bm(pose, np.repeat(betas[:1], batch, axis=0), trans)
+    return out['vertices'], out['joints']
+
+
+def test_share_beta_card_fit_matches_cpu_fit(card_models):
+    """The SMPL headline fit with share_beta at B=32: the twin's launches,
+    one shape on every row, and the CPU's betas within 1e-3."""
+    bm, fitter = card_models
+    tv, tj = _shared_targets(bm, 32, 7)
+    kw = dict(FIT_KW, share_beta=True)
+    lbs_kernels.reset_launch_counts()
+    card = fitter.fit(tv, tj, **kw)
+    for key in ('rhs_moments_h', 'gram_assembly', 'recon_part_sums_cached'):
+        assert lbs_kernels.LAUNCHES[key] == 3, key
+    assert torch.equal(card['shape_betas'], card['shape_betas'][:1].expand(32, -1))
+    cpu = BodyFitter(port_model_from(bm)).fit(tv.cpu(), tj.cpu(), **kw)
+    assert (card['shape_betas'].cpu() - cpu['shape_betas']).abs().max().item() <= 1e-3
+    for key in ('pose_rotvecs', 'trans'):
+        assert torch.allclose(card[key].cpu(), cpu[key], atol=1e-3), key
+
+
+def test_ragged_card_fit_matches_cpu_fit(tmp_path, monkeypatch):
+    """``get_cached_fit_fn(share_beta=True).ragged`` on sequences of 9, 3 and
+    15 frames (a bucket of 32) on the card and on the CPU: betas within 1e-3,
+    each sequence's results its own length."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    synthetic.write_model_files(str(tmp_path), 'smpl', 1000)
+    monkeypatch.setenv('SMPLFITTER_BODY_MODELS', str(tmp_path))
+    card_fn = get_cached_fit_fn('smpl', share_beta=True, device='cuda')
+    cpu_fn = get_cached_fit_fn('smpl', share_beta=True, device='cpu')
+    bm = BodyModel('smpl', 'neutral', model_root=str(tmp_path / 'smpl'), device='cuda')
+    tv, tj = _shared_targets(bm, 27, 8)
+    cuts = [0, 9, 12, 27]
+    seqs = [(tv[a:b], tj[a:b]) for a, b in zip(cuts[:-1], cuts[1:])]
+    card = card_fn.ragged([s[0] for s in seqs], [s[1] for s in seqs])
+    cpu = cpu_fn.ragged([s[0].cpu() for s in seqs], [s[1].cpu() for s in seqs])
+    assert [len(x) for x in card['shape_betas']] == [9, 3, 15]
+    betas_card, betas_cpu = torch.cat(card['shape_betas']), torch.cat(cpu['shape_betas'])
+    assert torch.equal(betas_card, betas_card[:1].expand(27, -1))
+    assert (betas_card.cpu() - betas_cpu).abs().max().item() <= 1e-3
+    for key in ('pose_rotvecs', 'trans'):
+        assert torch.allclose(torch.cat(card[key]).cpu(), torch.cat(cpu[key]), atol=1e-3), key
+
+
+SUBSET_V = 870  # 870 % 32 = 6, 870 % 256 = 102
+EMPTY_PART = 22  # the left hand, a leaf part
+
+
+@pytest.fixture(scope='module')
+def subset_fitters(tmp_path_factory):
+    """The fitters of a subset of the synthetic SMPL (V = 1000) with no vertex
+    in leaf part EMPTY_PART, as chip_smoke.capture_forms takes them."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    d = str(tmp_path_factory.mktemp('body_models_subset'))
+    synthetic.write_model_files(d, 'smpl', 1000)
+    full = BodyModel('smpl', 'neutral', model_root=d + '/smpl', device='cpu')
+    part = np.argmax(np.asarray(full.model_data.weights), axis=1)
+    subset = np.sort(np.random.default_rng(3).choice(np.nonzero(part != EMPTY_PART)[0],
+                                                     SUBSET_V, replace=False))
+    bm = BodyModel('smpl', 'neutral', model_root=d + '/smpl', vertex_subset=subset,
+                   device='cuda')
+    fitter = BodyFitter(bm)
+    fs = weighted_fitters(smplfitter_tpu_torch, bm, 'smpl', np.random.default_rng(4), fitter)
+    fs['kid'] = BodyFitter(bm, enable_kid=True)
+    part_seg = fitter.plan.part_seg.tolist()
+    assert part_seg[EMPTY_PART + 1] == part_seg[EMPTY_PART]
+    return bm, fs
+
+
+@pytest.mark.parametrize('batch', [1, 33, 4097])
+def test_subset_kernels_at_edges(subset_fitters, batch):
+    """Every kernel form of the fitting paths (K1-K15, the large-F forms on
+    derived operands) on the subset: within REL_TOL of its twin, bit for bit
+    on a repeat, and the rows in no part zero in the backward kernels' target
+    cotangent. At B = 1 the rotation fits take a one-column mesh as a
+    batch-constant reference (one GEMM), so K5 and K15 are held at 33 and
+    4097 only."""
+    bm, fs = subset_fitters
+    rng = np.random.default_rng(batch)
+    params = [torch.as_tensor(x, device='cuda') for x in _params(batch, batch)]
+    kid = torch.as_tensor(rng.normal(0, 0.5, batch).astype(np.float32), device='cuda')
+    vw, jw = (torch.as_tensor(rng.uniform(0.1, 2.0, (batch, n)).astype(np.float32),
+                              device='cuda') for n in (bm.num_vertices, bm.num_joints))
+    required = CAPTURED['smpl'] | BWD_CAPTURED['smpl']
+    if batch == 1:  # a one-column mesh takes the batch-constant reference's GEMM, not K5
+        required -= {'part_sums', 'part_sums_bwd', 'part_sums_bwd_w'}
+    forms = capture_forms(torch, lbs_kernels, bm, fs, params, kid, vw, jw, required)
+    assert not any(lbs_kernels.HOST_COVERS.values())
+    unused = fs['plain'].plan.part_unused.long()
+    for key, calls in forms.items():
+        args, kw = calls[0]
+        got = _hold_all(SPECS[key][0], args, kw, key)
+        if key.startswith(('recon_part_sums_bwd', 'recon_part_sums_cached_bwd', 'part_sums_bwd')):
+            rows = unused[unused < got[0].shape[1]]
+            assert torch.equal(got[0][:, rows], torch.zeros_like(got[0][:, rows])), key

@@ -135,14 +135,12 @@ def test_fit_variants_match_jax(models, targets, num_iter, final_adjust):
 
 
 @pytest.mark.parametrize('option', [
-    'fit_vertex_weights', 'fit_share_beta', 'fit_share_beta_warm_start', 'static_weights',
-    'fit_joint_weights', 'known_pose_share_beta',
+    'fit_vertex_weights', 'static_weights', 'fit_joint_weights', 'known_pose_batch_mask',
 ])
 def test_unported_options_raise(models, targets, option):
-    """share_beta is not ported yet and raises NotImplementedError naming its
-    ROADMAP item. The fit weights are ported; misused (weights of the wrong
-    shape, or per-call weights on a fitter with static ones) they raise
-    ValueError."""
+    """Misused options raise ValueError: fit weights of the wrong shape,
+    per-call weights on a fitter with static ones, a ``batch_mask`` that is
+    not (B,)."""
     bm, fitter = models[2:]
     tv, tj = targets
     batch = tv.shape[0]
@@ -151,17 +149,13 @@ def test_unported_options_raise(models, targets, option):
     calls = {
         'fit_vertex_weights': (ValueError, 'vertex_weights', lambda: fitter.fit(
             tv, tj, vertex_weights=np.ones((batch, V - 1), np.float32))),
-        'fit_share_beta': (NotImplementedError, 'ROADMAP',
-                           lambda: fitter.fit(tv, tj, share_beta=True)),
-        'fit_share_beta_warm_start': (NotImplementedError, 'ROADMAP', lambda: fitter.fit(
-            tv, share_beta=True, initial_shape_betas=np.zeros((batch, 10), np.float32))),
         'static_weights': (ValueError, 'vertex_weights', lambda: smplfitter_tpu_torch.BodyFitter(
             bm, vertex_weights=np.ones(V + 1, np.float32))),
         'fit_joint_weights': (ValueError, 'static', lambda: smplfitter_tpu_torch.BodyFitter(
             bm, joint_weights=np.ones(J, np.float32)).fit(
                 tv, tj, joint_weights=np.ones((batch, J), np.float32))),
-        'known_pose_share_beta': (NotImplementedError, 'ROADMAP',
-                                  lambda: fitter.fit_with_known_pose(pose, tv, share_beta=True)),
+        'known_pose_batch_mask': (ValueError, 'batch_mask', lambda: fitter.fit_with_known_pose(
+            pose, tv, share_beta=True, batch_mask=np.ones((batch, 1), np.float32))),
     }
     error, match, call = calls[option]
     with pytest.raises(error, match=match):

@@ -148,10 +148,3 @@ def test_fit_scale_and_translation_matches_jax(setup, scale):
         assert ours.keys() == theirs.keys()
         for key in ours:
             np.testing.assert_allclose(_np(ours[key]), _np(theirs[key]), atol=1e-5, rtol=0)
-
-
-def test_known_shape_kid_without_kid_column_raises(setup):
-    fitter = setup[1][False][1]
-    params, tv = setup[2], setup[3]
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fitter.fit_with_known_shape(params['betas'], tv, kid_factor=params['kid'])

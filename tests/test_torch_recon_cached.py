@@ -21,8 +21,8 @@ tests hold:
 - (c) the wrappers' checks with ``_on_cuda`` patched to True and a stand-in
   library (nothing launches): E > 32 refused by both, J = 55 taken by K13,
   and the run plan K13 passes (``_segment_runs`` over the index's tiles);
-- that a model loaded with ``vertex_subset_size`` and no subset file raises
-  ``NotImplementedError`` naming ROADMAP Queue 1, item 12.
+- that a model loaded with ``vertex_subset_size`` and no subset file
+  decimates the template, writes ``vertex_subset_{n}.npz`` and loads it.
 """
 
 from __future__ import annotations
@@ -419,7 +419,14 @@ def test_k13_takes_55_joints_and_its_run_plan(k4_calls, on_card, batch):
 # ---------------------------------------------------------------------------
 
 
-def test_missing_vertex_subset_names_its_roadmap_item(tmp_path):
+def test_missing_vertex_subset_is_decimated_and_written(tmp_path):
     synthetic.write_model_files(str(tmp_path), 'smpl', 200)
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1, item 12'):
-        modeldata.initialize('smpl', 'neutral', str(tmp_path / 'smpl'), vertex_subset_size=64)
+    root = str(tmp_path / 'smpl')
+    data = modeldata.initialize('smpl', 'neutral', root, vertex_subset_size=64)
+    written = np.load(f'{root}/vertex_subset_64.npz')
+    np.testing.assert_array_equal(data.vertex_subset, written['i_verts'])
+    np.testing.assert_array_equal(data.faces, written['faces'])
+    assert data.num_vertices == 64 and data.weights.shape == (64, 24)
+    # A second load reads the file.
+    again = modeldata.initialize('smpl', 'neutral', root, vertex_subset_size=64)
+    np.testing.assert_array_equal(again.vertex_subset, data.vertex_subset)
