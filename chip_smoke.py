@@ -121,7 +121,23 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     cached forms and K12 on derived operands) held to its twin, bit for bit
     on a repeat where REPEAT_KEYS say so, at B=4096 and 1000, with the rows in
     no part zero in the backward kernels' target cotangent; and both subsets'
-    headline fits at B=32 against the CPU.
+    headline fits at B=32 against the CPU;
+18. the applications on the synthetic full environment (the models with the
+    SMPL <-> SMPL-X deftrafo pickles, the SMPL-X flip correspondences and
+    hand vertex ids, written beside the build): the host time of each
+    construction (the Hungarian mirror assignments timed alone); at B=4096
+    on 4 input sets ``BodyConverter.convert`` SMPL -> SMPL-X and back (free
+    route, one iteration), ``BodyFlipper(smplx).flip``,
+    ``HandReplacer.replace_hand`` and ``BodyFitterOpt(smpl).fit`` with 60
+    Adam steps, each with its kernel launches per call asserted
+    (APP_LAUNCHES: the refiner one K1 and one K10 per step, no torch-op
+    backward pass), fits/s and device launches, and the refiner's ms per
+    step and peak memory; then at B=32 on the card against the CPU
+    (app_parity): the converter's three routes with and without a kid
+    factor both ways, the SMPL flip with and without kid, the 10-step
+    ``BodyFlipperOpt`` and ``BodyFitterOpt`` and ``replace_hand`` (SMPL
+    outputs under the gate of phase 6, the SMPL-X, SMPL+H and refined ones
+    under the spread rule of phase 10, refined losses within 1e-4).
 
 It prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -501,6 +517,29 @@ SUBSET_SIZE = 1024
 SUBSET_BATCH = 16384
 EDGE_SUBSET_V = 6000
 EMPTY_PART = 22
+
+# The applications (phase 18) on the synthetic full environment: each call's
+# kernel launches, from the code (the input model's forward pass, then the
+# fit; on SMPL-X the Gramian streams through K8, and a fit without target
+# joints makes its mesh by K1 after the last solve). The converters run the
+# free route with num_iter=1; the flipper path (b)'s fit; the hand replacer
+# path (i)'s fit and one forward pass; the refiner a closed-form fit of
+# target vertices and joints (no final adjustment) and one K1 and one K10 per
+# Adam step, no torch-op backward pass.
+REFINE_STEPS = 60
+REFINE_LR = 0.01
+PARITY_REFINE_STEPS = 10
+N_REFINE_TARGETS = 2
+REFINE_FIT_KW = dict(num_iter=3, beta_regularizer=1.0)
+LOSS_REL = 1e-4  # the refined loss, card vs CPU
+APP_LAUNCHES = {
+    'convert smpl->smplx': dict(X_SOLVES, lbs_points=2),
+    'convert smplx->smpl': dict(rhs_moments=1, gram_assembly=1, lbs_points=2),
+    'flip smplx': _per_solve(1, part_sums=2, lbs_points=3),
+    'replace_hand smplh16': dict(WPATHS['i_hand_replacer']['launches'], lbs_points=4),
+    'refine smpl': dict(rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=2,
+                        lbs_points=REFINE_STEPS, lbs_points_bwd=REFINE_STEPS),
+}
 
 
 def large_f_forms(torch, lbs_kernels, calls) -> dict:
@@ -1617,6 +1656,304 @@ def time_value_grad(torch, lbs_kernels, name, bm_g, fit_fn, vg, per_grad, vjps, 
     return launches
 
 
+def time_app(torch, lbs_kernels, label, call, arg_sets, per_call, smi, total_launches) -> float:
+    """Phase 18: an application's call on each argument set at B=BATCH
+    between CUDA events after a warm-up, its kernel launches per call
+    asserted (no torch-op backward pass, no cover built on the host), its
+    outputs finite; logs fits/s and device launches per call
+    (torch.profiler); returns the device ms per call."""
+    call(*arg_sets[0])
+    torch.cuda.synchronize()
+    lbs_kernels.reset_launch_counts()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    outs = [call(*args) for args in arg_sets]
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    n = len(arg_sets)
+    check_launches(dict(lbs_kernels.LAUNCHES), per_call, n, label)
+    check_launches(dict(lbs_kernels.TORCH_VJPS), {}, n, f'{label} (torch-op backward passes)')
+    check_host_covers(lbs_kernels, label)
+    for key in total_launches:
+        total_launches[key] += lbs_kernels.LAUNCHES[key]
+    for out in outs:
+        for key, value in (out.items() if isinstance(out, dict) else (('vertices', out),)):
+            if value.shape[0] != BATCH or not torch.isfinite(value).all():
+                raise AssertionError(f'{label} output {key}: shape {tuple(value.shape)} or '
+                                     'not finite')
+    del outs
+    ms = start.elapsed_time(end) / n
+    n_dev = device_launches(torch, lambda: call(*arg_sets[0]))
+    log(f'{label}: {BATCH / (ms / 1e3):.1f} fits/s ({ms:.2f} ms per B={BATCH} call on CUDA '
+        f'events, mean of {n}; {host_s / n * 1e3:.2f} ms host), {n_dev} device launches per '
+        f'call, kernel-wrapper launches per call {json.dumps(per_call)} on {smi}')
+    return ms
+
+
+def params_v2v_mm(bm_cpu, res, target, known=None) -> float:
+    """Mean distance (mm) of the CPU model's mesh of an application's result
+    (with the known pose or shape filled in) to the CPU target vertices."""
+    p = dict(known or {}, **{k: v.cpu() for k, v in res.items()})
+    out = bm_cpu(p['pose_rotvecs'], p['shape_betas'], p['trans'], p.get('kid_factor'))
+    return (out['vertices'] - target).norm(dim=-1).mean().item() * 1e3
+
+
+def app_parity(name, run, apps, inputs, keys, failures, spread_rule, v2v=None,
+               loss=None) -> None:
+    """An application at B=PARITY_BATCH on the card and on the CPU:
+    ``run(app, *inputs)`` -> a dict. The outputs ``keys`` within PARITY_DBETA
+    and ``v2v(result)`` (mean reconstruction error, mm) within PARITY_V2V_MM;
+    with ``spread_rule`` within the larger of those and SPREAD_MULT x the
+    output's own spread (its largest change over NOISE_SEEDS seeded changes
+    of the inputs by a factor 1 + NOISE_REL N(0, 1), on the CPU and on the
+    card); ``loss(result)`` within LOSS_REL. A miss is appended to
+    ``failures``."""
+    import torch
+
+    card_app, cpu_app = apps
+    dev = next(x.device for x in inputs if x is not None)
+    cpu_inputs = tuple(None if x is None else x.cpu() for x in inputs)
+    card, cpu = run(card_app, *inputs), run(cpu_app, *cpu_inputs)
+
+    def gaps(a, b):
+        return {k: (a[k].cpu() - b[k].cpu()).abs().max().item() for k in keys if k in b}
+
+    gap = gaps(card, cpu)
+    limits = {k: PARITY_DBETA for k in gap}
+    v2v_gap = None if v2v is None else abs(v2v(card) - v2v(cpu))
+    v2v_limit = PARITY_V2V_MM
+    spread = ''
+    if spread_rule:
+        own = {k: 0.0 for k in gap}
+        own_v2v = 0.0
+        for seed in range(NOISE_SEEDS):
+            g = torch.Generator().manual_seed(SEED + seed)
+            noisy = tuple(None if x is None else x * (1 + NOISE_REL * torch.randn(x.shape,
+                                                                                  generator=g))
+                          for x in cpu_inputs)
+            on_card = tuple(None if x is None else x.to(dev) for x in noisy)
+            for app, base, args in ((cpu_app, cpu, noisy), (card_app, card, on_card)):
+                res = run(app, *args)
+                for k, d in gaps(res, base).items():
+                    own[k] = max(own[k], d)
+                if v2v is not None:
+                    own_v2v = max(own_v2v, abs(v2v(res) - v2v(base)))
+        limits = {k: max(PARITY_DBETA, SPREAD_MULT * own[k]) for k in gap}
+        v2v_limit = max(PARITY_V2V_MM, SPREAD_MULT * own_v2v)
+        spread = (f'; limits from the own spread over {NOISE_SEEDS} input changes x (1 + '
+                  f'{NOISE_REL:g} N) x {SPREAD_MULT}: '
+                  + ', '.join(f'{k} {limits[k]:.3e}' for k in gap)
+                  + ('' if v2v is None else f', v2v {v2v_limit:.4f} mm'))
+    ok = all(gap[k] <= limits[k] for k in gap) and all(
+        torch.isfinite(v).all().item() for v in card.values())
+    line = ', '.join(f'{k} {d:.3e}' for k, d in gap.items())
+    if v2v_gap is not None:
+        ok = ok and v2v_gap <= v2v_limit
+        line += f'; v2v card {v2v(card):.4f} mm cpu {v2v(cpu):.4f} mm'
+    if loss is not None:
+        loss_card, loss_cpu = loss(card), loss(cpu)
+        ok = ok and abs(loss_card - loss_cpu) <= LOSS_REL * loss_cpu
+        line += f'; loss card {loss_card:.7f} cpu {loss_cpu:.7f} (limit {LOSS_REL:g} relative)'
+    plain = all(d <= PARITY_DBETA for d in gap.values())
+    log(f'{name}: ok={ok} max|card - cpu|: {line} ({PARITY_DBETA:g} '
+        f'{"held" if plain else "missed"}){spread}')
+    if not ok:
+        failures.append(name)
+
+
+def refine_loss(bm_cpu, res, tv, tj=None, beta_regularizer=REFINE_FIT_KW['beta_regularizer']):
+    """The refiner's loss of a result on the CPU model (rotation vectors
+    through relative rotations)."""
+    p = {k: v.cpu() for k, v in res.items()}
+    out = bm_cpu(p['pose_rotvecs'], p['shape_betas'], p['trans'], p.get('kid_factor'))
+    loss = (out['vertices'] - tv).norm(dim=-1).mean()
+    if tj is not None:
+        loss = loss + (out['joints'] - tj).norm(dim=-1).mean()
+    return (loss + beta_regularizer * (p['shape_betas'][:, 2:] ** 2).mean()).item()
+
+
+def phase_apps(torch, port, lbs_kernels, apps_dir, dev, rng, kid_rng, smi, failures,
+               total_launches) -> None:
+    """Phase 18: the applications at full width on the synthetic full
+    environment ``apps_dir`` (a directory named body_models): their
+    construction's host time, each at B=BATCH with its launches asserted,
+    and card against CPU at B=PARITY_BATCH."""
+    from smplfitter_tpu_torch.models import bodyflipper
+    from smplfitter_tpu_torch.utils import modeldata
+
+    log(f'== phase 18: applications (converter, flipper, hand replacer, Adam refiners), '
+        f'B={BATCH}, {N_NEW_TARGETS} distinct input sets; B={PARITY_BATCH} card vs CPU')
+    t_phase = time.perf_counter()
+    os.environ['SMPLFITTER_BODY_MODELS'] = apps_dir
+    os.environ['DATA_ROOT'] = os.path.dirname(apps_dir)
+    bms = {n: port.BodyModel(n, 'neutral', device=dev) for n in ('smpl', 'smplx', 'smplh16')}
+    cpu_bms = {n: port.BodyModel.from_model_data(bm.model_data, n, device='cpu')
+               for n, bm in bms.items()}
+
+    # Host time of each construction; the Hungarian mirror assignments timed alone.
+    host = {}
+    hungarian = []
+    mapping = bodyflipper.get_mirror_mapping
+
+    def timed_mapping(points):
+        t = time.perf_counter()
+        out = mapping(points)
+        hungarian.append((len(points), time.perf_counter() - t))
+        return out
+
+    def timed(label, make):
+        t = time.perf_counter()
+        obj = make()
+        torch.cuda.synchronize()
+        host[label] = time.perf_counter() - t
+        return obj
+
+    for name in ('smpl2smplx', 'smplx2smpl'):
+        timed(f'load {name} deftrafo', lambda: modeldata.load_vertex_converter_csr(
+            os.path.join(apps_dir, f'{name}_deftrafo_setup.pkl')))
+    hand_pose = rng.normal(0, 0.2, (3 * MODELS['smplh16'][0],)).astype(np.float32)
+    bodyflipper.get_mirror_mapping = timed_mapping
+    try:
+        apps = dict(
+            conv_sx=timed('BodyConverter(smpl, smplx)',
+                          lambda: port.BodyConverter(bms['smpl'], bms['smplx'])),
+            conv_xs=timed('BodyConverter(smplx, smpl)',
+                          lambda: port.BodyConverter(bms['smplx'], bms['smpl'])),
+            flip_x=timed('BodyFlipper(smplx)', lambda: port.BodyFlipper(bms['smplx'])),
+            flip_opt=timed('BodyFlipperOpt(smpl)', lambda: port.BodyFlipperOpt(bms['smpl'])),
+            hand=timed('HandReplacer(smplh16)',
+                       lambda: port.HandReplacer(hand_pose, bms['smplh16'])),
+            opt=timed('BodyFitterOpt(smpl)', lambda: port.BodyFitterOpt(bms['smpl'])))
+        cpu_apps = dict(
+            conv_sx=timed('cpu BodyConverter(smpl, smplx)',
+                          lambda: port.BodyConverter(cpu_bms['smpl'], cpu_bms['smplx'])),
+            conv_xs=timed('cpu BodyConverter(smplx, smpl)',
+                          lambda: port.BodyConverter(cpu_bms['smplx'], cpu_bms['smpl'])),
+            flip_opt=timed('cpu BodyFlipperOpt(smpl)',
+                           lambda: port.BodyFlipperOpt(cpu_bms['smpl'])),
+            hand=timed('cpu HandReplacer(smplh16)',
+                       lambda: port.HandReplacer(hand_pose, cpu_bms['smplh16'])),
+            opt=timed('cpu BodyFitterOpt(smpl)', lambda: port.BodyFitterOpt(cpu_bms['smpl'])))
+    finally:
+        bodyflipper.get_mirror_mapping = mapping
+    log('host time of the constructions: ' + ', '.join(f'{k} {v:.2f} s' for k, v in host.items()))
+    log('Hungarian get_mirror_mapping (dense cdist + linear_sum_assignment): ' + ', '.join(
+        f'{n} points {t:.2f} s' for n, t in hungarian))
+
+    def input_sets(model, n, batch):
+        return [tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, batch, model))
+                + (torch.as_tensor(kid_factors(kid_rng, batch), device=dev),)
+                for _ in range(n)]
+
+    # At B=BATCH, each call's launches asserted.
+    timing = [
+        ('convert smpl->smplx', lambda p, *_: apps['conv_sx'].convert(*p[:3], num_iter=1),
+         'smpl'),
+        ('convert smplx->smpl', lambda p, *_: apps['conv_xs'].convert(*p[:3], num_iter=1),
+         'smplx'),
+        ('flip smplx', lambda p, *_: apps['flip_x'].flip(*p[:3]), 'smplx'),
+    ]
+    for label, call, model in timing:
+        time_app(torch, lbs_kernels, label, call,
+                 [(p,) for p in input_sets(model, N_NEW_TARGETS, BATCH)], APP_LAUNCHES[label],
+                 smi, total_launches)
+    hand_targets = [(bms['smplh16'](*p[:3])['vertices'],)
+                    for p in input_sets('smplh16', N_NEW_TARGETS, BATCH)]
+    time_app(torch, lbs_kernels, 'replace_hand smplh16', apps['hand'].replace_hand,
+             hand_targets, APP_LAUNCHES['replace_hand smplh16'], smi, total_launches)
+    del hand_targets
+    refine_targets = []
+    for p in input_sets('smpl', N_REFINE_TARGETS, BATCH):
+        out = bms['smpl'](*p[:3])
+        refine_targets.append((out['vertices'], out['joints']))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    refine_ms = time_app(
+        torch, lbs_kernels, 'refine smpl',
+        lambda tv, tj: apps['opt'].fit(tv, tj, refine_steps=REFINE_STEPS, refine_lr=REFINE_LR,
+                                       **REFINE_FIT_KW),
+        refine_targets, APP_LAUNCHES['refine smpl'], smi, total_launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    fit_ms = time_ms(torch, lambda tv, tj: apps['opt'].fitter.fit(
+        tv, tj, final_adjust_rots=False, requested_keys=('pose_rotvecs', 'shape_betas', 'trans'),
+        **REFINE_FIT_KW), refine_targets)
+    log(f'refine smpl: {(refine_ms - fit_ms) / REFINE_STEPS:.3f} ms per Adam step (a call '
+        f'{refine_ms:.2f} ms against its closed-form fit alone {fit_ms:.2f} ms, {REFINE_STEPS} '
+        f'steps, lr {REFINE_LR:g}), peak memory {peak_gib:.2f} GiB on {smi}')
+    del refine_targets
+    torch.cuda.empty_cache()
+
+    # Card against CPU at B=PARITY_BATCH.
+    routes = ('free', 'known_shape', 'known_pose')
+    for key, m_in, m_out in (('conv_sx', 'smpl', 'smplx'), ('conv_xs', 'smplx', 'smpl')):
+        pose, betas, trans, kid = input_sets(m_in, 1, PARITY_BATCH)[0]
+        out_pose, out_betas, _, out_kid = input_sets(m_out, 1, PARITY_BATCH)[0]
+        cpu_bm = cpu_bms[m_out]
+        for route in routes:
+            for with_kid in (False, True):
+                known = dict(free=(), known_pose=(out_pose,),
+                             known_shape=(out_betas, out_kid if with_kid else None))[route]
+
+                def run(conv, pose, betas, trans, kid, *known, route=route, with_kid=with_kid):
+                    extra = {}
+                    if route == 'known_shape':
+                        extra = dict(known_output_shape_betas=known[0],
+                                     known_output_kid_factor=known[1])
+                    elif route == 'known_pose':
+                        extra = dict(known_output_pose_rotvecs=known[0])
+                    return conv.convert(pose, betas, trans, kid if with_kid else None,
+                                        num_iter=1, **extra)
+
+                target = cpu_apps[key].convert_vertices(cpu_bms[m_in](
+                    pose.cpu(), betas.cpu(), trans.cpu(), kid.cpu() if with_kid else None)[
+                        'vertices'])
+                names = dict(free=(), known_pose=('pose_rotvecs',),
+                             known_shape=('shape_betas', 'kid_factor'))[route]
+                known_cpu = {k: v.cpu() for k, v in zip(names, known) if v is not None}
+                app_parity(f'convert {m_in}->{m_out} {route}{" kid" if with_kid else ""}',
+                           run, (apps[key], cpu_apps[key]), (pose, betas, trans, kid, *known),
+                           ('shape_betas', 'kid_factor'), failures, spread_rule=m_out != 'smpl',
+                           v2v=lambda r, t=target, k=known_cpu, b=cpu_bm: params_v2v_mm(b, r, t,
+                                                                                       k))
+
+    pose, betas, trans, kid = input_sets('smpl', 1, PARITY_BATCH)[0]
+    flip_target = cpu_apps['flip_opt'].flipper.flip_vertices(
+        cpu_bms['smpl'](pose.cpu(), betas.cpu(), trans.cpu())['vertices'])
+    for with_kid in (False, True):
+        app_parity(f'flip smpl{" kid" if with_kid else ""}',
+                   lambda fo, *p, k=with_kid: fo.flipper.flip(*p[:3], p[3] if k else None),
+                   (apps['flip_opt'], cpu_apps['flip_opt']), (pose, betas, trans, kid),
+                   ('shape_betas', 'kid_factor'), failures, spread_rule=False,
+                   v2v=lambda r: params_v2v_mm(cpu_bms['smpl'], r, flip_target))
+    app_parity(f'flip smpl refined, {PARITY_REFINE_STEPS} steps',
+               lambda fo, *p: fo.flip(*p, refine_steps=PARITY_REFINE_STEPS, refine_lr=REFINE_LR),
+               (apps['flip_opt'], cpu_apps['flip_opt']), (pose, betas, trans),
+               ('pose_rotvecs', 'shape_betas', 'trans', 'kid_factor'), failures,
+               spread_rule=True,
+               loss=lambda r: refine_loss(cpu_bms['smpl'], r, flip_target, beta_regularizer=1e-2))
+
+    p = input_sets('smplh16', 1, PARITY_BATCH)[0]
+    hand_tv = bms['smplh16'](*p[:3])['vertices'].contiguous()
+    app_parity('replace_hand smplh16', lambda h, v: dict(vertices=h.replace_hand(v)),
+               (apps['hand'], cpu_apps['hand']), (hand_tv,), ('vertices',), failures,
+               spread_rule=True)
+
+    p = input_sets('smpl', 1, PARITY_BATCH)[0]
+    out = bms['smpl'](*p[:3])
+    tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+    app_parity(f'refine smpl, {PARITY_REFINE_STEPS} steps',
+               lambda o, tv, tj: o.fit(tv, tj, refine_steps=PARITY_REFINE_STEPS,
+                                       refine_lr=REFINE_LR, **REFINE_FIT_KW),
+               (apps['opt'], cpu_apps['opt']), (tv, tj), ('pose_rotvecs', 'shape_betas', 'trans'),
+               failures, spread_rule=True,
+               loss=lambda r: refine_loss(cpu_bms['smpl'], r, tv.cpu(), tj.cpu()))
+    check_host_covers(lbs_kernels, 'phase 18')
+    log(f'phase 18 took {time.perf_counter() - t_phase:.1f} s')
+
+
 def main() -> int:
     import torch
 
@@ -1656,9 +1993,14 @@ def main() -> int:
         if any(key in line for key in ('Compiling entry', 'Used', 'spill stores')):
             log('  ' + line.strip())
 
-    # The synthetic models live beside the build, inside the checkout.
-    models_dir = synthetic.ensure_cached_models(
-        os.path.join(_build.BUILD_ROOT, 'synthetic_models'))
+    # The synthetic models and the applications' assets (phase 18) live
+    # beside the build, inside the checkout, in a directory named as the
+    # applications find it ($DATA_ROOT/body_models).
+    t0 = time.perf_counter()
+    models_dir = synthetic.ensure_cached_models(os.path.join(_build.BUILD_ROOT, 'body_models'),
+                                                full=True)
+    log(f'synthetic full environment (models, deftrafo pickles, SMPL-X flip correspondences, '
+        f'hand vertex ids) in {time.perf_counter() - t0:.1f} s')
 
     def load(name, kid=False):
         bm = port.BodyModel(name, 'neutral', model_root=os.path.join(models_dir, name),
@@ -2293,6 +2635,12 @@ def main() -> int:
                (port.BodyFitter(cpu_bm_s), None), bm_s, tv, tj, params, failures)
     check_host_covers(lbs_kernels, 'phase 17')
     log(f'phase 17 took {time.perf_counter() - t_phase:.1f} s')
+    del bm_d, bm_e, fitter_d, fitter_e, fitter_e_kid, wfitters_e, fs_e
+    torch.cuda.empty_cache()
+
+    # 18. The applications.
+    phase_apps(torch, port, lbs_kernels, models_dir, dev, rng, kid_rng, smi, failures,
+               total_launches)
     if failures:
         raise AssertionError(f'the card disagrees with the CPU on: {failures}')
 

@@ -1,9 +1,119 @@
-"""Small batched SPD solve, ported from ``smplfitter_tpu.ops.lstsq``."""
+"""Batched least squares on normal equations and the small unrolled SPD
+solve, ported from ``smplfitter_tpu.ops.lstsq``.
+
+:func:`lstsq`, :func:`normal_equations`, :func:`cholesky_solve` and
+:func:`lstsq_partial_share` are the public batch-major least-squares API
+(design matrices (B, N, P)); the fits run their own lane-major solves
+(:func:`solve_spd_unrolled`, ``shape_gram``). The Gramians are f32 products
+(no TF32: ``ops.precision``) and the factorizations ``torch.linalg.cholesky``.
+"""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch.autograd.function import once_differentiable
+
+
+def batch_reduce_sum(x: torch.Tensor, axis=0, keepdims: bool = False) -> torch.Tensor:
+    """Sum over the batch axis (the JAX package completes it across devices
+    under sharding; the port runs on one device)."""
+    return torch.sum(x, dim=axis, keepdim=keepdims)
+
+
+def normal_equations(matrix: torch.Tensor, rhs: torch.Tensor, weights: torch.Tensor,
+                     ridge: Optional[torch.Tensor] = None,
+                     ridge_rhs: Optional[torch.Tensor] = None):
+    """The normal equations of a weighted least-squares system: the Gramian
+    ``A^T W A`` (..., P, P) and the moment ``A^T W b`` (..., P, K); ``ridge``
+    (P,) adds a Tikhonov diagonal and ``ridge_rhs`` a term to the moment."""
+    row_scaled = matrix * weights[..., None]
+    gram = torch.einsum('...ji,...jk->...ik', row_scaled, matrix)
+    moment = torch.einsum('...ji,...jk->...ik', row_scaled, rhs)
+    if ridge is not None:
+        gram = gram + torch.diag(ridge)
+    if ridge_rhs is not None:
+        moment = moment + ridge_rhs
+    return gram, moment
+
+
+def cholesky_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve ``(L L^T) x = rhs`` given the lower Cholesky factor, batched."""
+    return torch.cholesky_solve(rhs, chol, upper=False)
+
+
+def lstsq(matrix: torch.Tensor, rhs: torch.Tensor, weights: torch.Tensor,
+          l2_regularizer: Optional[torch.Tensor] = None,
+          l2_regularizer_rhs: Optional[torch.Tensor] = None,
+          shared: bool = False) -> torch.Tensor:
+    """Solve ``argmin_x ||sqrt(w) (matrix @ x - rhs)||^2 + x^T diag(l2) x - 2 x^T l2_rhs``.
+
+    ``matrix`` (B, N, P), ``rhs`` (B, N, K), ``weights`` (B, N),
+    ``l2_regularizer`` (P,), ``l2_regularizer_rhs`` (B, P, K). With
+    ``shared`` the Gramian and moment are summed over the batch: one
+    solution (1, P, K) for all instances; else (B, P, K).
+    """
+    gram, moment = normal_equations(matrix, rhs, weights, l2_regularizer, l2_regularizer_rhs)
+    if shared:
+        gram = batch_reduce_sum(gram, axis=0, keepdims=True)
+        moment = batch_reduce_sum(moment, axis=0, keepdims=True)
+    return cholesky_solve(torch.linalg.cholesky(gram), moment)
+
+
+def lstsq_partial_share(matrix: torch.Tensor, rhs: torch.Tensor, weights: torch.Tensor,
+                        l2_regularizer: torch.Tensor,
+                        l2_regularizer_rhs: Optional[torch.Tensor] = None,
+                        n_shared: int = 0,
+                        batch_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batch least squares whose first ``n_shared`` parameters are shared by
+    the batch, by Schur-complement elimination on the partitioned normal
+    equations: each instance eliminates its independent block, the (S, S)
+    Schur complements and their moments are summed over the batch, and the
+    independent parameters are recovered by back substitution. The Tikhonov
+    diagonal applies per instance, ``l2_regularizer_rhs`` enters scaled by
+    the regularizer. ``batch_mask`` (B,) zeroes instances' contributions to
+    the shared sums, so padding instances leave the shared solution as it
+    is. Returns (B, P, K).
+    """
+    n_params = matrix.shape[-1]
+    n_out = rhs.shape[-1]
+    batch = matrix.shape[0]
+    pull = None if l2_regularizer_rhs is None else l2_regularizer[:, None] * l2_regularizer_rhs
+    gram, moment = normal_equations(matrix, rhs, weights, l2_regularizer, pull)
+
+    if n_params == n_shared:
+        if batch_mask is not None:
+            gram = gram * batch_mask[:, None, None]
+            moment = moment * batch_mask[:, None, None]
+        gram = batch_reduce_sum(gram, axis=0, keepdims=True)
+        moment = batch_reduce_sum(moment, axis=0, keepdims=True)
+        result = cholesky_solve(torch.linalg.cholesky(gram), moment)
+        return result.expand(batch, n_params, n_out)
+
+    g_ss = gram[..., :n_shared, :n_shared]
+    g_si = gram[..., :n_shared, n_shared:]
+    g_ii = gram[..., n_shared:, n_shared:]
+    m_s = moment[..., :n_shared, :]
+    m_i = moment[..., n_shared:, :]
+
+    # Local elimination of the independent block, for coupling and moment at once.
+    eliminated = cholesky_solve(torch.linalg.cholesky(g_ii),
+                                torch.cat([g_si.transpose(-1, -2), m_i], dim=-1))
+    pivot_s = eliminated[..., :n_shared]  # Gii^-1 Gis, (B, I, S)
+    pivot_k = eliminated[..., n_shared:]  # Gii^-1 bi, (B, I, K)
+
+    schur_contrib = g_ss - g_si @ pivot_s
+    moment_contrib = m_s - g_si @ pivot_k
+    if batch_mask is not None:
+        schur_contrib = schur_contrib * batch_mask[:, None, None]
+        moment_contrib = moment_contrib * batch_mask[:, None, None]
+    schur = batch_reduce_sum(schur_contrib, axis=0, keepdims=True)
+    schur_moment = batch_reduce_sum(moment_contrib, axis=0, keepdims=True)
+    x_shared = cholesky_solve(torch.linalg.cholesky(schur), schur_moment)  # (1, S, K)
+
+    x_indep = pivot_k - pivot_s @ x_shared
+    return torch.cat([x_shared.expand(batch, n_shared, n_out), x_indep], dim=1)
 
 
 def solve_spd_unrolled(G: torch.Tensor, rhs: torch.Tensor, eps: float = 1e-30) -> torch.Tensor:

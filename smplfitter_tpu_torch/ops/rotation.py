@@ -5,7 +5,10 @@ data-dependent Python control flow), so one code path serves every batch.
 The SO(3) projection carries the JAX package's closed-form VJP; the rest is
 differentiated by autograd. Rotations in the fit pipeline are "lane-major": ``(9, N, B)`` entry
 arrays (row-major entries leading) and ``(3, N, B)`` vectors, matching the
-layouts the kernels read and write.
+layouts the kernels read and write. The batch-major functions, on (..., 3, 3)
+matrices and (..., 3) vectors, are layout adapters over the lane-major cores
+where one exists; the 6D representation (:func:`rot6d_to_rotmat`) is the
+Adam refiner's parametrization.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ from torch.autograd.function import once_differentiable
 __all__ = [
     'divide_no_nan',
     'rotvec2mat',
+    'mat2rotvec',
+    'proj_SO3',
+    'kabsch',
     'matmul3x3',
     'matvec3',
     'proj_SO3_lm',
@@ -25,6 +31,10 @@ __all__ = [
     'rotvec2mat_lm',
     'mat2rotvec_lm',
     'align_unit_vectors_lm',
+    'align_unit_vectors',
+    'project_onto_plane',
+    'rot6d_to_rotmat',
+    'rotmat_to_rot6d',
 ]
 
 
@@ -40,6 +50,54 @@ def rotvec2mat(rotvec: torch.Tensor) -> torch.Tensor:
     """(..., 3) rotation vectors -> (..., 3, 3) matrices (via :func:`rotvec2mat_lm`)."""
     R9 = rotvec2mat_lm(torch.movedim(rotvec, -1, 0))
     return torch.movedim(R9, 0, -1).reshape(*rotvec.shape[:-1], 3, 3)
+
+
+def mat2rotvec(rotmat: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices -> (..., 3) rotation vectors (via :func:`mat2rotvec_lm`)."""
+    flat = rotmat.reshape(*rotmat.shape[:-2], 9)
+    return torch.movedim(mat2rotvec_lm(torch.movedim(flat, -1, 0)), 0, -1)
+
+
+def proj_SO3(A: torch.Tensor) -> torch.Tensor:
+    """Closest rotation (Frobenius norm) to each (..., 3, 3) matrix: a layout
+    adapter over :func:`proj_SO3_lm`, with its closed-form VJP."""
+    flat = A.reshape(*A.shape[:-2], 9)
+    R9 = proj_SO3_lm(torch.movedim(flat, -1, 0).contiguous())
+    return torch.movedim(R9, 0, -1).reshape(A.shape)
+
+
+def kabsch(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Optimal rotation aligning point sets (..., N, 3): proj_SO3(X^T Y)."""
+    return proj_SO3(X.transpose(-1, -2) @ Y)
+
+
+def align_unit_vectors(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) mapping unit vectors a -> b (..., 3) (via
+    :func:`align_unit_vectors_lm`); parallel vectors give the identity."""
+    R9 = align_unit_vectors_lm(torch.movedim(a, -1, 0), torch.movedim(b, -1, 0))
+    return torch.movedim(R9, 0, -1).reshape(*R9.shape[1:], 3, 3)
+
+
+def project_onto_plane(v: torch.Tensor, n_hat: torch.Tensor) -> torch.Tensor:
+    """Component of ``v`` perpendicular to the unit vector ``n_hat`` (broadcasts)."""
+    return v - (v * n_hat).sum(dim=-1, keepdim=True) * n_hat
+
+
+def rot6d_to_rotmat(rot6d: torch.Tensor) -> torch.Tensor:
+    """6D rotation representation (..., 6) -> rotation matrix (..., 3, 3) by
+    Gram-Schmidt: the two 3-vectors become the first two columns."""
+    a1 = rot6d[..., :3]
+    a2 = rot6d[..., 3:6]
+    b1 = a1 / (torch.linalg.norm(a1, dim=-1, keepdim=True) + 1e-8)
+    b2 = a2 - (b1 * a2).sum(dim=-1, keepdim=True) * b1
+    b2 = b2 / (torch.linalg.norm(b2, dim=-1, keepdim=True) + 1e-8)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def rotmat_to_rot6d(rotmat: torch.Tensor) -> torch.Tensor:
+    """First two columns of a rotation matrix, concatenated (..., 6)."""
+    return torch.cat([rotmat[..., :, 0], rotmat[..., :, 1]], dim=-1)
 
 
 def matmul3x3(a: torch.Tensor, b: torch.Tensor, transpose_b: bool = False,

@@ -282,6 +282,43 @@ def initialize(
     )
 
 
+def load_pickle(path: str):
+    with open(path, 'rb') as f, scipy_sparse_forward_compat():
+        return pickle.load(f, encoding='latin1')
+
+
+def load_vertex_converter_csr(vertex_converter_path: str):
+    """Load a barycentric vertex-transfer sparse matrix (scipy CSR).
+
+    The stored matrix has twice the needed columns; only the left half is used.
+    """
+    scipy_csr = load_pickle(vertex_converter_path)['mtx'].tocsr().astype(np.float32)
+    return scipy_csr[:, : scipy_csr.shape[1] // 2]
+
+
+def csr_to_dense_gather(csr, max_nnz_per_row: int | None = None):
+    """Convert a scipy CSR matrix to fixed-width gather form (indices, weights).
+
+    Barycentric transfer rows have at most ~3 nonzeros, so the sparse product
+    becomes a dense (rows, k) gather and a weighted sum over k on the device.
+    Rows with fewer than k nonzeros are padded with index 0 and weight 0.
+
+    Returns (indices (rows, k) int32, weights (rows, k) float32).
+    """
+    csr = csr.tocsr()
+    nnz_per_row = np.diff(csr.indptr)
+    k = int(nnz_per_row.max()) if max_nnz_per_row is None else max_nnz_per_row
+    rows = csr.shape[0]
+    indices = np.zeros((rows, k), dtype=np.int32)
+    weights = np.zeros((rows, k), dtype=np.float32)
+    for r in range(rows):
+        start, end = csr.indptr[r], csr.indptr[r + 1]
+        n = min(end - start, k)
+        indices[r, :n] = csr.indices[start : start + n]
+        weights[r, :n] = csr.data[start : start + n]
+    return indices, weights
+
+
 @contextlib.contextmanager
 def _temporary_modules(entries: dict):
     """Install ``entries`` into ``sys.modules`` for the duration of the block,

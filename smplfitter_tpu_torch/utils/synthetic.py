@@ -225,26 +225,128 @@ def write_model_files(
     return model_root
 
 
+def _nearest3(v_in: np.ndarray, v_out: np.ndarray, chunk: int = 512):
+    """For each row of ``v_out``: indices + inverse-distance weights of its 3
+    nearest rows in ``v_in``, a chunk of rows at a time."""
+    idx = np.empty((len(v_out), 3), np.int64)
+    w = np.empty((len(v_out), 3))
+    for s0 in range(0, len(v_out), chunk):
+        blk = v_out[s0:s0 + chunk]
+        d2 = ((blk[:, None, :] - v_in[None, :, :]) ** 2).sum(-1)
+        near = np.argpartition(d2, 3, axis=1)[:, :3]
+        dn = np.take_along_axis(d2, near, axis=1)
+        ww = 1.0 / np.sqrt(dn + 1e-6)
+        idx[s0:s0 + chunk] = near
+        w[s0:s0 + chunk] = ww / ww.sum(axis=1, keepdims=True)
+    return idx, w
+
+
+def write_deftrafo(
+    body_models_dir: str,
+    num_verts_in: int,
+    num_verts_out: int,
+    v_template_in: np.ndarray,
+    v_template_out: np.ndarray,
+    filename: str,
+) -> str:
+    """Write a synthetic barycentric vertex-transfer pickle (deftrafo format).
+
+    Each output vertex is a convex combination of its 3 nearest input vertices.
+    The stored matrix has 2x the input columns with the right half zero, matching
+    the official deftrafo layout (the loader keeps the left half).
+    """
+    import scipy.sparse
+
+    idx, w = _nearest3(v_template_in, v_template_out)
+    rows = np.repeat(np.arange(num_verts_out), 3)
+    mtx = scipy.sparse.coo_matrix(
+        (w.reshape(-1), (rows, idx.reshape(-1))),
+        shape=(num_verts_out, 2 * num_verts_in),
+    ).tocsr()
+    path = osp.join(body_models_dir, filename)
+    with open(path, 'wb') as f:
+        pickle.dump(dict(mtx=mtx), f)
+    return path
+
+
 def ensure_cached_models(
     cache_dir: str | None = None,
     num_vertices_smpl: int = 6890,
     num_vertices_smplx: int = 10475,
+    full: bool = False,
 ) -> str:
     """Write (once) and return a cached synthetic body_models directory at
     real tensor shapes: SMPL (V=6890, 10 betas), SMPL-X (V=10475, 16 betas),
     SMPL+H ``smplh16`` (the SMPL vertex count, 16 betas) by default, and MANO
-    (V=778, 10 betas)."""
+    (V=778, 10 betas). ``full`` also writes the applications' assets, as
+    :func:`write_full_test_environment` does: the SMPL <-> SMPL-X deftrafo
+    pickles, the SMPL-X flip correspondences and the hand vertex ids."""
     if cache_dir is None:
         cache_dir = os.path.join(
             os.path.expanduser('~'), '.cache', 'smplfitter_tpu_torch',
-            f'synthetic_v{num_vertices_smpl}_{num_vertices_smplx}',
+            f'synthetic_v{num_vertices_smpl}_{num_vertices_smplx}' + ('_full' if full else ''),
         )
     marker = osp.join(cache_dir, '.complete')
     if not osp.exists(marker):
-        write_model_files(cache_dir, 'smpl', num_vertices_smpl)
-        write_model_files(cache_dir, 'smplx', num_vertices_smplx, num_betas=16)
-        write_model_files(cache_dir, 'smplh16', num_vertices_smpl, num_betas=16)
+        if full:
+            write_full_test_environment(cache_dir, num_vertices_smpl, num_vertices_smplx)
+        else:
+            write_model_files(cache_dir, 'smpl', num_vertices_smpl)
+            write_model_files(cache_dir, 'smplx', num_vertices_smplx, num_betas=16)
+            write_model_files(cache_dir, 'smplh16', num_vertices_smpl, num_betas=16)
         write_model_files(cache_dir, 'mano', MANO_NUM_VERTICES)
         with open(marker, 'w') as f:
             f.write('ok')
     return cache_dir
+
+
+def write_full_test_environment(
+    body_models_dir: str,
+    num_vertices_smpl: int = 768,
+    num_vertices_smplx: int = 1024,
+    seed: int = 0,
+) -> str:
+    """Write a complete synthetic body_models directory: smpl, smplx, smplh16,
+    the smpl<->smplx deftrafo transfer setups, and flip correspondences.
+
+    Point SMPLFITTER_BODY_MODELS here, and DATA_ROOT at its parent (the
+    applications read ``$DATA_ROOT/body_models/...``), so name the directory
+    ``body_models``.
+    """
+    os.makedirs(body_models_dir, exist_ok=True)
+    write_model_files(body_models_dir, 'smpl', num_vertices_smpl, seed=seed)
+    write_model_files(body_models_dir, 'smplx', num_vertices_smplx, num_betas=16, seed=seed)
+    write_model_files(body_models_dir, 'smplh16', num_vertices_smpl, num_betas=16, seed=seed)
+
+    from .modeldata import initialize
+
+    smpl = initialize('smpl', 'neutral', osp.join(body_models_dir, 'smpl'))
+    smplx = initialize('smplx', 'neutral', osp.join(body_models_dir, 'smplx'))
+    write_deftrafo(
+        body_models_dir, smpl.num_vertices, smplx.num_vertices,
+        smpl.v_template, smplx.v_template, 'smpl2smplx_deftrafo_setup.pkl',
+    )
+    write_deftrafo(
+        body_models_dir, smplx.num_vertices, smpl.num_vertices,
+        smplx.v_template, smpl.v_template, 'smplx2smpl_deftrafo_setup.pkl',
+    )
+
+    # Flip correspondences for smplx: nearest mirrored vertex, barycentric over
+    # one face triple (format: closest_faces (V, 3) + bc (V, 3)).
+    v = smplx.v_template
+    mirrored = v * np.array([-1.0, 1.0, 1.0])
+    closest, bc = _nearest3(v, mirrored)
+    np.savez(
+        osp.join(body_models_dir, 'smplx', 'smplx_flip_correspondences.npz'),
+        closest_faces=closest,
+        bc=bc,
+    )
+
+    # Hand vertex ids (MANO<->SMPLX correspondence format): the smplx vertices
+    # whose dominant skinning weight is a hand joint (25..54).
+    assign = np.argmax(smplx.weights, axis=1)
+    left_ids = np.where((assign >= 25) & (assign < 40))[0].astype(np.int64)
+    right_ids = np.where((assign >= 40) & (assign < 55))[0].astype(np.int64)
+    with open(osp.join(body_models_dir, 'smplx', 'MANO_SMPLX_vertex_ids.pkl'), 'wb') as f:
+        pickle.dump(dict(left_hand=left_ids, right_hand=right_ids), f)
+    return body_models_dir

@@ -14,7 +14,9 @@ cover at MANO, SMPL and SMPL-X widths and dense SMPL-X weights; K3 at SMPL
 and MANO widths with and without the joints block, and K15 in every form
 over a part index with rows in no part; ``share_beta`` and the ragged fit
 function on the card against the CPU; and every kernel form of the fitting
-paths on a vertex subset with an empty part and V % 32 != 0.
+paths on a vertex subset with an empty part and V % 32 != 0; and the
+applications (a converter, a flipper and a 10-step Adam refiner) on a small
+synthetic full environment against the CPU port, with their launches.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -31,8 +33,9 @@ import pytest
 import torch
 
 import smplfitter_tpu_torch
-from chip_smoke import (BWD_CAPTURED, CAPTURED, GRAD_PATHS, SPECS, backward_pass, capture_forms,
-                        grad_path_counts, path_vg, record_calls, weighted_fitters)
+from chip_smoke import (APP_LAUNCHES, BWD_CAPTURED, CAPTURED, GRAD_PATHS, SPECS, app_parity,
+                        backward_pass, capture_forms, grad_path_counts, params_v2v_mm, path_vg,
+                        record_calls, refine_loss, weighted_fitters)
 from port_on_cpu import port_model_from
 from smplfitter_tpu_torch import BodyFitter, BodyModel, get_cached_fit_fn, get_fit_grad_fn
 from smplfitter_tpu_torch.api import default_loss
@@ -1208,3 +1211,99 @@ def test_subset_kernels_at_edges(subset_fitters, batch):
         if key.startswith(('recon_part_sums_bwd', 'recon_part_sums_cached_bwd', 'part_sums_bwd')):
             rows = unused[unused < got[0].shape[1]]
             assert torch.equal(got[0][:, rows], torch.zeros_like(got[0][:, rows])), key
+
+
+@pytest.fixture(scope='module')
+def app_models(tmp_path_factory):
+    """SMPL (V=500) and SMPL-X (V=700) of a synthetic full environment, on
+    the card and on the CPU, with DATA_ROOT pointing at it."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    import os
+
+    d = str(tmp_path_factory.mktemp('apps') / 'body_models')
+    synthetic.write_full_test_environment(d, 500, 700)
+    saved = {k: os.environ.get(k) for k in ('SMPLFITTER_BODY_MODELS', 'DATA_ROOT')}
+    os.environ['SMPLFITTER_BODY_MODELS'] = d
+    os.environ['DATA_ROOT'] = os.path.dirname(d)
+    card = {n: BodyModel(n, 'neutral', device='cuda') for n in ('smpl', 'smplx')}
+    yield card, {n: port_model_from(bm) for n, bm in card.items()}
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def _app_inputs(model, batch, seed):
+    rng = np.random.default_rng(seed)
+    J, S = {'smpl': (24, 10), 'smplx': (55, 16)}[model]
+    return tuple(torch.as_tensor(x, device='cuda') for x in (
+        rng.normal(0, 0.2, (batch, 3 * J)).astype(np.float32),
+        rng.normal(0, 1, (batch, S)).astype(np.float32),
+        rng.normal(0, 0.5, (batch, 3)).astype(np.float32)))
+
+
+def _launches_of(call, n_calls=1):
+    call()
+    torch.cuda.synchronize()
+    lbs_kernels.reset_launch_counts()
+    for _ in range(n_calls):
+        call()
+    torch.cuda.synchronize()
+    assert not any(lbs_kernels.TORCH_VJPS.values())
+    assert not any(lbs_kernels.HOST_COVERS.values())
+    return {k: n for k, n in lbs_kernels.LAUNCHES.items() if n}
+
+
+def test_converter_card_matches_cpu(app_models):
+    """SMPL-X -> SMPL (free route, num_iter=1) on the card against the CPU
+    port under bench.py's gate (betas 1e-3, v2v 0.01 mm), and its launches."""
+    card, cpu = app_models
+    convs = (smplfitter_tpu_torch.BodyConverter(card['smplx'], card['smpl']),
+             smplfitter_tpu_torch.BodyConverter(cpu['smplx'], cpu['smpl']))
+    p = _app_inputs('smplx', 33, 90)
+    target = convs[1].convert_vertices(cpu['smplx'](*[x.cpu() for x in p])['vertices'])
+    failures = []
+    app_parity('convert smplx->smpl', lambda c, *q: c.convert(*q, num_iter=1), convs, p,
+               ('shape_betas',), failures, spread_rule=False,
+               v2v=lambda r: params_v2v_mm(cpu['smpl'], r, target))
+    assert not failures
+    assert _launches_of(lambda: convs[0].convert(*p, num_iter=1)) == \
+        APP_LAUNCHES['convert smplx->smpl']
+
+
+def test_flipper_card_matches_cpu(app_models):
+    """SMPL's flip (the SMPL-X correspondence composed through the deftrafo
+    transfers, path (b)'s fit) on the card against the CPU port under
+    bench.py's gate; the mirror maps equal."""
+    card, cpu = app_models
+    flips = (smplfitter_tpu_torch.BodyFlipper(card['smpl']),
+             smplfitter_tpu_torch.BodyFlipper(cpu['smpl']))
+    assert torch.equal(flips[0].mirror_inds.cpu(), flips[1].mirror_inds)
+    p = _app_inputs('smpl', 33, 91)
+    target = flips[1].flip_vertices(cpu['smpl'](*[x.cpu() for x in p])['vertices'])
+    failures = []
+    app_parity('flip smpl', lambda f, *q: f.flip(*q), flips, p, ('shape_betas', 'kid_factor'),
+               failures, spread_rule=False, v2v=lambda r: params_v2v_mm(cpu['smpl'], r, target))
+    assert not failures
+
+
+def test_refiner_card_matches_cpu(app_models):
+    """10 Adam steps of BodyFitterOpt on the card against the CPU port:
+    every output within the larger of 1e-3 and 4x its own spread, the loss
+    within 1e-4 relative (chip_smoke.app_parity); one K1 and one K10 per
+    step and no torch-op backward pass."""
+    card, cpu = app_models
+    opts = (smplfitter_tpu_torch.BodyFitterOpt(card['smpl']),
+            smplfitter_tpu_torch.BodyFitterOpt(cpu['smpl']))
+    out = card['smpl'](*_app_inputs('smpl', 33, 92))
+    tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+    kw = dict(num_iter=3, beta_regularizer=1.0, refine_steps=10, refine_lr=0.01)
+    failures = []
+    app_parity('refine smpl', lambda o, v, j: o.fit(v, j, **kw), opts, (tv, tj),
+               ('pose_rotvecs', 'shape_betas', 'trans'), failures, spread_rule=True,
+               loss=lambda r: refine_loss(cpu['smpl'], r, tv.cpu(), tj.cpu()))
+    assert not failures
+    launches = _launches_of(lambda: opts[0].fit(tv, tj, **kw))
+    assert launches == dict(APP_LAUNCHES['refine smpl'], lbs_points=10, lbs_points_bwd=10)

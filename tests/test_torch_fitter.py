@@ -164,7 +164,9 @@ def test_unported_options_raise(models, targets, option):
 
 def test_import_leaves_out_jax():
     code = ('import sys, smplfitter_tpu_torch, smplfitter_tpu_torch.ops.lbs_kernels; '
-            'bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", '
+            'from smplfitter_tpu_torch import (BodyConverter, BodyFlipper, HandReplacer, '
+            'BodyFitterOpt, BodyFlipperOpt); '
+            'bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", '
             '"smplfitter_tpu")]; print(bad); sys.exit(1 if bad else 0)')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, '-c', code], cwd=root, capture_output=True,
