@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import statistics
 import sys
 
 import numpy as np
@@ -77,7 +76,7 @@ def main() -> int:
 
     import smplfitter_tpu_torch as port
     from smplfitter_tpu_torch.ops import _build, lbs_kernels
-    from smplfitter_tpu_torch.utils import synthetic
+    from smplfitter_tpu_torch.utils import profiling, synthetic
 
     dev = torch.device('cuda', 0)
     smi = chip_smoke.nvidia_smi_line()
@@ -135,35 +134,12 @@ def main() -> int:
     if args.subset:
         what += f' on a {bm.num_vertices}-vertex subset'
     what += f' B={batch}'
-    run()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    call_ms = statistics.median(times)
+    call_ms = profiling.time_ms(run, [()] * 5)
     print(f'{what}: {call_ms:.3f} ms per call unprofiled (median of 5, CUDA events), '
           f'{batch / call_ms * 1e3:.1f} fits/s on {smi}', flush=True)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     n_prof = 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            run()
-        torch.cuda.synchronize()
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            entry = by_name.setdefault(e.name, [0.0, 0])
-            entry[0] += e.time_range.elapsed_us() / 1e3
-            entry[1] += 1
+    by_name = profiling.device_kernels(run, n_calls=n_prof, cpu=True)
     busy_ms = sum(v[0] for v in by_name.values()) / n_prof
     launches = sum(v[1] for v in by_name.values()) / n_prof
     print(f'{what}: device busy {busy_ms:.3f} ms per call, {busy_ms / call_ms:.3f} of the '
@@ -217,8 +193,8 @@ def main() -> int:
             rel = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
             print(f'{what}: Gramian by {name}: max rel err vs the fused twin {rel:.2e}',
                   flush=True)
-        times = {name: chip_smoke.time_ms(torch, route, sets) for name, route in routes.items()}
-        t_k8 = chip_smoke.time_ms(torch, lbs_kernels.term1, [(a[0], a[5]) for a in sets])
+        times = {name: profiling.time_ms(route, sets) for name, route in routes.items()}
+        t_k8 = profiling.time_ms(lbs_kernels.term1, [(a[0], a[5]) for a in sets])
         print(f'{what}: Gramian (J3={J3}, E={E}, {len(sets)} calls): '
               + '; '.join(f'{name} {ms:.3f} ms' for name, ms in times.items())
               + f' (K8 alone {t_k8:.3f} ms) per call on {smi}', flush=True)

@@ -137,7 +137,20 @@ SMPL-X (V=10475, J=55, 16 betas, pose template F=487), SMPL+H ``smplh16``
     factor both ways, the SMPL flip with and without kid, the 10-step
     ``BodyFlipperOpt`` and ``BodyFitterOpt`` and ``replace_hand`` (SMPL
     outputs under the gate of phase 6, the SMPL-X, SMPL+H and refined ones
-    under the spread rule of phase 10, refined losses within 1e-4).
+    under the spread rule of phase 10, refined losses within 1e-4);
+19. the tooling: ``BodyFitter.check_kernel_parity`` at its defaults on SMPL
+    (must pass), SMPL-X, SMPL+H and MANO (reported beside the card fit's own
+    spread on the check's batch), each with the kernels it launched;
+    ``python -m smplfitter_tpu_torch.precompile --synthetic --batch-sizes 32
+    4096 --check-parity`` as a subprocess (must exit 0; its steps' seconds
+    printed); ``make_sharded_fit_fn`` on an NCCL group of one rank, the
+    headline and ``share_beta`` at B=4096, bit for bit equal to the
+    unsharded fit, with the headline's launches, fits/s beside the
+    unsharded fit's; and the B=32 headline with TF32 switched on in the
+    glue (torch's own switches) against ``'highest'`` under ``bench.py``'s
+    gate (reported: the cost for which ``set_matmul_precision`` refuses
+    ``'high'`` and ``'default'``, which it must), then
+    ``set_matmul_precision('highest')`` restoring the fit bit for bit.
 
 It prints a JSON line of per-kernel results, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -155,6 +168,9 @@ import sys
 import time
 
 import numpy as np
+
+from smplfitter_tpu_torch.models.bodyfitter import max_param_gap, parity_gate
+from smplfitter_tpu_torch.utils.profiling import device_launches, time_ms
 
 SEED = 0
 BATCH = 4096
@@ -597,17 +613,6 @@ def capture_forms(torch, lbs_kernels, bm, fitters, params, kid, vw, jw,
     return forms
 
 
-def device_launches(torch, fn) -> int:
-    """The device kernel launches of one call of ``fn`` (torch.profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-
-
 def path_vg(torch, name, fitters, p):
     """``vg(tv, tj) -> (value, grads)``: result_loss of GRAD_PATHS[name]'s
     call with the inputs ``p`` and its gradient in the inputs the path
@@ -978,30 +983,6 @@ def check_launches(launches: dict, expected_per_fit: dict, n_fits: int, what: st
                                  f'expected {want}')
 
 
-def time_ms(torch, fn, arg_sets) -> float:
-    """Median device time of fn over distinct argument sets (after a warm-up)."""
-    fn(*arg_sets[0])
-    times = []
-    for args in arg_sets:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def recon_v2v_mm(bm, res, tv) -> float:
-    """Mean distance (mm) of a fit result's reconstruction to the targets tv."""
-    dev = tv.device
-    re = bm(glob_rotmats=res['orientations'].to(dev), shape_betas=res['shape_betas'].to(dev),
-            trans=res['trans'].to(dev),
-            kid_factor=None if 'kid_factor' not in res else res['kid_factor'].to(dev))
-    return (re['vertices'] - tv).norm(dim=-1).mean().item() * 1e3
-
-
 def check_kernels(torch, lbs_kernels, label, make_run, dev, rng, kid_rng, model) -> dict:
     """Phase 3 for one model: capture the kernels' operands from ``make_run``'s
     fitting paths at B=4096 and B=1000, hold every kernel to its twin, and at
@@ -1079,10 +1060,10 @@ def hold_to_twin(torch, lbs_kernels, label, key, arg_sets, batch, results,
         errs = ' '.join(f'{k} {v:.2e}' for k, v in res['rel_err'].items())
         line = f'{label:6s} {key:28s} B={batch:5d} calls={len(arg_sets)} max rel err: {errs}'
         if timed and batch == BATCH:
-            res['ms'] = time_ms(torch, lambda *a: kernel_call(lbs_kernels, key, a, kw), sets)
-            res['plain_ms'] = time_ms(torch, lambda *a: twin_call(lbs_kernels, key, a, kw), sets)
+            res['ms'] = time_ms(lambda *a: kernel_call(lbs_kernels, key, a, kw), sets)
+            res['plain_ms'] = time_ms(lambda *a: twin_call(lbs_kernels, key, a, kw), sets)
             lib = library_call(torch, key)
-            res['library_ms'] = None if lib is None else time_ms(torch, lib, sets)
+            res['library_ms'] = None if lib is None else time_ms(lib, sets)
             res['bound_ms'], res['bound_by'] = bound(key, args0, kw)
             lib_txt = '' if lib is None else f'  library {res["library_ms"]:.3f} ms'
             line += (f'  kernel {res["ms"]:.3f} ms  twin {res["plain_ms"]:.3f} ms{lib_txt}'
@@ -1228,8 +1209,8 @@ def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model)
             if rel > KERNEL_REL_TOL:
                 raise AssertionError(f'{label} K7 + K4 yardstick: {rel:.3e} x max|twin| from '
                                      "K6's twin")
-        ms = time_ms(torch, composed, [()] * 5)
-        k6_ms = time_ms(torch, lambda: kernel_call(lbs_kernels, 'recon_part_sums', k6_args, {}),
+        ms = time_ms(composed, [()] * 5)
+        k6_ms = time_ms(lambda: kernel_call(lbs_kernels, 'recon_part_sums', k6_args, {}),
                         [()] * 5)
     results['yardstick'] = dict(ms=ms, k6_ms=k6_ms)
     log(f'{label:6s} recon_part_sums (K6) {k6_ms:.3f} ms against K7 + K4 (posed template, then '
@@ -1238,9 +1219,9 @@ def hold_blend_variants(torch, lbs_kernels, label, calls, batch, results, model)
     k1_args, k1_kw = max(calls['lbs_points'], key=lambda c: c[0][1].shape[0])  # the widest F
     feat, consts = k1_args[1], k1_args[3]
     with torch.no_grad():
-        k1_ms = time_ms(torch, lambda: kernel_call(lbs_kernels, 'lbs_points', k1_args, k1_kw),
+        k1_ms = time_ms(lambda: kernel_call(lbs_kernels, 'lbs_points', k1_args, k1_kw),
                         [()] * 5)
-        k7_ms = time_ms(torch, lambda: lbs_kernels.posed_template_lm(feat, consts), [()] * 5)
+        k7_ms = time_ms(lambda: lbs_kernels.posed_template_lm(feat, consts), [()] * 5)
     results['k1_yardstick'] = dict(ms=k1_ms, k7_ms=k7_ms)
     log(f'{label:6s} lbs_points (K1) {k1_ms:.3f} ms against K7 (the template dot alone) '
         f'{k7_ms:.3f} ms on its (feat, consts), F={feat.shape[0]}, B={batch}')
@@ -1263,12 +1244,12 @@ def gram_steps(torch, lbs_kernels, label, calls) -> dict:
         rel = (part.sum(dim=0) - want).abs().max().item() / want.abs().max().item()
         if rel > KERNEL_REL_TOL:
             raise AssertionError(f'{label} K3 term1 step: {rel:.3e} x max|twin| from term1_ref')
-        out['term1_ms'] = time_ms(torch, lambda: lbs_kernels.gram_term1_step(R, ksd), [()] * 5)
-        out['terms_ms'] = time_ms(torch, lambda: lbs_kernels.gram_terms_step(
+        out['term1_ms'] = time_ms(lambda: lbs_kernels.gram_term1_step(R, ksd), [()] * 5)
+        out['terms_ms'] = time_ms(lambda: lbs_kernels.gram_terms_step(
             R, T, y, P, bJ, lz, sd1, q, w1, hj, part), [()] * 5)
-        out['ms'] = time_ms(torch, lambda: kernel_call(lbs_kernels, 'gram_assembly', args, kw),
+        out['ms'] = time_ms(lambda: kernel_call(lbs_kernels, 'gram_assembly', args, kw),
                             [()] * 5)
-        out['yardstick_ms'] = time_ms(torch, library_call(torch, 'term1'), [(R, ksd)] * 5)
+        out['yardstick_ms'] = time_ms(library_call(torch, 'term1'), [(R, ksd)] * 5)
         small = tuple(a[..., :PARITY_BATCH].contiguous() for a in args[:5]) + args[5:]
         got = kernel_call(lbs_kernels, 'gram_assembly', small, kw)
         for g, t in zip(got, twin_call(lbs_kernels, 'gram_assembly', small, kw), strict=True):
@@ -1276,9 +1257,9 @@ def gram_steps(torch, lbs_kernels, label, calls) -> dict:
             if rel > KERNEL_REL_TOL:
                 raise AssertionError(f'{label} gram_assembly at B={PARITY_BATCH}: {rel:.3e} x '
                                      'max|twin|')
-        out['ms_b32'] = time_ms(torch, lambda: kernel_call(lbs_kernels, 'gram_assembly', small,
+        out['ms_b32'] = time_ms(lambda: kernel_call(lbs_kernels, 'gram_assembly', small,
                                                            kw), [()] * 5)
-        out['plain_ms_b32'] = time_ms(torch, lambda: twin_call(lbs_kernels, 'gram_assembly',
+        out['plain_ms_b32'] = time_ms(lambda: twin_call(lbs_kernels, 'gram_assembly',
                                                                small, kw), [()] * 5)
     flops = kernel_work('term1', (R, ksd))[0]
     log(f'{label:6s} gram_assembly (K3) B={R.shape[2]:5d} {out["ms"]:.3f} ms: term1 step '
@@ -1506,6 +1487,22 @@ def dense_bwd_variants(torch, lbs_kernels, calls, model) -> dict:
     return sets
 
 
+def own_spread(fit, tv, tj, base, gap=max_param_gap) -> float:
+    """A fit's own spread: the largest ``gap(fit(tv_n, tj_n), base)`` over
+    NOISE_SEEDS seeded changes of the targets by a factor 1 + NOISE_REL N(0, 1),
+    drawn and applied on the CPU, then moved to the targets' device (the same
+    changes on either device)."""
+    import torch
+
+    spread = 0.0
+    for seed in range(NOISE_SEEDS):
+        g = torch.Generator().manual_seed(SEED + seed)
+        tv_n, tj_n = ((t.cpu() * (1 + NOISE_REL * torch.randn(t.shape, generator=g))).to(t.device)
+                      for t in (tv, tj))
+        spread = max(spread, gap(fit(tv_n, tj_n), base))
+    return spread
+
+
 def grad_parity(name, vg_card, vg_cpu, tv, tj, failures, noise_floor=False) -> None:
     """A value-and-gradient function on the card and on the CPU: each
     gradient within GRAD_PARITY_REL x max|g_cpu|, with ``noise_floor`` within
@@ -1525,14 +1522,8 @@ def grad_parity(name, vg_card, vg_cpu, tv, tj, failures, noise_floor=False) -> N
     err = rel(card, cpu)
     limit, spread = GRAD_PARITY_REL, ''
     if noise_floor:
-        own = dict(cpu=0.0, card=0.0)
-        for seed in range(NOISE_SEEDS):
-            g = torch.Generator().manual_seed(SEED + seed)
-            tv_n, tj_n = (t * (1 + NOISE_REL * torch.randn(t.shape, generator=g))
-                          for t in (tv_c, tj_c))
-            own['cpu'] = max(own['cpu'], rel(vg_cpu(tv_n, tj_n)[1], cpu))
-            own['card'] = max(own['card'], rel(vg_card(tv_n.to(tv.device),
-                                                       tj_n.to(tv.device))[1], card))
+        own = dict(cpu=own_spread(vg_cpu, tv_c, tj_c, cpu, gap=lambda r, b: rel(r[1], b)),
+                   card=own_spread(vg_card, tv, tj, card, gap=lambda r, b: rel(r[1], b)))
         limit = max(limit, SPREAD_MULT * max(own.values()))
         spread = (f'; own spread over {NOISE_SEEDS} target changes x (1 + {NOISE_REL:g} N): '
                   f'cpu {own["cpu"]:.3e} card {own["card"]:.3e}, limit {SPREAD_MULT}x')
@@ -1561,11 +1552,6 @@ def time_path(torch, lbs_kernels, run, fitter, fitter_kid, targets, inputs, kids
     return fits, dict(lbs_kernels.LAUNCHES), start.elapsed_time(end), time.perf_counter() - t0
 
 
-def max_dparams(a, b) -> float:
-    return max((a[k].cpu() - b[k].cpu()).abs().max().item()
-               for k in ('shape_betas', 'kid_factor', 'scale_corr') if k in a)
-
-
 def parity(name, run, gpu_fitters, cpu_fitters, bm, tv, tj, params, failures,
            noise_floor=False) -> None:
     """One path on the card and on the CPU: max|d betas, kid, scale| within
@@ -1574,28 +1560,20 @@ def parity(name, run, gpu_fitters, cpu_fitters, bm, tv, tj, params, failures,
     larger of PARITY_DBETA and SPREAD_MULT x the fit's own spread: the largest
     change of its parameters, on the CPU and on the card, over NOISE_SEEDS
     seeded changes of tv and tj by a factor 1 + NOISE_REL N(0, 1)."""
-    import torch
-
     gpu = run(*gpu_fitters, tv, tj, params)
     cpu_args = (tv.cpu(), tj.cpu(), tuple(x.cpu() for x in params))
     cpu = run(*cpu_fitters, *cpu_args)
-    max_d = max_dparams(gpu, cpu)
     limit, spread = PARITY_DBETA, ''
     if noise_floor:
-        own = dict(cpu=0.0, card=0.0)
-        for seed in range(NOISE_SEEDS):
-            g = torch.Generator().manual_seed(SEED + seed)
-            tv_n, tj_n = (t * (1 + NOISE_REL * torch.randn(t.shape, generator=g))
-                          for t in cpu_args[:2])
-            own['cpu'] = max(own['cpu'], max_dparams(run(*cpu_fitters, tv_n, tj_n,
-                                                         cpu_args[2]), cpu))
-            own['card'] = max(own['card'], max_dparams(
-                run(*gpu_fitters, tv_n.to(tv.device), tj_n.to(tv.device), params), gpu))
+        own = dict(cpu=own_spread(lambda a, b: run(*cpu_fitters, a, b, cpu_args[2]),
+                                  *cpu_args[:2], cpu),
+                   card=own_spread(lambda a, b: run(*gpu_fitters, a, b, params), tv, tj, gpu))
         limit = max(limit, SPREAD_MULT * max(own.values()))
         spread = (f'; own spread over {NOISE_SEEDS} target changes x (1 + {NOISE_REL:g} N): '
                   f'cpu {own["cpu"]:.3e} card {own["card"]:.3e}, limit {SPREAD_MULT}x')
-    v2v_gpu, v2v_cpu = recon_v2v_mm(bm, gpu, tv), recon_v2v_mm(bm, cpu, tv)
-    ok = max_d <= limit and abs(v2v_gpu - v2v_cpu) <= PARITY_V2V_MM
+    gate = parity_gate(bm, gpu, cpu, tv, limit, PARITY_V2V_MM)
+    ok, max_d, v2v_gpu, v2v_cpu = (gate[k] for k in ('ok', 'max_dbetas', 'v2v_kernel_mm',
+                                                     'v2v_xla_mm'))
     line = (f'{name}: ok={ok} max|d betas, kid, scale|={max_d:.3e} (limit {limit:.3e}; '
             f'{PARITY_DBETA:g} {"held" if max_d <= PARITY_DBETA else "missed"}) '
             f'v2v card={v2v_gpu:.4f} mm cpu={v2v_cpu:.4f} mm{spread}')
@@ -1686,7 +1664,7 @@ def time_app(torch, lbs_kernels, label, call, arg_sets, per_call, smi, total_lau
                                      'not finite')
     del outs
     ms = start.elapsed_time(end) / n
-    n_dev = device_launches(torch, lambda: call(*arg_sets[0]))
+    n_dev = device_launches(lambda: call(*arg_sets[0]))
     log(f'{label}: {BATCH / (ms / 1e3):.1f} fits/s ({ms:.2f} ms per B={BATCH} call on CUDA '
         f'events, mean of {n}; {host_s / n * 1e3:.2f} ms host), {n_dev} device launches per '
         f'call, kernel-wrapper launches per call {json.dumps(per_call)} on {smi}')
@@ -1877,7 +1855,7 @@ def phase_apps(torch, port, lbs_kernels, apps_dir, dev, rng, kid_rng, smi, failu
                                        **REFINE_FIT_KW),
         refine_targets, APP_LAUNCHES['refine smpl'], smi, total_launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    fit_ms = time_ms(torch, lambda tv, tj: apps['opt'].fitter.fit(
+    fit_ms = time_ms(lambda tv, tj: apps['opt'].fitter.fit(
         tv, tj, final_adjust_rots=False, requested_keys=('pose_rotvecs', 'shape_betas', 'trans'),
         **REFINE_FIT_KW), refine_targets)
     log(f'refine smpl: {(refine_ms - fit_ms) / REFINE_STEPS:.3f} ms per Adam step (a call '
@@ -1952,6 +1930,149 @@ def phase_apps(torch, port, lbs_kernels, apps_dir, dev, rng, kid_rng, smi, failu
                loss=lambda r: refine_loss(cpu_bms['smpl'], r, tv.cpu(), tj.cpu()))
     check_host_covers(lbs_kernels, 'phase 18')
     log(f'phase 18 took {time.perf_counter() - t_phase:.1f} s')
+
+
+PARITY_MODELS = ('smpl', 'smplx', 'smplh16', 'mano')  # phase 19's check_kernel_parity
+PRECOMPILE_ARGS = ('--synthetic', '--batch-sizes', '32', '4096', '--check-parity')
+PRECOMPILE_TIMEOUT_S = 300
+
+
+def parity_spread(torch, fitter) -> float:
+    """The largest change of a fitter's betas (kid) on check_kernel_parity's
+    own batch (its defaults) over NOISE_SEEDS seeded changes of the targets
+    by a factor 1 + NOISE_REL N(0, 1): the fit's own spread there."""
+    from smplfitter_tpu_torch.models.bodyfitter import parity_targets
+
+    kw = dict(num_iter=2, beta_regularizer=1.0, final_adjust_rots=True,
+              requested_keys=('pose_rotvecs', 'shape_betas', 'trans'))
+    with torch.no_grad():
+        tv, tj = parity_targets(fitter)
+        return own_spread(lambda a, b: fitter.fit(a, b, **kw), tv, tj, fitter.fit(tv, tj, **kw))
+
+
+def phase_tooling(torch, port, lbs_kernels, models_dir, dev, smi, failures) -> None:
+    """Phase 19: ``BodyFitter.check_kernel_parity`` on every model, the
+    ``precompile`` CLI as a subprocess, the sharded fit on an NCCL group of
+    one rank against the unsharded fit, and the fit under TF32. Its targets
+    come from their own seed, so a run of the phase alone measures the same
+    fits."""
+    import torch.distributed as dist
+
+    from smplfitter_tpu_torch.parallel import sharding
+
+    log(f'== phase 19: check_kernel_parity, precompile, sharded fit (NCCL world 1, B={BATCH}), '
+        f'TF32 (B={PARITY_BATCH})')
+    t_phase = time.perf_counter()
+    for name in PARITY_MODELS:
+        bm = port.BodyModel(name, 'neutral', model_root=os.path.join(models_dir, name),
+                            device=dev)
+        fitter = port.BodyFitter(bm)
+        lbs_kernels.reset_launch_counts()
+        rep = fitter.check_kernel_parity(raise_on_fail=False)
+        launched = sorted(k for k, n in lbs_kernels.LAUNCHES.items() if n)
+        check_host_covers(lbs_kernels, f'phase 19 {name} check_kernel_parity')
+        spread = parity_spread(torch, fitter)
+        log(f'{name} check_kernel_parity (defaults: B=32, num_iter=2, betas_atol 1e-3, '
+            f'v2v_atol 0.05 mm): ok={rep["ok"]} max|d betas|={rep["max_dbetas"]:.3e} '
+            f'v2v kernels={rep["v2v_kernel_mm"]:.4f} mm CPU twins={rep["v2v_xla_mm"]:.4f} mm; '
+            f'the card fit\'s own spread over {NOISE_SEEDS} target changes x (1 + '
+            f'{NOISE_REL:g} N): {spread:.3e}; kernels launched: {launched}')
+        want = HEADLINE['launches'] if name == 'smpl' else HEADLINE['launches_x']
+        if name in ('smpl', 'smplx') and not set(want) <= set(launched):
+            raise AssertionError(f'phase 19 {name}: check_kernel_parity launched {launched}, '
+                                 f'not every kernel of {sorted(want)}')
+        if name == 'smpl' and not rep['ok']:
+            failures.append('smpl check_kernel_parity')
+        del bm, fitter
+    torch.cuda.empty_cache()
+
+    cmd = [sys.executable, '-m', 'smplfitter_tpu_torch.precompile', *PRECOMPILE_ARGS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=PRECOMPILE_TIMEOUT_S)
+    log(f'python -m smplfitter_tpu_torch.precompile {" ".join(PRECOMPILE_ARGS)}: exit '
+        f'{proc.returncode} in {time.perf_counter() - t0:.1f} s; its steps:')
+    for line in proc.stdout.splitlines():
+        log('  ' + line.strip())
+    if proc.returncode != 0:
+        raise AssertionError(f'phase 19: precompile exited {proc.returncode}:\n{proc.stderr}')
+
+    rng = np.random.default_rng(SEED + 19)
+    bm = port.BodyModel('smpl', 'neutral', model_root=os.path.join(models_dir, 'smpl'),
+                        device=dev)
+    fitter = port.BodyFitter(bm)
+    targets = []
+    for _ in range(N_NEW_TARGETS):
+        out = bm(*(torch.as_tensor(x, device=dev) for x in random_params(rng, BATCH)))
+        targets.append((out['vertices'], out['joints']))
+    # The group's file store beside the build (models_dir is _build/body_models).
+    store = os.path.join(os.path.dirname(models_dir), f'nccl_store_{os.getpid()}')
+    torch.cuda.set_device(dev)
+    dist.init_process_group('nccl', init_method=f'file://{store}', rank=0, world_size=1)
+    try:
+        for label, kw in (('headline', FIT_KW), ('share_beta', SHARE_KW)):
+            sharded = sharding.make_sharded_fit_fn(fitter, **kw)
+
+            def plain(tv, tj, kw=kw):
+                return fitter.fit(tv, tj, **kw)
+
+            lbs_kernels.reset_launch_counts()
+            got = sharded(*targets[0])
+            check_launches(dict(lbs_kernels.LAUNCHES), HEADLINE['launches'], 1,
+                           f'phase 19 sharded {label}')
+            want = plain(*targets[0])
+            differ = [k for k in want if not torch.equal(got[k], want[k])]
+            # Timed unsharded, sharded, sharded, unsharded: the host's speed drifts.
+            times = [time_ms(fn, targets) for fn in (plain, sharded, sharded, plain)]
+            ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+            log(f'sharded {label} fit (make_sharded_fit_fn, NCCL world 1): equal bit for bit to '
+                f'the unsharded fit: {not differ} (keys {sorted(want)}); {BATCH / ms * 1e3:.1f} '
+                f'fits/s ({ms:.2f} ms) vs unsharded {BATCH / plain_ms * 1e3:.1f} fits/s '
+                f'({plain_ms:.2f} ms), B={BATCH}; ms per fit, median of {N_NEW_TARGETS} target '
+                f'sets, in the order unsharded, sharded, sharded, unsharded: '
+                f'{", ".join(f"{t:.2f}" for t in times)} on {smi}')
+            if differ:
+                failures.append(f'sharded {label} (differs in {differ})')
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+    del targets
+    torch.cuda.empty_cache()
+
+    params = tuple(torch.as_tensor(x, device=dev) for x in random_params(rng, PARITY_BATCH))
+    out = bm(*params)
+    tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+    highest = fitter.fit(tv, tj, **FIT_KW)
+    # TF32 in the PyTorch ops around the kernels, set by torch's own switches:
+    # the cost for which set_matmul_precision refuses 'high' and 'default'.
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision('high')
+    try:
+        tf32 = fitter.fit(tv, tj, **FIT_KW)
+    finally:
+        port.set_matmul_precision('highest')
+    gate = parity_gate(bm, tf32, highest, tv, PARITY_DBETA, PARITY_V2V_MM)
+    again = fitter.fit(tv, tj, **FIT_KW)
+    restored = all(torch.equal(again[k], highest[k]) for k in highest)
+    refused = []
+    for name in ('high', 'default'):
+        try:
+            port.set_matmul_precision(name)
+        except ValueError:
+            refused.append(name)
+    log(f'TF32 (torch.backends.cuda.matmul.allow_tf32) against \'highest\', SMPL headline '
+        f'B={PARITY_BATCH}: max|d betas|={gate["max_dbetas"]:.3e} '
+        f'v2v TF32={gate["v2v_kernel_mm"]:.4f} mm highest={gate["v2v_xla_mm"]:.4f} mm (|d v2v| '
+        f'{abs(gate["v2v_kernel_mm"] - gate["v2v_xla_mm"]):.4f} mm); within bench.py\'s gate '
+        f'({PARITY_DBETA:g}, {PARITY_V2V_MM:g} mm): {gate["ok"]}; \'highest\' restored bit '
+        f'for bit: {restored}; set_matmul_precision refuses {refused} on {smi}')
+    if not restored:
+        failures.append('set_matmul_precision restore')
+    if refused != ['high', 'default']:
+        failures.append(f'set_matmul_precision accepted a TF32 name (refused only {refused})')
+    log(f'phase 19 took {time.perf_counter() - t_phase:.1f} s')
 
 
 def main() -> int:
@@ -2448,7 +2569,7 @@ def main() -> int:
                     if kind == 'run' and not (res['shape_betas'] == res['shape_betas'][:1]).all():
                         raise AssertionError(f'phase 16 {name}: the shared betas differ over '
                                              'the batch')
-                n_dev = device_launches(torch, lambda: run(wfitters[model], None, *targets[0],
+                n_dev = device_launches(lambda: run(wfitters[model], None, *targets[0],
                                                            inputs[0] + (None,)))
                 line[kind] = (N_NEW_TARGETS * BATCH / (path_ms / 1e3), path_ms / N_NEW_TARGETS,
                               host_s / N_NEW_TARGETS * 1e3, n_dev)
@@ -2581,7 +2702,7 @@ def main() -> int:
     for res in fits:
         if not all(torch.isfinite(v).all() for v in res.values()):
             raise AssertionError('phase 17 subset headline: an output is not finite')
-    n_dev = device_launches(torch, lambda: fitter_d.fit(*targets[0], **FIT_KW))
+    n_dev = device_launches(lambda: fitter_d.fit(*targets[0], **FIT_KW))
     log(f'subset{SUBSET_SIZE} headline: {N_NEW_TARGETS * SUBSET_BATCH / (path_ms / 1e3):.1f} '
         f'fits/s (B={SUBSET_BATCH}, {path_ms / N_NEW_TARGETS:.2f} ms/fit on CUDA events, '
         f'{host_s / N_NEW_TARGETS * 1e3:.2f} ms/fit host), {n_dev} device launches per fit, '
@@ -2641,6 +2762,8 @@ def main() -> int:
     # 18. The applications.
     phase_apps(torch, port, lbs_kernels, models_dir, dev, rng, kid_rng, smi, failures,
                total_launches)
+    # 19. The tooling: the parity check, precompile, sharding and TF32.
+    phase_tooling(torch, port, lbs_kernels, models_dir, dev, smi, failures)
     if failures:
         raise AssertionError(f'the card disagrees with the CPU on: {failures}')
 

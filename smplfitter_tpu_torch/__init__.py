@@ -3,7 +3,10 @@
 The forward pass, the closed-form fit and the applications built on it:
 conversion between model families (``BodyConverter``), mirroring
 (``BodyFlipper``), hand grafting (``HandReplacer``) and Adam refinement
-(``BodyFitterOpt``, ``BodyFlipperOpt``). A port of ``smplfitter_tpu``
+(``BodyFitterOpt``, ``BodyFlipperOpt``); batch data parallelism over
+``torch.distributed`` (``parallel.sharding``), the warm-up CLI
+(``precompile``), the model downloader (``download``), regressor training
+for vertex subsets and profiling helpers (``utils``). A port of ``smplfitter_tpu``
 (JAX/Pallas on a TPU) to PyTorch with hand-written CUDA kernels for NVIDIA
 Hopper (``csrc/``). It imports no JAX.
 On CPU tensors every kernel runs as its plain PyTorch twin; on CUDA tensors
@@ -14,7 +17,7 @@ from __future__ import annotations
 
 __version__ = '0.1.0'
 
-from .ops.precision import use_true_f32
+from .ops.precision import get_matmul_precision, set_matmul_precision, use_true_f32
 
 use_true_f32()
 
@@ -29,4 +32,4 @@ from .api import get_cached_body_model, get_cached_fit_fn, get_fit_grad_fn  # no
 
 __all__ = ['BodyModel', 'BodyFitter', 'BodyConverter', 'BodyFlipper', 'BodyFitterOpt',
            'BodyFlipperOpt', 'HandReplacer', 'get_cached_body_model', 'get_cached_fit_fn',
-           'get_fit_grad_fn', '__version__']
+           'get_fit_grad_fn', 'set_matmul_precision', 'get_matmul_precision', '__version__']

@@ -568,6 +568,62 @@ def _fit_rotations_dependent_core_lm(bm, plan: FitterPlan, raw, s_t, s_a, s_w, t
 
 
 # ---------------------------------------------------------------------------
+# The parity gate: one fit against another
+# ---------------------------------------------------------------------------
+
+GATE_KEYS = ('shape_betas', 'kid_factor', 'scale_corr')
+
+
+def max_param_gap(a: dict, b: dict) -> float:
+    """max |a - b| over the shape parameters of two fit results (betas, and
+    the kid factor and scale where the fit has them), on any devices."""
+    return max((a[k].detach().cpu() - b[k].detach().cpu()).abs().max().item()
+               for k in GATE_KEYS if k in a)
+
+
+def recon_v2v_mm(bm: BodyModel, res: dict, tv: torch.Tensor) -> float:
+    """Mean distance (mm) from ``bm``'s reconstruction of a fit result (its
+    global orientations, betas, translation and kid factor) to the targets
+    ``tv`` (B, V, 3) on ``tv``'s device."""
+    dev = tv.device
+    kid = res.get('kid_factor')
+    re = bm(glob_rotmats=res['orientations'].to(dev), shape_betas=res['shape_betas'].to(dev),
+            trans=res['trans'].to(dev), kid_factor=None if kid is None else kid.to(dev))
+    return (re['vertices'] - tv).norm(dim=-1).mean().item() * 1e3
+
+
+def parity_targets(fitter, batch: int = 32, seed: int = 0):
+    """The targets (B, V, 3), (B, J, 3) of :meth:`BodyFitter.check_kernel_parity`:
+    the fitter's model posed by pose N(0, 0.3), betas N(0, 1) and translation
+    N(0, 0.5) from ``numpy.random.default_rng(seed)``."""
+    bm = fitter.body_model
+    rng = np.random.default_rng(seed)
+    pose = rng.normal(0, 0.3, (batch, bm.num_joints * 3)).astype(np.float32)
+    betas = rng.normal(0, 1, (batch, fitter.n_betas)).astype(np.float32)
+    trans = rng.normal(0, 0.5, (batch, 3)).astype(np.float32)
+    res = bm(pose_rotvecs=pose, shape_betas=betas, trans=trans)
+    return res['vertices'], res['joints']
+
+
+def _runs_kernels(bm: BodyModel) -> bool:
+    """Whether the wrappers launch kernels on ``bm``'s tensors (on a CUDA device)."""
+    return bm.device.type == 'cuda'
+
+
+def parity_gate(bm: BodyModel, ours: dict, ref: dict, tv: torch.Tensor, betas_atol: float,
+                v2v_atol_mm: float) -> dict:
+    """Hold a fit result ``ours`` to ``ref`` of the same targets ``tv``:
+    max|d betas, kid, scale| within ``betas_atol`` and their mean
+    reconstruction errors (by ``bm``) within ``v2v_atol_mm`` of each other.
+    Returns ``dict(ok, max_dbetas, v2v_kernel_mm, v2v_xla_mm)``, ``ours``
+    being the kernels' result and ``ref`` the reference's."""
+    max_d = max_param_gap(ours, ref)
+    v2v_ours, v2v_ref = recon_v2v_mm(bm, ours, tv), recon_v2v_mm(bm, ref, tv)
+    ok = max_d <= betas_atol and abs(v2v_ours - v2v_ref) <= v2v_atol_mm
+    return dict(ok=ok, max_dbetas=max_d, v2v_kernel_mm=v2v_ours, v2v_xla_mm=v2v_ref)
+
+
+# ---------------------------------------------------------------------------
 # Facade
 # ---------------------------------------------------------------------------
 
@@ -1127,4 +1183,53 @@ class BodyFitter(nn.Module):
         result = {'trans': trans}
         if scale_corr is not None:
             result['scale_corr'] = scale_corr
+        return result
+
+    def check_kernel_parity(self, batch: int = 32, num_iter: int = 2, seed: int = 0,
+                            betas_atol: float = 1e-3, v2v_atol_mm: float = 0.05,
+                            raise_on_fail: bool = True) -> dict:
+        """Hold this fitter's kernels to their plain twins on its own model.
+
+        Makes one seeded batch on the model (:func:`parity_targets`), fits
+        it on the card through the kernels and on a CPU copy of the fitter
+        (the same weights, static fit weights and kid column), where the
+        wrappers run their plain PyTorch twins, with the same arguments
+        (``num_iter``, beta_regularizer=1, final rotation adjustment), and
+        holds the two by :func:`parity_gate`: max|d betas| (and kid factor)
+        within ``betas_atol`` and the mean reconstruction errors within
+        ``v2v_atol_mm``. Call it once on a fitter for a new model file, or
+        through ``python -m smplfitter_tpu_torch.precompile --check-parity``.
+
+        Returns ``dict(ok, max_dbetas, v2v_kernel_mm, v2v_xla_mm)``, where
+        ``v2v_xla_mm`` is the CPU twins' error (the JAX package's name for its
+        kernel-free formulation). Raises ``AssertionError`` naming the model
+        and the measured values out of tolerance, unless
+        ``raise_on_fail=False``. A fitter on the CPU has no kernels to check:
+        it raises ``RuntimeError``.
+        """
+        bm = self.body_model
+        if not _runs_kernels(bm):
+            raise RuntimeError(
+                f'check_kernel_parity: this fitter is on {bm.device}, where every wrapper '
+                'runs its plain twin; there are no kernels to check. Build the model on a '
+                "CUDA device (BodyModel(..., device='cuda')).")
+        with torch.no_grad():
+            tv, tj = parity_targets(self, batch, seed)
+            kw = dict(num_iter=num_iter, beta_regularizer=1.0, final_adjust_rots=True,
+                      requested_keys=('pose_rotvecs', 'shape_betas', 'trans'))
+            ours = self.fit(tv, tj, **kw)
+            cpu_bm = BodyModel.from_model_data(bm.model_data, bm.model_name, bm.gender,
+                                               device='cpu')
+            cpu = BodyFitter(cpu_bm, enable_kid=self.enable_kid, num_betas=self.n_betas,
+                             vertex_weights=self.static_vw, joint_weights=self.static_jw)
+            twins = cpu.fit(tv.cpu(), tj.cpu(), **kw)
+            result = parity_gate(bm, ours, twins, tv, betas_atol, v2v_atol_mm)
+        if raise_on_fail and not result['ok']:
+            raise AssertionError(
+                f'kernel parity check failed on {bm.model_name} ({bm.gender}, '
+                f'V={bm.num_vertices}, J={bm.num_joints}, {self.n_betas} betas'
+                f'{", kid" if self.enable_kid else ""}; B={batch}, num_iter={num_iter}): '
+                f'max|d betas|={result["max_dbetas"]:.3e} (atol {betas_atol:g}), v2v kernels '
+                f'{result["v2v_kernel_mm"]:.4f} mm vs CPU twins {result["v2v_xla_mm"]:.4f} mm '
+                f'(atol {v2v_atol_mm:g} mm)')
         return result

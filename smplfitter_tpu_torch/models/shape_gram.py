@@ -40,7 +40,7 @@ import torch
 
 from ..ops import lbs_kernels
 from ..ops import rotation as rot_ops
-from ..ops.lstsq import solve_spd_unrolled
+from ..ops.lstsq import batch_reduce_sum, solve_spd_unrolled
 from .bodymodel import index_tensor
 
 
@@ -321,10 +321,9 @@ def _solve_partial_share(G_aug, r_aug, n_shared: int, batch_mask=None):
     if batch_mask is not None:
         schur = schur * batch_mask[:, None, None]
         moment = moment * batch_mask[:, None]
-    # The batch sums in f64: a padded batch's sums then round to the unpadded
-    # batch's, whatever order the reduction takes.
-    S = schur.double().sum(dim=0).float()
-    rhs = moment.double().sum(dim=0).float()
+    # The batch sums (in f64, completed across ranks under cross_shard).
+    S = batch_reduce_sum(schur, axis=0)
+    rhs = batch_reduce_sum(moment, axis=0)
     xs = solve_spd_unrolled(S[None], rhs[None])[0]  # (ns,)
     xi = di - torch.einsum('bis,s->bi', Ci, xs)
     return torch.cat([xs.expand(G_aug.shape[0], n_shared), xi], dim=1)

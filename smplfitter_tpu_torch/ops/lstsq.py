@@ -6,20 +6,52 @@ solve, ported from ``smplfitter_tpu.ops.lstsq``.
 (design matrices (B, N, P)); the fits run their own lane-major solves
 (:func:`solve_spd_unrolled`, ``shape_gram``). The Gramians are f32 products
 (no TF32: ``ops.precision``) and the factorizations ``torch.linalg.cholesky``.
+
+The only sums over the batch are those of the shared solves
+(:func:`batch_reduce_sum`). Under batch sharding
+(``parallel.sharding.cross_shard``) each rank holds a slice of the batch and
+these sums are completed across the ranks. They are taken in f64 and rounded
+once, where the JAX package sums in f32: the shared solutions of
+:func:`lstsq` (``shared=True``) and :func:`lstsq_partial_share` then differ
+from the JAX package's by its f32 rounding of the sum, which
+``tests/test_torch_refine.py`` holds within 1e-5 x max|JAX|.
 """
 
 from __future__ import annotations
 
+import contextvars
+import warnings
 from typing import Optional
 
 import torch
 from torch.autograd.function import once_differentiable
 
+# Inside a ``parallel.sharding.cross_shard`` region, a 1-tuple of the process
+# group whose ranks hold the batch's slices (None in it: the default group).
+# A ContextVar, so that a region is scoped to the code that opened it.
+CROSS_SHARD_GROUP: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    'smplfitter_torch_cross_shard_group', default=None)
+
+# The autograd-aware all_reduce warns that it is deprecated on every call; the
+# replacement it names has no backward pass. Silenced for this module's calls.
+warnings.filterwarnings('ignore', category=FutureWarning, module=__name__,
+                        message=r'torch\.distributed\.nn\.functional\.all_reduce is deprecated')
+
 
 def batch_reduce_sum(x: torch.Tensor, axis=0, keepdims: bool = False) -> torch.Tensor:
-    """Sum over the batch axis (the JAX package completes it across devices
-    under sharding; the port runs on one device)."""
-    return torch.sum(x, dim=axis, keepdim=keepdims)
+    """Sum over the batch axis in f64, rounded once to ``x``'s dtype: a padded
+    batch whose padding adds zeros then sums to the unpadded batch's value
+    whatever the order of the reduction. Inside a ``cross_shard`` region the
+    f64 sum is completed by an all-reduce over the region's group
+    (``torch.distributed.nn.functional.all_reduce``, so gradients flow back
+    to every rank's slice)."""
+    s = x.double().sum(dim=axis, keepdim=keepdims)
+    region = CROSS_SHARD_GROUP.get()
+    if region is not None:
+        from torch.distributed.nn.functional import all_reduce
+
+        s = all_reduce(s, group=region[0])
+    return s.to(x.dtype)
 
 
 def normal_equations(matrix: torch.Tensor, rhs: torch.Tensor, weights: torch.Tensor,

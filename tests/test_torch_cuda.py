@@ -16,7 +16,10 @@ over a part index with rows in no part; ``share_beta`` and the ragged fit
 function on the card against the CPU; and every kernel form of the fitting
 paths on a vertex subset with an empty part and V % 32 != 0; and the
 applications (a converter, a flipper and a 10-step Adam refiner) on a small
-synthetic full environment against the CPU port, with their launches.
+synthetic full environment against the CPU port, with their launches; and
+the tooling: ``check_kernel_parity`` on SMPL and SMPL-X, ``precompile.warm``
+with the parity check, the sharded fit on an NCCL group of one rank equal
+bit for bit to the fit, and the joint-regressor trainer on the card.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -28,14 +31,17 @@ the suite's conftest:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import smplfitter_tpu_torch
-from chip_smoke import (APP_LAUNCHES, BWD_CAPTURED, CAPTURED, GRAD_PATHS, SPECS, app_parity,
-                        backward_pass, capture_forms, grad_path_counts, params_v2v_mm, path_vg,
-                        record_calls, refine_loss, weighted_fitters)
+from chip_smoke import (APP_LAUNCHES, BWD_CAPTURED, CAPTURED, GRAD_PATHS, SPECS, SPREAD_MULT,
+                        app_parity, backward_pass, capture_forms, grad_path_counts,
+                        params_v2v_mm, parity_spread, path_vg, record_calls, refine_loss,
+                        weighted_fitters)
 from port_on_cpu import port_model_from
 from smplfitter_tpu_torch import BodyFitter, BodyModel, get_cached_fit_fn, get_fit_grad_fn
 from smplfitter_tpu_torch.api import default_loss
@@ -1307,3 +1313,94 @@ def test_refiner_card_matches_cpu(app_models):
     assert not failures
     launches = _launches_of(lambda: opts[0].fit(tv, tj, **kw))
     assert launches == dict(APP_LAUNCHES['refine smpl'], lbs_points=10, lbs_points_bwd=10)
+
+
+
+# --- the tooling: the parity check, precompile, sharding, regressor training ---
+
+
+@pytest.fixture(scope='module')
+def smpl_root_432(tmp_path_factory):
+    """A synthetic SMPL at the CPU tests' width (V=432), its model directory."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    d = str(tmp_path_factory.mktemp('body_models_432'))
+    synthetic.write_model_files(d, 'smpl', 432)
+    return os.path.join(d, 'smpl')
+
+
+@pytest.mark.parametrize('model', ['smpl', 'smplx'])
+def test_check_kernel_parity(card_models, smplx_models, model):
+    """check_kernel_parity at its defaults: ok on SMPL; on SMPL-X max|d betas|
+    within the larger of 1e-3 and SPREAD_MULT x the card fit's own spread
+    (phase 10's rule: the rotation fits amplify f32 rounding on the hands),
+    the mean reconstruction errors within 0.05 mm."""
+    fitter = card_models[1] if model == 'smpl' else smplx_models[1]
+    rep = fitter.check_kernel_parity(raise_on_fail=False)
+    assert set(rep) == {'ok', 'max_dbetas', 'v2v_kernel_mm', 'v2v_xla_mm'}
+    assert np.isfinite([rep['max_dbetas'], rep['v2v_kernel_mm'], rep['v2v_xla_mm']]).all()
+    if model == 'smpl':
+        assert rep['ok'], rep
+    else:
+        limit = max(1e-3, SPREAD_MULT * parity_spread(torch, fitter))
+        assert rep['max_dbetas'] <= limit, (rep, limit)
+        assert abs(rep['v2v_kernel_mm'] - rep['v2v_xla_mm']) <= 0.05, rep
+
+
+def test_precompile_warm_checks_parity(smpl_root_432, capsys):
+    from smplfitter_tpu_torch import precompile
+
+    precompile.warm(model_root=smpl_root_432, batch_sizes=(32,), check_parity=True)
+    out = capsys.readouterr().out
+    assert 'kernel library' in out and 'batch 32: forward and fit' in out
+    assert 'kernel parity: ok=True' in out, out
+
+
+@pytest.mark.parametrize('share_beta', [False, True])
+def test_sharded_fit_on_one_nccl_rank_is_the_fit(card_models, tmp_path, share_beta):
+    """make_sharded_fit_fn on an NCCL group of one rank at B=32 equals the
+    unsharded fit bit for bit (the shared sums' all-reduce of one rank adds
+    nothing), with the headline's launches."""
+    import torch.distributed as dist
+
+    from smplfitter_tpu_torch.parallel import sharding
+
+    bm, fitter = card_models
+    out = bm(*_params(32, 320))
+    tv, tj = out['vertices'].contiguous(), out['joints'].contiguous()
+    kw = dict(FIT_KW, share_beta=share_beta)
+    want = fitter.fit(tv, tj, **kw)
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'file://{tmp_path / "store"}', rank=0,
+                            world_size=1)
+    try:
+        fit = sharding.make_sharded_fit_fn(fitter, **kw)
+        launches = _launches_of(lambda: fit(tv, tj))
+        got = fit(tv, tj)
+    finally:
+        dist.destroy_process_group()
+    assert launches == dict(rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=3)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_regressor_training_on_the_card(smpl_root_432):
+    """The trainer at the CPU test's sizes on the card: its forward passes
+    are K1 (one per step), the rows convex, the regressed joints within 0.1
+    of the model's."""
+    from smplfitter_tpu_torch.utils import joint_regressor_training as jrt
+
+    bm = BodyModel('smpl', 'neutral', model_root=smpl_root_432, device='cuda')
+    subset = np.arange(0, bm.num_vertices, 2)
+    lbs_kernels.reset_launch_counts()
+    reg = jrt.train_post_lbs_regressor(bm, subset, num_steps=60, finetune_steps=30,
+                                       batch_size=16)
+    assert lbs_kernels.LAUNCHES['lbs_points'] == 90
+    assert reg.shape == (24, len(subset))
+    np.testing.assert_allclose(reg.sum(axis=1), 1.0, atol=1e-5)
+    assert np.all(reg >= 0)
+    res = bm(*_params(4, 81)[:2])
+    pred = np.einsum('jv,bvc->bjc', reg, res['vertices'].cpu().numpy()[:, subset])
+    err = np.linalg.norm(pred - res['joints'].cpu().numpy(), axis=-1).mean()
+    assert err < 0.1, err

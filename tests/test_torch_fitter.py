@@ -165,7 +165,12 @@ def test_unported_options_raise(models, targets, option):
 def test_import_leaves_out_jax():
     code = ('import sys, smplfitter_tpu_torch, smplfitter_tpu_torch.ops.lbs_kernels; '
             'from smplfitter_tpu_torch import (BodyConverter, BodyFlipper, HandReplacer, '
-            'BodyFitterOpt, BodyFlipperOpt); '
+            'BodyFitterOpt, BodyFlipperOpt, set_matmul_precision, get_matmul_precision); '
+            'import smplfitter_tpu_torch.precompile, smplfitter_tpu_torch.download; '
+            'import smplfitter_tpu_torch.utils.joint_regressor_training; '
+            'import smplfitter_tpu_torch.utils.profiling; '
+            'import smplfitter_tpu_torch.parallel.sharding; '
+            'assert callable(smplfitter_tpu_torch.BodyFitter.check_kernel_parity); '
             'bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax", '
             '"smplfitter_tpu")]; print(bad); sys.exit(1 if bad else 0)')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
