@@ -37,6 +37,7 @@ from torch import nn
 
 from ..ops import lbs_kernels
 from ..ops import rotation as rot_ops
+from ..utils import profiling
 from .bodymodel import BodyModel, fk_rotations, index_tensor, tree_levels
 from .shape_gram import (SHARED_FIELDS, GramData, build_gram_data, fit_shape_gram_lm,
                          fit_shape_wgram_lm, lbs_recon_spec_lm)
@@ -824,16 +825,17 @@ class BodyFitter(nn.Module):
         fit), so a padded batch gives the unpadded batch's shape. Without
         ``share_beta`` it has no effect: instances never couple."""
         requested_keys = tuple(requested_keys)
-        opt = self._optional
-        target_vertices = self.body_model.as_f32(target_vertices)
-        batch = target_vertices.shape[0]
-        omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights, batch)
-        return self._fit_lm(
-            target_vertices, opt(target_joints), omega_vm, jw_lm, num_iter,
-            beta_regularizer, beta_regularizer2, scale_regularizer, kid_regularizer,
-            final_adjust_rots, scale_target, scale_fit, opt(initial_pose_rotvecs),
-            opt(initial_shape_betas), opt(initial_kid_factor), requested_keys, share_beta,
-            self._batch_mask(batch_mask, batch))
+        with profiling.span('fit'):
+            opt = self._optional
+            target_vertices = self.body_model.as_f32(target_vertices)
+            batch = target_vertices.shape[0]
+            omega_vm, jw_lm = self._call_weights(vertex_weights, joint_weights, batch)
+            return self._fit_lm(
+                target_vertices, opt(target_joints), omega_vm, jw_lm, num_iter,
+                beta_regularizer, beta_regularizer2, scale_regularizer, kid_regularizer,
+                final_adjust_rots, scale_target, scale_fit, opt(initial_pose_rotvecs),
+                opt(initial_shape_betas), opt(initial_kid_factor), requested_keys, share_beta,
+                self._batch_mask(batch_mask, batch))
 
     def _fit_lm(self, target_vertices, target_joints, omega_vm, jw_lm, num_iter,
                 beta_regularizer, beta_regularizer2, scale_regularizer, kid_regularizer,
@@ -842,31 +844,33 @@ class BodyFitter(nn.Module):
                 batch_mask) -> dict:
         bm = self.body_model
         plan = self.plan
-        scale_any = scale_target or scale_fit
-        target_vertices, target_joints, target_mean = _center_targets(
-            target_vertices, target_joints, full_mean=scale_any)
-        tgt_vm = lbs_kernels.to_vertex_major(target_vertices)
-        tj_lm = None if target_joints is None else target_joints.permute(2, 1, 0)
-        has_joints = tj_lm is not None
-        batch = tgt_vm.shape[2]
-        # Per-call ω: the solve is weighted per the both-or-neither rule (the
-        # fitter then has no static weights, so `gram` is unweighted).
-        gram, jw_solve = self._lm_solve_weights(has_joints)
-        wgram_solve = self._solve_weighted(has_joints, omega_vm, jw_lm)
-        wk = dict(jw_lm=jw_lm, omega=omega_vm)
+        with profiling.span('fit.prepare'):
+            scale_any = scale_target or scale_fit
+            target_vertices, target_joints, target_mean = _center_targets(
+                target_vertices, target_joints, full_mean=scale_any)
+            tgt_vm = lbs_kernels.to_vertex_major(target_vertices)
+            tj_lm = None if target_joints is None else target_joints.permute(2, 1, 0)
+            has_joints = tj_lm is not None
+            batch = tgt_vm.shape[2]
+            # Per-call ω: the solve is weighted per the both-or-neither rule (the
+            # fitter then has no static weights, so `gram` is unweighted).
+            gram, jw_solve = self._lm_solve_weights(has_joints)
+            wgram_solve = self._solve_weighted(has_joints, omega_vm, jw_lm)
+            wk = dict(jw_lm=jw_lm, omega=omega_vm)
 
-        if initial_pose_rotvecs is None and initial_shape_betas is None:
-            rj0 = bm.J_template.T[:, :, None] if has_joints else None
-            glob9 = fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, plan.default_mesh_vm, rj0,
-                                            **wk)
-        else:
-            # Warm start: the first rotation fit runs against the initial
-            # parameters' reconstruction and composes onto their rotations.
-            glob9_0 = self._glob9_from_pose(initial_pose_rotvecs, batch)
-            x0 = self._shape_cols(initial_shape_betas, initial_kid_factor, batch)
-            spec0, rj0, _ = lbs_recon_spec_lm(bm, plan, self.gram, glob9_0, x0.T.contiguous())
-            glob9 = rot_ops.matmul3x3_lm(
-                fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec0, rj0, **wk), glob9_0)
+        with profiling.span('fit.rotations'):
+            if initial_pose_rotvecs is None and initial_shape_betas is None:
+                rj0 = bm.J_template.T[:, :, None] if has_joints else None
+                glob9 = fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, plan.default_mesh_vm, rj0,
+                                                **wk)
+            else:
+                # Warm start: the first rotation fit runs against the initial
+                # parameters' reconstruction and composes onto their rotations.
+                glob9_0 = self._glob9_from_pose(initial_pose_rotvecs, batch)
+                x0 = self._shape_cols(initial_shape_betas, initial_kid_factor, batch)
+                spec0, rj0, _ = lbs_recon_spec_lm(bm, plan, self.gram, glob9_0, x0.T.contiguous())
+                glob9 = rot_ops.matmul3x3_lm(
+                    fit_rotations_to_spec_lm(bm, plan, tgt_vm, tj_lm, spec0, rj0, **wk), glob9_0)
 
         # With target joints the fitted mesh reaches the rotation fits as
         # kernel operands; without, it is made (K1) to regress joints from.
@@ -887,70 +891,75 @@ class BodyFitter(nn.Module):
                                      beta_regularizer2, jw_static=jw_solve, **kw)
 
         for _ in range(num_iter - 1):
-            res = solve(glob9, (recon_key, 'joints_lm') if has_joints else (recon_key,))
-            glob9 = rot_ops.matmul3x3_lm(
-                fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, res.get('vertices_vm'),
-                                        res.get('joints_lm'),
-                                        reference_spec=res.get('recon_spec'), **wk),
-                glob9)
-        res = solve(glob9, (recon_key, 'joints_lm') if (has_joints or final_adjust_rots)
-                    else (recon_key,), scale=scale_any)
+            with profiling.span('fit.solve'):
+                res = solve(glob9, (recon_key, 'joints_lm') if has_joints else (recon_key,))
+            with profiling.span('fit.rotations'):
+                glob9 = rot_ops.matmul3x3_lm(
+                    fit_global_rotations_lm(bm, plan, tgt_vm, tj_lm, res.get('vertices_vm'),
+                                            res.get('joints_lm'),
+                                            reference_spec=res.get('recon_spec'), **wk),
+                    glob9)
+        with profiling.span('fit.solve'):
+            res = solve(glob9, (recon_key, 'joints_lm') if (has_joints or final_adjust_rots)
+                        else (recon_key,), scale=scale_any)
 
         if final_adjust_rots:
-            # scale_target scales the targets by the fitted factor; scale_fit
-            # scales the reconstruction about its translation,
-            # pos' = s pos + (1 - s) t, applied to the spec by scaling its
-            # [R|t] entries (exact: LBS is linear in them and skinning rows
-            # sum to 1), and the tree walk by the scaled model joints.
-            adj_tgt_vm, adj_tj = tgt_vm, tj_lm
-            ref_vm, ref_spec = res.get('vertices_vm'), res.get('recon_spec')
-            ref_j = res['joints_lm']
-            adj_scale_corr = None
-            factor = res['scale_corr']
-            if scale_target:
-                adj_tgt_vm = tgt_vm * factor
-                adj_tj = None if tj_lm is None else tj_lm * factor
-            elif scale_fit:
-                shift = (1.0 - factor)[None, :] * res['trans_lm']  # (3, B)
-                if ref_vm is not None:
-                    ref_vm = ref_vm * factor + shift[:, None, :]
-                ref_j = ref_j * factor + shift[:, None, :]
-                if ref_spec is not None:
-                    pj = ref_spec['pj_cm'] * factor
-                    pj[3::4] += shift[:, None, :]
-                    ref_spec = dict(ref_spec, pj_cm=pj)
-                adj_scale_corr = factor
-            glob9 = fit_global_rotations_dependent_lm(
-                bm, plan, adj_tgt_vm, adj_tj, ref_vm, ref_j, glob9, res['shape_betas'],
-                res['trans_lm'], res['kid_factor'], reference_spec=ref_spec,
-                scale_corr=adj_scale_corr, **wk)
+            with profiling.span('fit.adjust'):
+                # scale_target scales the targets by the fitted factor; scale_fit
+                # scales the reconstruction about its translation,
+                # pos' = s pos + (1 - s) t, applied to the spec by scaling its
+                # [R|t] entries (exact: LBS is linear in them and skinning rows
+                # sum to 1), and the tree walk by the scaled model joints.
+                adj_tgt_vm, adj_tj = tgt_vm, tj_lm
+                ref_vm, ref_spec = res.get('vertices_vm'), res.get('recon_spec')
+                ref_j = res['joints_lm']
+                adj_scale_corr = None
+                factor = res['scale_corr']
+                if scale_target:
+                    adj_tgt_vm = tgt_vm * factor
+                    adj_tj = None if tj_lm is None else tj_lm * factor
+                elif scale_fit:
+                    shift = (1.0 - factor)[None, :] * res['trans_lm']  # (3, B)
+                    if ref_vm is not None:
+                        ref_vm = ref_vm * factor + shift[:, None, :]
+                    ref_j = ref_j * factor + shift[:, None, :]
+                    if ref_spec is not None:
+                        pj = ref_spec['pj_cm'] * factor
+                        pj[3::4] += shift[:, None, :]
+                        ref_spec = dict(ref_spec, pj_cm=pj)
+                    adj_scale_corr = factor
+                glob9 = fit_global_rotations_dependent_lm(
+                    bm, plan, adj_tgt_vm, adj_tj, ref_vm, ref_j, glob9, res['shape_betas'],
+                    res['trans_lm'], res['kid_factor'], reference_spec=ref_spec,
+                    scale_corr=adj_scale_corr, **wk)
 
-        if scale_target:
-            trans_out = res['trans'] + target_mean * res['scale_corr'][:, None]
-        elif scale_fit:
-            trans_out = res['trans'] + target_mean / res['scale_corr'][:, None]
-        else:
-            trans_out = res['trans'] + target_mean
-        J = bm.num_joints
-        orientations = glob9.permute(2, 1, 0).reshape(batch, J, 3, 3)
-        result = dict(
-            shape_betas=res['shape_betas'],
-            kid_factor=res['kid_factor'],
-            scale_corr=res['scale_corr'],
-            trans=trans_out,
-            relative_orientations=res['relative_orientations_lm'].permute(2, 1, 0).reshape(
-                batch, J, 3, 3),
-            orientations=orientations,
-        )
-        if 'joints' in requested_keys or 'vertices' in requested_keys:
-            forw = bm(glob_rotmats=orientations, shape_betas=res['shape_betas'],
-                      trans=res['trans'] + target_mean, kid_factor=res['kid_factor'],
-                      return_vertices='vertices' in requested_keys)
-            for key in ('joints', 'vertices'):
-                if key in requested_keys:
-                    result[key] = forw[key]
-        _lm_rotation_formats(bm, result, glob9, requested_keys)
-        return {k: v for k, v in result.items() if v is not None}
+        with profiling.span('fit.outputs'):
+            if scale_target:
+                trans_out = res['trans'] + target_mean * res['scale_corr'][:, None]
+            elif scale_fit:
+                trans_out = res['trans'] + target_mean / res['scale_corr'][:, None]
+            else:
+                trans_out = res['trans'] + target_mean
+            J = bm.num_joints
+            orientations = glob9.permute(2, 1, 0).reshape(batch, J, 3, 3)
+            result = dict(
+                shape_betas=res['shape_betas'],
+                kid_factor=res['kid_factor'],
+                scale_corr=res['scale_corr'],
+                trans=trans_out,
+                relative_orientations=res['relative_orientations_lm'].permute(2, 1, 0).reshape(
+                    batch, J, 3, 3),
+                orientations=orientations,
+            )
+            if 'joints' in requested_keys or 'vertices' in requested_keys:
+                forw = bm(glob_rotmats=orientations, shape_betas=res['shape_betas'],
+                          trans=res['trans'] + target_mean, kid_factor=res['kid_factor'],
+                          return_vertices='vertices' in requested_keys)
+                for key in ('joints', 'vertices'):
+                    if key in requested_keys:
+                        result[key] = forw[key]
+            _lm_rotation_formats(bm, result, glob9, requested_keys)
+            return {k: v for k, v in result.items() if v is not None}
 
     def fit_with_known_pose(
         self,

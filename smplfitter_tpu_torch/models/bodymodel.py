@@ -19,6 +19,7 @@ from torch import nn
 from ..ops import lbs_kernels
 from ..ops import rotation as rot_ops
 from ..utils import modeldata as _modeldata
+from ..utils import profiling
 
 
 @functools.lru_cache(maxsize=None)
@@ -193,6 +194,12 @@ class BodyModel(nn.Module):
         parent-relative rotation matrices (B, J, 3, 3) or global ones
         (B, J, 3, 3); none means the T-pose. ``return_vertices=False`` skips
         the mesh and returns joints and orientations only."""
+        with profiling.span('forward'):
+            return self._forward(pose_rotvecs, shape_betas, trans, kid_factor, rel_rotmats,
+                                 glob_rotmats, return_vertices)
+
+    def _forward(self, pose_rotvecs, shape_betas, trans, kid_factor, rel_rotmats,
+                 glob_rotmats, return_vertices: bool) -> dict:
         rot_inputs = [name for name, x in (('pose_rotvecs', pose_rotvecs),
                                            ('rel_rotmats', rel_rotmats),
                                            ('glob_rotmats', glob_rotmats)) if x is not None]

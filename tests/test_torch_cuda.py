@@ -19,7 +19,9 @@ applications (a converter, a flipper and a 10-step Adam refiner) on a small
 synthetic full environment against the CPU port, with their launches; and
 the tooling: ``check_kernel_parity`` on SMPL and SMPL-X, ``precompile.warm``
 with the parity check, the sharded fit on an NCCL group of one rank equal
-bit for bit to the fit, and the joint-regressor trainer on the card.
+bit for bit to the fit, and the joint-regressor trainer on the card; and
+the fit's stage spans under ``torch.profiler``: no device event of their
+own, the stages' stream times adding up to the fit's.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -31,6 +33,7 @@ the suite's conftest:
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -46,7 +49,7 @@ from port_on_cpu import port_model_from
 from smplfitter_tpu_torch import BodyFitter, BodyModel, get_cached_fit_fn, get_fit_grad_fn
 from smplfitter_tpu_torch.api import default_loss
 from smplfitter_tpu_torch.ops import lbs_kernels
-from smplfitter_tpu_torch.utils import synthetic
+from smplfitter_tpu_torch.utils import profiling, synthetic
 
 pytestmark = pytest.mark.cuda
 
@@ -1404,3 +1407,54 @@ def test_regressor_training_on_the_card(smpl_root_432):
     pred = np.einsum('jv,bvc->bjc', reg, res['vertices'].cpu().numpy()[:, subset])
     err = np.linalg.norm(pred - res['joints'].cpu().numpy(), axis=-1).mean()
     assert err < 0.1, err
+
+
+def _profiled_fit(fitter, tv, tj):
+    """The names of the device events and the spans (by ordinal) of one
+    headline fit under ``torch.profiler``. The session starts with a kernel
+    of its own and a synchronise, and only device events after that count:
+    some sessions lose their first kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device='cuda').add_(1)
+        torch.cuda.synchronize()
+        fitter.fit(tv, tj, **FIT_KW)
+        torch.cuda.synchronize()
+    events = prof.events()
+    cut = min(e.time_range.end for e in events if e.name == 'cudaDeviceSynchronize')
+    device = [e.name for e in events
+              if e.device_type == DeviceType.CUDA and e.time_range.start >= cut]
+    recs = sorted(profiling.spans(), key=lambda r: r['index'])
+    profiling.clear_spans()
+    return device, recs
+
+
+def test_fit_spans_add_no_device_event(card_models, monkeypatch):
+    """A B=4096 headline fit under the profiler: its spans give the same
+    device events as the fit with the spans made null, none named after a
+    span; the stages' stream ms add up to the fit's within 3%, and their
+    launches to the fit's and the counters' change."""
+    bm, fitter = card_models
+    out = bm(*_params(4096, 23))
+    tv, tj = out['vertices'], out['joints']
+    fitter.fit(tv, tj, **FIT_KW)
+    torch.cuda.synchronize()
+    before = sum(lbs_kernels.LAUNCHES.values())
+    device, recs = _profiled_fit(fitter, tv, tj)
+    launched = sum(lbs_kernels.LAUNCHES.values()) - before
+    assert [r['name'] for r in recs] == [
+        'fit', 'fit.prepare', 'fit.rotations', 'fit.solve', 'fit.rotations', 'fit.solve',
+        'fit.rotations', 'fit.solve', 'fit.adjust', 'fit.outputs']
+    names = {r['name'] for r in recs}
+    assert not [n for n in device if n.split('#')[0] in names]
+    fit, stages = recs[0], recs[1:]
+    assert fit['launches'] == launched == sum(r['launches'] for r in stages) > 0
+    stage_ms = sum(r['stream_ms'] for r in stages)
+    assert abs(stage_ms - fit['stream_ms']) <= 0.03 * fit['stream_ms'], (stage_ms, fit)
+    monkeypatch.setattr(profiling, 'span', lambda name: contextlib.nullcontext())
+    device_null, recs_null = _profiled_fit(fitter, tv, tj)
+    assert recs_null == []
+    assert len(device) == len(device_null) > 0
