@@ -29,7 +29,7 @@ _I = ctypes.c_int
 # name -> argument types; every launcher returns a cudaError_t as int.
 _SIGNATURES = {
     'lbs_points_launch': [_P] * 9 + [_I] * 7 + [_P],
-    'rhs_moments_launch': [_P] * 18 + [_I] * 12 + [_P],
+    'rhs_moments_launch': [_P] * 18 + [_I] * 13 + [_P],
     'gram_terms_launch': [_P] * 14 + [_I] * 5 + [_P],
     'recon_part_sums_launch': [_P] * 16 + [_I] * 9 + [_P],
     'part_sums_launch': [_P] * 10 + [_I] * 9 + [_P],

@@ -10,7 +10,8 @@ is how the CPU tests hold the port to the JAX package. CUDA tensors go to the
 hand-written kernel in ``csrc/`` (built on first use, see ``_build.py``), or
 the wrapper raises; there is no fallback from one to the other. Each kernel
 launch adds one to ``LAUNCHES[<name>]``; a fit-weighted (ω) form counts
-under its own key, the unweighted key with ``_w`` appended.
+under its own key, the unweighted key with ``_w`` appended. K2's launches
+also count in ``K2_PIPELINE`` under the loop they took.
 
 | wrapper                     | CUDA source                 | replaces (JAX package)           |
 |-----------------------------|-----------------------------|----------------------------------|
@@ -173,6 +174,17 @@ TORCH_VJPS = {
     'wgram': 0,
 }
 
+# K2 launches by the loop they took (csrc/rhs_moments.cu): 'overlapped', the
+# template-dot forms on runs of at least K2_OVERLAP_MIN_TILES segments, whose
+# dot warps run the next tile's template dot while its epilogue warps run
+# this tile's epilogue; 'serial', the cached forms (no dot to overlap) and
+# shorter runs (little to overlap), each tile's dot then its epilogue.
+K2_PIPELINE = {'overlapped': 0, 'serial': 0}
+K2_OVERLAP_MIN_TILES = 4
+# The longest run whose vertex rows fit in a block's shared memory beside the
+# overlapped loop's stages at E = 32; longer runs take the serial loop.
+K2_OVERLAP_MAX_TILES = 444
+
 # Row padding of the per-vertex constant operands (weights_pad, consts, sd_cm).
 # The kernels mask by row index and need none; it is kept equal to the JAX
 # package's vertex chunk so the precomputed fields compare directly.
@@ -205,8 +217,8 @@ TERM1_STREAM_MIN_BYTES = 2.75 * 2 ** 20
 
 
 def reset_launch_counts() -> None:
-    """Zero LAUNCHES, TORCH_VJPS and HOST_COVERS."""
-    for counts in (LAUNCHES, TORCH_VJPS, HOST_COVERS):
+    """Zero LAUNCHES, TORCH_VJPS, HOST_COVERS and K2_PIPELINE."""
+    for counts in (LAUNCHES, TORCH_VJPS, HOST_COVERS, K2_PIPELINE):
         for name in counts:
             counts[name] = 0
 
@@ -808,6 +820,7 @@ def _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, hom
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     per_block, n_splits = _segment_runs(cover.n_seg, B, dev, 1)
+    overlap = not cached and K2_OVERLAP_MIN_TILES <= per_block <= K2_OVERLAP_MAX_TILES
     r, y = empty(E, B), empty(3, J, B)
     homog = empty(3, Vp, B) if emit_homog else homog_vm
     rt, yt, sc = (empty(E, B), empty(3, J, B), empty(3, B)) if scale else (None,) * 3
@@ -822,9 +835,10 @@ def _rhs_run(name, tgt_vm, pj_cm, feat_cols, weights_pad, consts_pad, sd_cm, hom
         _ptr(sd_cm), ptr(omega), _ptr(cover.verts), _ptr(cover.seg_offset), _ptr(cover.joints),
         _ptr(cover.joint_offset), _ptr(r), _ptr(y), ptr(homog), ptr(rt), ptr(yt), ptr(sc),
         _ptr(part), J, B, F, E, v_t, Vp, cover.n_seg, per_block, cover.covers,
-        int(emit_homog), int(scale), int(cached), _stream(r))
+        int(emit_homog), int(scale), int(cached), int(overlap), _stream(r))
     _build.check(err, name)
     LAUNCHES[name] += 1
+    K2_PIPELINE['overlapped' if overlap else 'serial'] += 1
     if emit_homog:
         return r, y, homog
     return (r, y, rt, yt, sc) if scale else (r, y)

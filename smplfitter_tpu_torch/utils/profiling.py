@@ -184,7 +184,8 @@ def _mark(name: str) -> None:
 
 def _counts() -> tuple:
     return tuple(sum(c.values()) for c in (lbs_kernels.LAUNCHES, lbs_kernels.TORCH_VJPS,
-                                           lbs_kernels.HOST_COVERS))
+                                           lbs_kernels.HOST_COVERS)) + (
+        lbs_kernels.K2_PIPELINE['overlapped'],)
 
 
 class _Span:
@@ -227,11 +228,12 @@ class _Span:
             self.events[1].synchronize()
             self.stream_ms = self.events[0].elapsed_time(self.events[1])
             self.events = None
-        launches, torch_vjps, host_covers = self.counts
+        launches, torch_vjps, host_covers, k2_overlapped = self.counts
         return dict(index=self.index, name=self.name, parent=self.parent, call=self.call,
                     marks=list(self.marks), host_start_ns=self.host_start_ns,
                     host_end_ns=self.host_end_ns, stream_ms=self.stream_ms, launches=launches,
-                    torch_vjps=torch_vjps, host_covers=host_covers)
+                    torch_vjps=torch_vjps, host_covers=host_covers,
+                    k2_overlapped=k2_overlapped)
 
 
 def span(name: str):
@@ -244,8 +246,9 @@ def span(name: str):
     host interval (``time.perf_counter_ns``); a pair of CUDA events on the
     current stream, where CUDA is initialised, whose elapsed time is its
     stream interval, resolved when the record is read (a span never
-    synchronises); and the change across it of the sums of
-    ``lbs_kernels.LAUNCHES``, ``TORCH_VJPS`` and ``HOST_COVERS``. At enter
+    synchronises); the change across it of the sums of
+    ``lbs_kernels.LAUNCHES``, ``TORCH_VJPS`` and ``HOST_COVERS``, and of
+    ``K2_PIPELINE['overlapped']`` (K2 launches by its overlapped loop). At enter
     and exit it puts an empty range on the profiler's timeline, named
     ``<name>#<ordinal>>`` and ``<name>#<ordinal><`` (the record's
     ``marks``), which places the span among the profiler's events."""
@@ -259,8 +262,8 @@ def spans() -> list:
     ``name``, ``parent`` and ``call`` (ordinals; ``parent`` None for an
     outermost span), ``marks``, ``host_start_ns`` / ``host_end_ns``,
     ``stream_ms`` (None without CUDA events) and the counter changes
-    ``launches``, ``torch_vjps``, ``host_covers``. Reading waits for each
-    span's end event."""
+    ``launches``, ``torch_vjps``, ``host_covers``, ``k2_overlapped``. Reading
+    waits for each span's end event."""
     return [s.record() for s in list(_finished)]
 
 

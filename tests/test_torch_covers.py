@@ -253,6 +253,19 @@ def test_missing_cover_is_built_and_counted(small_calls, on_card, monkeypatch):
     assert port_k.HOST_COVERS['lbs_points'] == 1 and built['rows'] == args[2].shape[0]
 
 
+def test_cpu_calls_take_no_k2_loop(small_calls):
+    """K2's twins launch nothing: a CPU call counts under neither of
+    ``K2_PIPELINE``'s loops, and ``reset_launch_counts`` zeroes them."""
+    args, kwargs = small_calls[2]['rhs_moments_h'][0]
+    port_k.K2_PIPELINE['overlapped'] += 1
+    port_k.reset_launch_counts()
+    assert port_k.K2_PIPELINE == {'overlapped': 0, 'serial': 0}
+    with torch.no_grad():
+        port_k.rhs_moments_h(*args, **kwargs)
+    assert port_k.K2_PIPELINE == {'overlapped': 0, 'serial': 0}
+    assert port_k.LAUNCHES['rhs_moments_h'] == 0
+
+
 def test_model_copy_keeps_its_cover(small_calls):
     bm = small_calls[0]
     copy = port_model_from(bm)

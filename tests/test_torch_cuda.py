@@ -10,7 +10,10 @@ against their twins and bit for bit against a second call; the kernels that
 walk active-joint lists (K9, K6, K1, K2, K4 in its three forms, and the
 backward kernels K10, K13 and K14 at MANO, SMPL and SMPL-X widths) the same
 way, and K11 and K12 (every form, unweighted and static ω) over K2's
-cover at MANO, SMPL and SMPL-X widths and dense SMPL-X weights; K3 at SMPL
+cover at MANO, SMPL and SMPL-X widths and dense SMPL-X weights; K2's
+template-dot forms on runs long enough for its overlapped loop (odd runs,
+E = 11 and 32, ω, dense weights, the 4-byte path) and at B = 32 on its
+serial loop, with ``K2_PIPELINE``'s count of each; K3 at SMPL
 and MANO widths with and without the joints block, and K15 in every form
 over a part index with rows in no part; ``share_beta`` and the ragged fit
 function on the card against the CPU; and every kernel form of the fitting
@@ -174,6 +177,18 @@ def test_fit_launches_each_kernel_three_times(card_models):
         NO_LAUNCHES, rhs_moments_h=3, gram_assembly=3, recon_part_sums_cached=3)
 
 
+def test_fit_k2_pipeline_counts(card_models):
+    """The headline fit's three K2 launches take the overlapped loop on long
+    runs (B = 4096) and the serial one on short runs (B = 40)."""
+    bm, fitter = card_models
+    for batch, loop in ((4096, 'overlapped'), (40, 'serial')):
+        out = bm(*_params(batch, 4))
+        lbs_kernels.reset_launch_counts()
+        fitter.fit(out['vertices'], out['joints'], **FIT_KW)
+        assert lbs_kernels.LAUNCHES['rhs_moments_h'] == 3
+        assert lbs_kernels.K2_PIPELINE == dict({'overlapped': 0, 'serial': 0}, **{loop: 3})
+
+
 def test_fit_without_joints_launch_counts(card_models):
     bm, fitter = card_models
     out = bm(*_params(40, 3))
@@ -254,6 +269,7 @@ def test_smplx_fit_launch_counts(smplx_models):
     fitter.fit(out['vertices'], out['joints'], **FIT_KW)
     assert lbs_kernels.LAUNCHES == dict(NO_LAUNCHES, posed_template=3, rhs_moments_cached=3,
                                         term1=3, recon_part_sums_cached=3)
+    assert lbs_kernels.K2_PIPELINE == {'overlapped': 0, 'serial': 3}
 
 
 def _max_dbetas(a, b):
@@ -865,6 +881,52 @@ def test_rhs_moments_kernel_at_edges(card, form, E, omega, dense):
             assert torch.equal(out[2][:, COVER_V:], torch.zeros_like(out[2][:, COVER_V:]))
 
 
+# K2's overlapped loop: (V, batch, target rows). At V = 1001 the runs hold
+# 12 segments and the last 11 (9 with dense weights), or at B = 2304 7 and
+# the last 5 (3): odd counts of tiles; B = 4099 takes the 4-byte path and its
+# last block's 3 columns leave the second group of warps idle, B = 4196's
+# last block gives that group 36 live columns. At V = 6890 and B = 32 the
+# runs hold 2 segments: the serial loop.
+K2_OVERLAP_CASES = [(1001, 4096, 1001), (1001, 4099, 964), (1001, 4196, 1001),
+                    (1001, 2304, 701), (6890, 32, 6890), (6890, 32, 6853)]
+
+
+@pytest.mark.parametrize('dense', [False, True])
+@pytest.mark.parametrize('omega', [False, True])
+@pytest.mark.parametrize('E', [11, 32])
+@pytest.mark.parametrize('form', ['emit', 'plain', 'scale'])
+def test_rhs_moments_overlapped_loop(card, form, E, omega, dense):
+    """K2's template-dot forms on runs long enough for the overlapped loop
+    (and at B = 32 on the serial one), E = 11 and 32, unweighted and static
+    ω, sparse and dense weights, targets of all V rows and of fewer: within
+    REL_TOL of the twin, bit for bit on a repeat, each launch counted under
+    the loop it took."""
+    wrapper, extra, key = K2_FORMS[form]
+    J, F = 24, 208
+    for V, batch, v_t in K2_OVERLAP_CASES:
+        w = _skinning(J + E + V, V, J, dense)
+        vp = w.shape[0]
+        cover = lbs_kernels.wgram_cover(w.cpu().numpy(), V, 'cuda')
+        per_block, _ = lbs_kernels._segment_runs(cover.n_seg, batch, 'cuda', 1)
+        loop = 'overlapped' if per_block >= lbs_kernels.K2_OVERLAP_MIN_TILES else 'serial'
+        assert loop == ('serial' if batch == 32 else 'overlapped')
+        consts = _template(F + V, F, vp, V)
+        sd = _normal(E + V, 3, vp, E, scale=0.05)
+        kw = dict(extra, cover=cover)
+        if omega:
+            om = np.random.default_rng(E + V).uniform(0.1, 2.0, (vp, 1))
+            om[::5] = 0.0
+            om[V:] = 0.0
+            kw['omega'] = torch.as_tensor(om, dtype=torch.float32, device='cuda')
+        seed = 1000 * E + batch + v_t
+        args = (_normal(seed, 3, v_t, batch), _normal(seed + 1, 12, J, batch, scale=0.5),
+                _normal(seed + 2, F, batch), w, consts, sd)
+        out = _hold_all(wrapper, args, kw, key + ('_w' if omega else ''))
+        assert lbs_kernels.K2_PIPELINE == dict({'overlapped': 0, 'serial': 0}, **{loop: 2})
+        if form == 'emit':
+            assert torch.equal(out[2][:, V:], torch.zeros_like(out[2][:, V:]))
+
+
 # ---------------------------------------------------------------------------
 # K10 and K14 at their edges: fronts over a cover's or a part index's tiles
 # ---------------------------------------------------------------------------
@@ -1452,6 +1514,9 @@ def test_fit_spans_add_no_device_event(card_models, monkeypatch):
     assert not [n for n in device if n.split('#')[0] in names]
     fit, stages = recs[0], recs[1:]
     assert fit['launches'] == launched == sum(r['launches'] for r in stages) > 0
+    # K2 emit, once per shape solve, by the overlapped loop at this batch.
+    assert fit['k2_overlapped'] == 3
+    assert [r['k2_overlapped'] for r in stages if r['name'] == 'fit.solve'] == [1, 1, 1]
     stage_ms = sum(r['stream_ms'] for r in stages)
     assert abs(stage_ms - fit['stream_ms']) <= 0.03 * fit['stream_ms'], (stage_ms, fit)
     monkeypatch.setattr(profiling, 'span', lambda name: contextlib.nullcontext())

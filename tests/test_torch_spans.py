@@ -24,9 +24,12 @@ FIT_KW = dict(num_iter=3, beta_regularizer=1.0, final_adjust_rots=True,
               requested_keys=('pose_rotvecs', 'shape_betas', 'trans'))
 FIT_STAGES = ['fit', 'fit.prepare', 'fit.rotations', 'fit.solve', 'fit.rotations', 'fit.solve',
               'fit.rotations', 'fit.solve', 'fit.adjust', 'fit.outputs']
-# Wrappers the headline fit calls, each moving one counter per call here.
-COUNTED = {'rhs_moments_h': 'LAUNCHES', 'gram_assembly': 'TORCH_VJPS',
-           'recon_part_sums_cached_lm': 'HOST_COVERS'}
+# Wrappers the headline fit calls, each moving one counter per call here
+# (rhs_moments_h also K2_PIPELINE's overlapped loop, as on long runs).
+COUNTED = {'rhs_moments_h': ('LAUNCHES', 'K2_PIPELINE'), 'gram_assembly': ('TORCH_VJPS',),
+           'recon_part_sums_cached_lm': ('HOST_COVERS',)}
+KEYS = {'LAUNCHES': 'launches', 'TORCH_VJPS': 'torch_vjps', 'HOST_COVERS': 'host_covers',
+        'K2_PIPELINE': 'k2_overlapped'}
 
 
 @pytest.fixture(scope='module')
@@ -54,13 +57,13 @@ def profiled(smpl):
     counters: (spans by ordinal, events, [(ns, counter) of each count])."""
     counted = []
     originals = {name: getattr(lbs_kernels, name) for name in COUNTED}
-    saved = {c: dict(getattr(lbs_kernels, c)) for c in set(COUNTED.values())}
+    saved = {c: dict(getattr(lbs_kernels, c)) for c in KEYS}
 
     def counting(name, fn):
         def wrapped(*args, **kwargs):
-            counter = COUNTED[name]
-            getattr(lbs_kernels, counter)[next(iter(saved[counter]))] += 1
-            counted.append((time.perf_counter_ns(), counter))
+            for counter in COUNTED[name]:
+                getattr(lbs_kernels, counter)[next(iter(saved[counter]))] += 1
+                counted.append((time.perf_counter_ns(), counter))
             return fn(*args, **kwargs)
         return wrapped
 
@@ -139,16 +142,16 @@ def test_only_the_marks_carry_a_span_name(profiled):
 
 def test_the_counter_changes_are_those_made_inside_each_span(profiled):
     recs, _, counted = profiled
-    key = {'LAUNCHES': 'launches', 'TORCH_VJPS': 'torch_vjps', 'HOST_COVERS': 'host_covers'}
     for r in recs:
-        made = {k: 0 for k in key.values()}
+        made = {k: 0 for k in KEYS.values()}
         for ns, counter in counted:
             if r['host_start_ns'] <= ns <= r['host_end_ns']:
-                made[key[counter]] += 1
+                made[KEYS[counter]] += 1
         assert {k: r[k] for k in made} == made, r['name']
     fit, stages = recs[0], recs[1:-1]
     assert fit['launches'] > 0 and fit['torch_vjps'] > 0 and fit['host_covers'] > 0
-    for k in key.values():
+    assert fit['k2_overlapped'] == 3  # one K2 launch per shape solve
+    for k in KEYS.values():
         assert fit[k] == sum(r[k] for r in stages)
 
 

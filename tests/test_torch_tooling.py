@@ -226,6 +226,27 @@ def test_debug_nans_raises_on_a_backward_nan():
     assert torch.isnan(x.grad).all()
 
 
+def test_benchmark_finds_every_kernel():
+    """The benchmark's trace reader (``portbench.harness.kernel_patterns``)
+    knows each ``__global__`` function of the kernel sources by name, so the
+    device time of every kernel counts as kernel time and none as glue."""
+    import re
+
+    from portbench import harness
+
+    csrc = _build.CSRC_DIR
+    text = ''.join(p.read_text() for p in sorted(csrc.glob('*.cu*')))
+    # Each kernel's name: the first identifier after __global__ that opens an
+    # argument list, __launch_bounds__ aside.
+    names = [m.group(1) for m in re.finditer(
+        r'__global__\s+void\s+(?:__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)\s*\(',
+        text)]
+    assert len(names) == text.count('__global__') > 0
+    wanted = sorted(r'\b' + n + r'\b' for n in names)
+    pats = harness.kernel_patterns(str(csrc.parent.parent))
+    assert sorted(p for p in pats if p in wanted) == wanted
+
+
 # --- matmul precision ---------------------------------------------------------
 
 
