@@ -8,13 +8,13 @@ the 6D representation, so a distal joint's gradient does not pass through the
 kinematic chain; the original SMPLFitter library's refiner optimizes relative
 rotations instead. The divergence is kept: the port follows the JAX package.
 
-Each step is one forward pass through ``BodyModel.forward(glob_rotmats=...)``
-(K1 on the card) and its backward (K10), then ``torch.optim.Adam`` in a Python
-loop. The learning-rate schedule is the JAX package's optax one written out:
-a linear warmup from 0 to ``lr`` over ``max(1, int(n * warmup_ratio))`` steps,
-then a cosine decay to 0 over ``max(1, n - warmup)`` steps, evaluated at the
-step's index before the update (so the first step runs at lr 0 and only moves
-Adam's moments).
+Each step is :meth:`BodyFitterOpt.loss_and_grad`, one forward pass through
+``BodyModel.forward(glob_rotmats=...)`` (K1 on the card) and its backward
+(K10), then ``torch.optim.Adam`` in a Python loop. The learning-rate schedule
+is the JAX package's optax one written out: a linear warmup from 0 to ``lr``
+over ``max(1, int(n * warmup_ratio))`` steps, then a cosine decay to 0 over
+``max(1, n - warmup)`` steps, evaluated at the step's index before the update
+(so the first step runs at lr 0 and only moves Adam's moments).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import math
 import torch
 
 from ..ops import rotation as rot_ops
+from ..utils import profiling
 from .bodyfitter import BodyFitter
 from .bodymodel import BodyModel, fk_rotations, index_tensor
 
@@ -92,6 +93,54 @@ class BodyFitterOpt:
                             init.get('kid_factor'), beta_regularizer, refine_steps, refine_lr,
                             warmup_ratio)
 
+    def loss_and_grad(self, params: dict, target_vertices, target_joints=None,
+                      vertex_weights=None, joint_weights=None,
+                      beta_regularizer: float = 1.0) -> tuple:
+        """The refiner's loss at ``params`` and its gradient with respect to
+        each of them: one step of :meth:`fit`'s refinement before Adam's
+        update, and the loss a training pipeline puts through the model.
+
+        ``params``: ``'rot6d'`` (B, J, 6) global rotations in the 6D
+        representation, ``'betas'`` (B, E), ``'trans'`` (B, 3) and, with the
+        kid factor, ``'kid'`` (B,). The loss is the mean over the batch and
+        the vertices of the (``vertex_weights``-weighted) distance to
+        ``target_vertices``, plus the same over the joints where
+        ``target_joints`` is given, plus ``beta_regularizer`` times the mean
+        square of the betas from the third on. Returns the loss (a detached
+        scalar) and {name: gradient} in ``params``' order.
+
+        The forward pass is ``BodyModel.forward(glob_rotmats=...)`` (K1 on
+        the card), the backward the autograd Functions' own (K10). Spans:
+        ``refine`` around ``refine.loss`` (the forward pass and the loss) and
+        ``refine.backward`` (the autograd call, whose CUDA work the engine
+        runs on a thread of its own)."""
+        bm = self.body_model
+        target_vertices, target_joints, vertex_weights, joint_weights = (
+            None if x is None else bm.as_f32(x).detach()
+            for x in (target_vertices, target_joints, vertex_weights, joint_weights))
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        with profiling.span('refine'):
+            with profiling.span('refine.loss'), torch.enable_grad():
+                res = bm(glob_rotmats=rot_ops.rot6d_to_rotmat(leaves['rot6d']),
+                         shape_betas=leaves['betas'], trans=leaves['trans'],
+                         kid_factor=leaves.get('kid'))
+                v_diff_norm = torch.linalg.norm(res['vertices'] - target_vertices, dim=-1)
+                if vertex_weights is not None:
+                    loss = torch.mean(vertex_weights * v_diff_norm)
+                else:
+                    loss = torch.mean(v_diff_norm)
+                if target_joints is not None:
+                    j_diff_norm = torch.linalg.norm(res['joints'] - target_joints, dim=-1)
+                    if joint_weights is not None:
+                        loss = loss + torch.mean(joint_weights * j_diff_norm)
+                    else:
+                        loss = loss + torch.mean(j_diff_norm)
+                if beta_regularizer > 0 and leaves['betas'].shape[1] > 2:
+                    loss = loss + beta_regularizer * torch.mean(leaves['betas'][:, 2:] ** 2)
+            with profiling.span('refine.backward'):
+                grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.detach(), dict(zip(leaves, grads))
+
     def _refine(
         self,
         target_vertices,
@@ -122,33 +171,16 @@ class BodyFitterOpt:
             params['kid'] = init_kid_factor
         params = {k: bm.as_f32(v).detach().clone().requires_grad_() for k, v in params.items()}
 
-        def loss_fn(p):
-            res = bm(glob_rotmats=rot_ops.rot6d_to_rotmat(p['rot6d']), shape_betas=p['betas'],
-                     trans=p['trans'], kid_factor=p.get('kid'))
-            v_diff_norm = torch.linalg.norm(res['vertices'] - target_vertices, dim=-1)
-            if vertex_weights is not None:
-                loss = torch.mean(vertex_weights * v_diff_norm)
-            else:
-                loss = torch.mean(v_diff_norm)
-            if target_joints is not None:
-                j_diff_norm = torch.linalg.norm(res['joints'] - target_joints, dim=-1)
-                if joint_weights is not None:
-                    loss = loss + torch.mean(joint_weights * j_diff_norm)
-                else:
-                    loss = loss + torch.mean(j_diff_norm)
-            if beta_regularizer > 0 and p['betas'].shape[1] > 2:
-                loss = loss + beta_regularizer * torch.mean(p['betas'][:, 2:] ** 2)
-            return loss
-
         schedule = refine_schedule(num_steps, lr, warmup_ratio)
         optimizer = torch.optim.Adam(list(params.values()), lr=0.0, betas=ADAM_BETAS,
                                      eps=ADAM_EPS)
         for k in range(num_steps):
             for group in optimizer.param_groups:
                 group['lr'] = schedule(k)
-            optimizer.zero_grad(set_to_none=True)
-            with torch.enable_grad():
-                loss_fn(params).backward()
+            _, grads = self.loss_and_grad(params, target_vertices, target_joints,
+                                          vertex_weights, joint_weights, beta_regularizer)
+            for name, grad in grads.items():
+                params[name].grad = grad
             optimizer.step()
 
         with torch.no_grad():

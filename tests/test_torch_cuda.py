@@ -24,7 +24,9 @@ the tooling: ``check_kernel_parity`` on SMPL and SMPL-X, ``precompile.warm``
 with the parity check, the sharded fit on an NCCL group of one rank equal
 bit for bit to the fit, and the joint-regressor trainer on the card; and
 the fit's stage spans under ``torch.profiler``: no device event of their
-own, the stages' stream times adding up to the fit's.
+own, the stages' stream times adding up to the fit's; and the refiner's
+step ``BodyFitterOpt.loss_and_grad`` at the benchmark's SMPL-X widths
+against the CPU port and the float64 reference of ``portbench/``.
 Operands are captured with ``chip_smoke.py``'s recorder and backward pass.
 
 Marked ``cuda``; they skip where PyTorch sees no CUDA device. This file imports
@@ -1523,3 +1525,75 @@ def test_fit_spans_add_no_device_event(card_models, monkeypatch):
     device_null, recs_null = _profiled_fit(fitter, tv, tj)
     assert recs_null == []
     assert len(device) == len(device_null) > 0
+
+
+@pytest.fixture(scope='module')
+def refine_cell(tmp_path_factory):
+    """The benchmark's ``smplx-refine-grad`` cell at B=1024: its refiner on
+    the card and on the CPU, the float64 reference on the card, and one
+    input set drawn on the card by the cell's entry."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from types import SimpleNamespace
+
+    from portbench import harness, synth
+    from portbench.reference import RefModel
+    from smplfitter_tpu_torch.models.bodyfitter_opt import BodyFitterOpt
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = harness.load_cell(root, 'smplx-refine-grad')
+    cfg = spec.config
+    model_root = synth.ensure_model_files(str(tmp_path_factory.mktemp('bench_models')), cfg)
+    opts = [BodyFitterOpt(BodyModel(cfg['model'], cfg['gender'], model_root=model_root,
+                                    num_betas=cfg['num_betas'], device=dev))
+            for dev in ('cuda', 'cpu')]
+    refs = [RefModel(model_root, cfg['model'], cfg['num_betas'], 'cuda', dt)
+            for dt in (torch.float32, torch.float64)]
+    tr = dict(spec.traffic, batch=1024, target_sets=1)
+    ctx = SimpleNamespace(config=cfg, traffic=tr, device='cuda')
+    inp = spec.entry.make_inputs(ctx, refs[0], torch.Generator('cuda').manual_seed(2 ** 31 + 9))[0]
+    return opts, refs[1], inp, tr
+
+
+def test_refine_step_on_smplx_matches_cpu_and_reference(refine_cell):
+    """``loss_and_grad`` at SMPL-X's published widths, B=1024: each gradient
+    on the card within REL_TOL (the CPU tests' 1e-5) x its largest component
+    of the CPU port's and of the float64 reference's; one K1 and one K10
+    launch; under the profiler, ``refine.loss`` and ``refine.backward``
+    cover at least 95% of ``refine``'s stream time, K10's launch counted in
+    ``refine.backward``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.reference_refine import PARAMS, refine_grads
+
+    (card, cpu), ref64, inp, tr = refine_cell
+    reg = tr['refine']['beta_regularizer']
+    params = {k: inp[k] for k in PARAMS}
+    lbs_kernels.reset_launch_counts()
+    loss, grads = card.loss_and_grad(params, inp['target_vertices'], inp['target_joints'],
+                                     beta_regularizer=reg)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in lbs_kernels.LAUNCHES.items() if n} == dict(lbs_points=1,
+                                                                         lbs_points_bwd=1)
+    loss_cpu, grads_cpu = cpu.loss_and_grad({k: v.cpu() for k, v in params.items()},
+                                            inp['target_vertices'].cpu(),
+                                            inp['target_joints'].cpu(), beta_regularizer=reg)
+    want = refine_grads(ref64, params, inp['target_vertices'], inp['target_joints'], 1024, reg)
+    for k in PARAMS:
+        for other in (grads_cpu[k].double(), want[k].cpu()):
+            gap = (grads[k].cpu().double() - other).abs().max().item()
+            assert gap <= REL_TOL * other.abs().max().item(), (k, gap)
+    assert abs(loss.item() - loss_cpu.item()) <= REL_TOL * loss_cpu.item()
+
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        card.loss_and_grad(params, inp['target_vertices'], inp['target_joints'],
+                           beta_regularizer=reg)
+        torch.cuda.synchronize()
+    recs = {r['name']: r for r in profiling.spans()}
+    profiling.clear_spans()
+    assert set(recs) == {'refine', 'refine.loss', 'forward', 'refine.backward'}
+    assert recs['refine.loss']['launches'] == recs['refine.backward']['launches'] == 1
+    parts = recs['refine.loss']['stream_ms'] + recs['refine.backward']['stream_ms']
+    # Events time to about a microsecond: the parts may read that much over.
+    assert 0.95 * recs['refine']['stream_ms'] <= parts <= recs['refine']['stream_ms'] + 1e-2
